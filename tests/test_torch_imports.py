@@ -1,0 +1,89 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` never
+import JAX or the reference package, and importing them never imports
+``triton`` or loads the CUDA library (the package must import on a machine
+with no GPU toolchain)."""
+import ast
+import importlib
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+_BANNED_ROOTS = {"jax", "jaxlib", "repro"}
+_LOADERS = {("ctypes", "CDLL"), ("ctypes", "cdll"), ("cuda_build", "load"),
+            ("cpp_extension", "load")}
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node, (node.module or "").split(".")[0]
+
+
+def _module_level(tree):
+    """Statements that run at import: the module body, descending into
+    if/try/with blocks but not into function or class bodies."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        yield node
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node, root in _imported_roots(tree):
+        assert root not in _BANNED_ROOTS, (
+            f"{path.relative_to(ROOT)}:{node.lineno} imports {root!r}")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_toolchain_work_at_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in _module_level(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] == "triton" for n in names), (
+                f"{path.relative_to(ROOT)}:{node.lineno} imports triton at "
+                f"module level")
+        if isinstance(node, ast.Call):
+            f = node.func
+            if isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name):
+                assert (f.value.id, f.attr) not in _LOADERS, (
+                    f"{path.relative_to(ROOT)}:{node.lineno} loads a native "
+                    f"library at import")
+
+
+def test_every_module_imports_without_jax_or_a_gpu():
+    """Import the whole package in a fresh interpreter and check that
+    neither JAX, the reference package nor triton came along."""
+    mods = [m.name for m in pkgutil.walk_packages([str(PORT)], "repro_torch.")]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert len(mods) >= 15
+
+
+def test_package_imports_here():
+    assert importlib.import_module("repro_torch.serve.sched")
