@@ -7,27 +7,50 @@ Phases, each of which raises (non-zero exit) on failure:
 
   1. card      name and power limit (``nvidia-smi``); no CUDA device or no
                ``src/repro_torch`` next to this script is an error.
-  2. build     the MG3M kernels from ``src/repro_torch/csrc`` (nvcc).
-  3. kernels   every grain (TB11, TB18, TB88) forced on the reference's
-               kernel-test scenes and on the dgrad (lhs-dilated) and wgrad
-               (rhs-dilated) plans of two strided scenes, each launch held
-               against the grain's plain PyTorch version on the same
-               operands: f32 within rtol=atol=1e-4, bf16 within 2e-2.
-  4. main path the full-width ResNet trunk (``cnn_chain_scenes("resnet")``,
+  2. build     every kernel source of ``src/repro_torch/csrc`` (one nvcc
+               each, all started together), with each ptxas summary.
+  3. kernels   every MG3M grain (TB11, TB18, TB88) forced on the
+               reference's kernel-test scenes and on the dgrad
+               (lhs-dilated) and wgrad (rhs-dilated) plans of two strided
+               scenes, each launch held against the grain's plain PyTorch
+               version on the same operands: f32 within rtol=atol=1e-4,
+               bf16 within 2e-2.
+  4. conv path the full-width ResNet trunk (``cnn_chain_scenes("resnet")``,
                224x224x3 in, 10 convs, ReLU between) registered on a
                ``ConvScheduler`` (strict, deadline flush), prewarmed, served
                from the background loop to ModelSession requests of batch
                1 and 2; zero post-warm plan builds, no reference plans, one
                request's output held against the plain-version chain, and
                one request bitwise equal served alone and coalesced.
-  5. timing    each trunk layer's device time at batch 1; then per kernel
-               at one main-path layer: the kernel, its plain
-               version and ``F.conv2d`` (f32, TF32 off; a yardstick the
-               port never calls), with CUDA events, beside the kernel's
-               bound.
+  5. conv timing  each trunk layer's device time at batch 1; then per
+               grain at one main-path layer: the kernel, its plain version
+               and ``F.conv2d`` (f32, TF32 off; a yardstick the port never
+               calls), with CUDA events, beside the kernel's bound.
+  6. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
+               attention on tests/test_flash_kernel.py's (causal and not,
+               plus D = 112), both also at the LM path's shapes, f32 and
+               bf16, each held against its plain version: f32 within 1e-4
+               (conv) / 2e-4 (attention), bf16 within 2e-2.
+  7. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
+               heads, bf16, seeded random weights) on the card: the
+               reference's cross-form oracle (prefill(255) + decode_step ==
+               forward(256) at the last position, within a bf16 tolerance
+               relative to max |logit|); then, with the launch counts set to
+               0, ``prefill`` of 2 x 2048 tokens and a ``ServeEngine`` (2
+               slots) answering 4 greedy requests (prompts of 17, 64, 255
+               and 600 tokens, 16 new each, one joining mid-stream); both
+               kernels must have launched on it; the joining request's
+               neighbour must give the tokens it gives served alone; the
+               reduced config's prefill on the card must match the CPU's;
+               one decode step and one prefill under ``torch.profiler``
+               (device busy time, idle share, time by kernel class).
+  8. LM timing  per kernel at the LM path's shapes: the kernel, its plain
+               version and one PyTorch call computing the same function
+               (``F.conv1d``, ``F.scaled_dot_product_attention``; never
+               called by the port), beside the kernel's bound.
 
-The last three lines of output are the ``kernels`` JSON line, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+The last three lines of output are the ``kernels`` JSON line (all five
+kernels), the card's name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -43,9 +66,11 @@ SRC = ROOT / "src"
 
 # H100 SXM datasheet peaks the bounds are taken against (dense, 700 W).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BW = 3.35e12
 
 KERNEL_SOURCE = "src/repro_torch/csrc/mg3m_conv.cu"
+SOURCES = ("mg3m_conv.cu", "causal_conv1d.cu", "flash_attention.cu")
 REPLACES = {"TB11": "src/repro/kernels/mg3m_conv.py:288",
             "TB18": "src/repro/kernels/mg3m_conv.py:320",
             "TB88": "src/repro/kernels/mg3m_conv.py:352"}
@@ -356,6 +381,401 @@ def timing_phase(torch, sched, chain, counts, errs):
     return rows
 
 
+# --------------------------------------------------------------------------
+# LM path: full-width zamba2-7b through ServeEngine (causal_conv1d, flash)
+# --------------------------------------------------------------------------
+LM_ARCH = "zamba2-7b"
+LM_KERNELS = {
+    "causal_conv1d": ("src/repro_torch/csrc/causal_conv1d.cu",
+                      "src/repro/kernels/causal_conv1d.py:38"),
+    "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:75"),
+}
+LM_TOL = {("causal_conv1d", "float32"): 1e-4,
+          ("flash_attention_fwd", "float32"): 2e-4,
+          ("causal_conv1d", "bfloat16"): 2e-2,
+          ("flash_attention_fwd", "bfloat16"): 2e-2}
+# (B, L, D, K): tests/test_kernels.py:88-90
+CONV1D_SHAPES = [(2, 32, 16, 4), (1, 7, 5, 3), (3, 100, 64, 4),
+                 (2, 16, 16, 2), (1, 64, 128, 4)]
+# (B, S, T, Hq, Hkv, D): tests/test_flash_kernel.py:27-32, then D = 112
+FLASH_SHAPES = [(2, 64, 64, 4, 4, 32), (2, 64, 64, 8, 2, 32),
+                (1, 128, 128, 4, 1, 64), (2, 96, 96, 2, 2, 16),
+                (2, 255, 255, 8, 4, 112)]
+PREFILL_B, PREFILL_S = 2, 2048
+ORACLE_S = 256            # lengths over the SSD chunk (256) must be multiples
+# max |decode - forward| / max |logit| in bf16: each layer rounds some ten
+# intermediates at 2^-9 relative, which add over 81 layers like a random
+# walk to about sqrt(810) * 2^-9 = 0.056 of the hidden state's scale; the
+# head carries that to the logits.  Twice that is allowed.
+ORACLE_TOL = 0.1
+PROMPT_LENS = (17, 64, 255, 600)
+MAX_NEW = 16
+MAX_LEN = 640
+
+
+def lm_shapes(cfg):
+    """The kernels' operand shapes on the LM path's prefill: causal_conv1d
+    x ``[B, L, conv_dim]`` and K; flash q ``(B*H, S, D)``, k/v
+    ``(B*Hkv, S, D)``."""
+    conv_dim = cfg.ssm.expand * cfg.d_model \
+        + 2 * cfg.ssm.n_groups * cfg.ssm.state
+    return ((PREFILL_B, PREFILL_S, conv_dim), cfg.ssm.conv_kernel,
+            (PREFILL_B * cfg.n_heads, PREFILL_S, cfg.d_head),
+            (PREFILL_B * cfg.n_kv_heads, PREFILL_S, cfg.d_head))
+
+
+def _hold(torch, name, dtype, got, want, errs, what):
+    tol = LM_TOL[(name, dtype)]
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{name} {dtype} disagrees with its plain "
+                             f"version (max abs err {err}) on {what}")
+    errs[(name, dtype)] = max(errs.get((name, dtype), 0.0), err)
+
+
+def lm_kernel_phase(torch):
+    """causal_conv1d and flash attention on the reference's test shapes and
+    the LM path's, f32 and bf16, each launch held against the plain
+    version on the same operands.  Returns max abs errors."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+
+    (b0, l0, c0), k0, (bh, s0, d0), (bhkv, _, _) = lm_shapes(
+        get_config(LM_ARCH))
+    conv_shapes = CONV1D_SHAPES + [(b0, l0, c0, k0)]
+    flash_shapes = FLASH_SHAPES + [(PREFILL_B, s0, s0, bh // PREFILL_B,
+                                    bhkv // PREFILL_B, d0)]
+    gen = torch.Generator().manual_seed(5)
+    errs, checks = {}, 0
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen).to("cuda", tdt)
+
+        for b, l, d, k in conv_shapes:
+            x, w = rand(b, l, d), rand(k, d)
+            _hold(torch, "causal_conv1d", dtype, causal_conv1d(x, w),
+                  causal_conv1d_plain(x, w), errs, f"x {(b, l, d)} K={k}")
+            checks += 1
+        for b, s, t, hq, hkv, d in flash_shapes:
+            q, k, v = rand(b * hq, s, d), rand(b * hkv, t, d), \
+                rand(b * hkv, t, d)
+            for causal in (True, False):
+                _hold(torch, "flash_attention_fwd", dtype,
+                      flash_attention_fwd(q, k, v, causal=causal),
+                      flash_attention_plain(q, k, v, causal=causal), errs,
+                      f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                      f"causal={causal}")
+                checks += 1
+    torch.cuda.synchronize()
+    print(f"LM kernels: {checks} launches held against their plain "
+          f"versions in {time.perf_counter() - t0:.1f} s; max abs err "
+          f"{ {f'{n}/{d}': e for (n, d), e in sorted(errs.items())} }")
+    return errs
+
+
+def _lm_counts():
+    from repro_torch.kernels.causal_conv1d import causal_conv1d
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    return {"causal_conv1d": causal_conv1d.launches,
+            "flash_attention_fwd": flash_attention_fwd.launches}
+
+
+def _reset_lm_counts():
+    from repro_torch.kernels.causal_conv1d import causal_conv1d
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    causal_conv1d.launches = 0
+    flash_attention_fwd.launches = 0
+
+
+def _serve(torch, cfg, model, prompts, join: bool):
+    """Greedy requests through a fresh 2-slot ServeEngine; with ``join``
+    the first request decodes one step alone before the rest are
+    submitted.  Returns (requests, latency s by rid, decode steps)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, model, slots=2, max_len=MAX_LEN)
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+    sent, lat = {0: time.perf_counter()}, {}
+    eng.submit(reqs[0])
+    if join:
+        eng.step()
+    for r in reqs[1:]:
+        sent[r.rid] = time.perf_counter()
+        eng.submit(r)
+    steps = int(join)
+    while eng.queue or any(a is not None for a in eng.active):
+        eng.step()                 # ends in a host read of the tokens
+        steps += 1
+        now = time.perf_counter()
+        for r in reqs:
+            if r.done and r.rid not in lat:
+                lat[r.rid] = now - sent[r.rid]
+    return reqs, lat, steps
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attention"
+    if "causal_conv1d" in low:
+        return "causal_conv1d"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90")):
+        return "matmul"
+    if "reduce" in low or "softmax" in low or "scan" in low:
+        return "reduction"
+    if "elementwise" in low or "copy" in low or "cat" in low:
+        return "elementwise/copy"
+    return "other"
+
+
+def lm_profile(torch, fn, label: str) -> None:
+    """One call of ``fn`` under ``torch.profiler``: wall time, the
+    device's busy time (the sum of kernel times; one stream) and idle
+    share, and device time by kernel class.  Profiling adds host time, so
+    the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print(f"  profile {label}: wall {wall_ms:.1f} ms; the profiler saw "
+              f"no device time (device busy time not measured)")
+        return
+    by_class = {}
+    for e in kernels:
+        c = _kernel_class(e.key)
+        ms, n = by_class.get(c, (0.0, 0))
+        by_class[c] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    parts = ", ".join(f"{c} {ms:.1f} ms ({ms / busy_ms:.0%}, {n} launches)"
+                      for c, (ms, n) in sorted(by_class.items(),
+                                               key=lambda kv: -kv[1][0]))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"  profile {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle {1 - busy_ms / wall_ms:.0%}; {parts}; "
+          f"top kernels: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+              f"x{e.count}" for e in top))
+
+
+def lm_path(torch, np):
+    """Full-width zamba2-7b on the card: the cross-form oracle, then the
+    main path (prefill 2 x 2048, ServeEngine) with launch counts read
+    around it, the isolation check and the card-vs-CPU check on the
+    reduced config.  Returns the main path's launch counts."""
+    import copy
+
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.models.transformer import init_params
+
+    F = torch.nn.functional
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)                 # device None: the card
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"LM path: {cfg.name} ({cfg.n_layers} layers: "
+          f"{len(model.groups)} groups of {cfg.attn_every} + "
+          f"{len(model.tail)} tail; d_model {cfg.d_model}, {cfg.n_heads}x"
+          f"{cfg.d_head} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, SSM "
+          f"state {cfg.ssm.state}, {cfg.dtype}), {n_params / 1e9:.3f} B "
+          f"params, {n_bytes / 1e9:.2f} GB, seeded init "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(6)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+
+    with torch.no_grad():
+        # the reference's cross-form oracle (tests/test_models.py:47-72)
+        toks = tokens(2, ORACLE_S)
+        full, _ = model(tokens=toks)
+        _, cache = model.prefill(tokens=toks[:, :-1])
+        cache["kv"] = {k: F.pad(v, (0, 0, 0, 0, 0, 1))
+                       for k, v in cache["kv"].items()}
+        dec, _ = model.decode_step(
+            cache, torch.full((2,), ORACLE_S - 1, device="cuda"),
+            tokens=toks[:, -1:])
+        want, got = full[:, -1], dec[:, 0]
+        if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
+            raise AssertionError("non-finite logits in the oracle")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+        print(f"  oracle prefill({ORACLE_S - 1}) + decode_step vs forward("
+              f"{ORACLE_S}): max |diff| / max |logit| = {rel:.3e} (tol "
+              f"{ORACLE_TOL}), max |logit| {want.abs().max().item():.3f}, "
+              f"argmax agrees {agree}")
+        if rel > ORACLE_TOL:
+            raise AssertionError(f"decode does not match forward: {rel}")
+        del full, cache, dec, want, got
+
+        # the main path, launch counts read around it
+        prompt_rng = np.random.default_rng(7)
+        prompts = [prompt_rng.integers(0, cfg.vocab, n).tolist()
+                   for n in PROMPT_LENS]
+        ptoks = tokens(PREFILL_B, PREFILL_S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_lm_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(tokens=ptoks)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        reqs, lat, steps = _serve(torch, cfg, model, prompts, join=True)
+        counts = _lm_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"not finite or misshapen")
+        kv_shape = tuple(cache["kv"]["k"].shape)
+        if kv_shape != (len(model.groups), PREFILL_B, PREFILL_S,
+                        cfg.n_kv_heads, cfg.d_head):
+            raise AssertionError(f"prefill KV cache {kv_shape}")
+        del logits, cache
+        for r in reqs:
+            if not (r.done and len(r.out) == MAX_NEW
+                    and all(0 <= t < cfg.vocab for t in r.out)):
+                raise AssertionError(f"request {r.rid} not served: {r}")
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{name} never launched on the LM "
+                                     f"path: {counts}")
+
+        # isolation: the joining request's neighbour, served alone
+        solo, _, _ = _serve(torch, cfg, model, prompts[:1], join=False)
+        if solo[0].out != reqs[0].out:
+            raise AssertionError(f"request 0 served alone gave "
+                                 f"{solo[0].out}, beside a joining request "
+                                 f"{reqs[0].out}")
+
+        # decode step time at the engine's batch (2 slots)
+        cache = model.init_cache(2, MAX_LEN)
+        pos = torch.full((2,), PROMPT_LENS[-1], device="cuda")
+        tok = tokens(2, 1)
+        dec_ms = time_ms(torch, lambda: model.decode_step(cache, pos,
+                                                          tokens=tok),
+                         iters=10)
+        lm_profile(torch, lambda: model.decode_step(cache, pos, tokens=tok),
+                   "decode step, 2 slots")
+        del cache
+        lm_profile(torch, lambda: model.prefill(tokens=ptoks),
+                   f"prefill {PREFILL_B}x{PREFILL_S}")
+
+        # the card against the CPU on the reduced config (f32)
+        small = reduced(cfg)
+        cpu_model = init_params(small, seed=1, device="cpu")
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        stoks = torch.randint(0, small.vocab, (2, 32), generator=gen)
+        lc, cc = cpu_model.prefill(tokens=stoks)
+        lg, cg = card_model.prefill(tokens=stoks.cuda())
+        small_err = (lg.cpu() - lc).abs().max().item()
+        if small_err > 1e-3:
+            raise AssertionError(f"reduced {small.name}: card prefill logits "
+                                 f"differ from the CPU's by {small_err}")
+
+    ms = np.asarray([lat[r.rid] for r in reqs]) * 1e3
+    print(f"  prefill {PREFILL_B}x{PREFILL_S} tokens: {prefill_s:.3f} s, "
+          f"{PREFILL_B * PREFILL_S / prefill_s:.0f} tokens/s")
+    print(f"  ServeEngine: {len(reqs)} requests (prompts {PROMPT_LENS}, "
+          f"{MAX_NEW} new each) in {steps} steps; request latency p50 "
+          f"{np.percentile(ms, 50):.1f} ms, max {ms.max():.1f} ms "
+          f"({ {r.rid: round(lat[r.rid] * 1e3, 1) for r in reqs} }); "
+          f"decode step at 2 slots {dec_ms:.2f} ms")
+    print(f"  isolation: request 0 gives {reqs[0].out[:6]}... alone and "
+          f"beside a joining request; reduced {small.name} card vs CPU "
+          f"prefill logits max abs err {small_err:.3e}; peak memory "
+          f"{peak_gb:.1f} GB")
+    print(f"  launches on the LM path: {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_timing_phase(torch, counts, errs):
+    """Per kernel at the LM path's prefill shapes (bf16): kernel, plain
+    version and one PyTorch call computing the same function."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    (b, l, c), k, qshape, kvshape = lm_shapes(get_config(LM_ARCH))
+    gen = torch.Generator().manual_seed(8)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to("cuda", bf)
+
+    def row(name, fn, plain, lib, lib_out, flops, nbytes, shape):
+        source, replaces = LM_KERNELS[name]
+        got = fn()
+        _hold(torch, name, "bfloat16", got, plain(), errs, shape)
+        lib_err = (lib_out(lib()).float() - got.float()).abs().max().item()
+        k_ms = time_ms(torch, fn)
+        p_ms = time_ms(torch, plain)
+        lib_ms = time_ms(torch, lib)
+        nbytes += got.numel() * got.element_size()
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_HBM_BW * 1e3
+        print(f"  {name} at {shape}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, library {lib_ms:.4f} ms (max abs diff to the "
+              f"kernel {lib_err:.3e}), bound {max(ops_ms, bytes_ms):.4f} ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": errs[(name, "float32")],
+                "max_abs_err_bf16": errs[(name, "bfloat16")],
+                "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": lib_ms, "shape": shape,
+                "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+    x, w = rand(b, l, c), rand(k, c, scale=0.2)
+    xt, wt = x.transpose(1, 2).contiguous(), w.t().contiguous()[:, None, :]
+    rows = [row("causal_conv1d", lambda: causal_conv1d(x, w),
+                lambda: causal_conv1d_plain(x, w),
+                lambda: F.conv1d(xt, wt, padding=k - 1, groups=c)[..., :l],
+                lambda y: y.transpose(1, 2), 2 * k * b * l * c,
+                (x.numel() + w.numel()) * 2,
+                f"x [{b}, {l}, {c}] bf16, K={k}")]
+    del x, w, xt, wt
+    q, kk, v = rand(*qshape), rand(*kvshape), rand(*kvshape)
+    bh, s, d = qshape
+    h = bh // PREFILL_B
+    q4, k4, v4 = (t.view(PREFILL_B, -1, s, d) for t in (q, kk, v))
+    k4, v4 = (t.repeat_interleave(h // t.shape[1], 1) for t in (k4, v4))
+    rows.append(row(
+        "flash_attention_fwd",
+        lambda: flash_attention_fwd(q, kk, v, causal=True),
+        lambda: flash_attention_plain(q, kk, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        lambda o: o.reshape(bh, s, d), 4 * bh * s * s * d // 2,
+        (q.numel() + kk.numel() + v.numel()) * 2,
+        f"q ({bh}, {s}, {d}) bf16 causal, {h} heads x {PREFILL_B}"))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -375,11 +795,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from repro_torch.kernels import cuda_build
-    from repro_torch.kernels.mg3m_conv import SOURCE, library
     t0 = time.perf_counter()
-    library()
-    print(f"build: {SOURCE} in {time.perf_counter() - t0:.1f} s")
-    print(f"ptxas: {ptxas_summary(cuda_build.build_logs.get(SOURCE, ''))}")
+    cuda_build.load_all(SOURCES)
+    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for src in SOURCES:
+        print(f"ptxas: {src}: "
+              f"{ptxas_summary(cuda_build.build_logs.get(src, ''))}")
 
     errs = {}
     t0 = time.perf_counter()
@@ -391,6 +812,10 @@ def main() -> int:
     sched, chain, counts = main_path(torch, np)
     layer_breakdown(torch, sched, chain)
     rows = timing_phase(torch, sched, chain, counts, errs)
+
+    lm_errs = lm_kernel_phase(torch)
+    lm_counts = lm_path(torch, np)
+    rows += lm_timing_phase(torch, lm_counts, lm_errs)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,21 +1,29 @@
-"""Carry per-layer weights from the reference package into the port.
+"""Carry weights from the reference package into the port.
 
-The JAX package keeps one FLT array per layer in the paper layout
-``[fltH, fltW, IC, OC]``; these turn such arrays (as numpy, e.g.
-``np.asarray(jax_array)``) into the port's tensors, checking each shape
-against its scene.  bf16 arrays arrive as numpy's ``ml_dtypes`` bfloat16,
-which torch cannot wrap directly, so every array crosses as float32 (exact
-for bf16 values) and is cast to the scene's dtype on the device.
+CNNs: the JAX package keeps one FLT array per layer in the paper layout
+``[fltH, fltW, IC, OC]``; ``flt_from_numpy`` / ``net_weights_from_numpy``
+turn such arrays (as numpy, e.g. ``np.asarray(jax_array)``) into the port's
+tensors, checking each shape against its scene.
+
+LMs: ``lm_params_from_numpy`` turns the reference's parameter pytree of
+``transformer.init_params`` (as numpy) into the port's ``HybridLM``.
+
+bf16 arrays arrive as numpy's ``ml_dtypes`` bfloat16, which torch cannot
+wrap directly, so every array crosses as float32 (exact for bf16 values)
+and is cast back to its own dtype on the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scene import ConvScene
 from repro_torch.device import DeviceSpec, resolve_device, torch_dtype
+from repro_torch.models.transformer import (HybridLM, layer_counts,
+                                            require_hybrid)
 
 
 def flt_from_numpy(arr, scene: ConvScene,
@@ -44,3 +52,41 @@ def net_weights_from_numpy(scenes: Mapping[str, ConvScene],
         raise KeyError(f"no weight array for layers {missing}")
     return {name: flt_from_numpy(arrays[name], sc, dev)
             for name, sc in scenes.items()}
+
+
+def _leaf(arr, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(arr)
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(device=dev, dtype=torch_dtype(a.dtype)).contiguous()
+
+
+def _tree(node, dev: torch.device, index=()):
+    """Every leaf of a nested dict, indexed along its leading axes by
+    ``index`` and moved to ``dev``."""
+    if isinstance(node, Mapping):
+        return {k: _tree(v, dev, index) for k, v in node.items()}
+    return _leaf(np.asarray(node)[index], dev)
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
+                         device: DeviceSpec = None) -> HybridLM:
+    """The reference's LM parameter pytree (nested dicts of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's ``HybridLM``
+    on ``device`` (default the card).
+
+    The reference stacks the Mamba2 layers as ``(n_groups, attn_every,
+    ...)`` under ``layers`` and ``(tail, ...)`` under ``tail_layers``
+    (``transformer.py:103-118``); these are unstacked into one tree per
+    layer.  Each leaf keeps its dtype (bf16 weights, the f32 ``A_log``,
+    ``D`` and ``dt_bias``)."""
+    require_hybrid(cfg)
+    dev = resolve_device(device)
+    n_groups, tail = layer_counts(cfg)
+    port = {k: _tree(tree[k], dev) for k in
+            ("embed", "lm_head", "final_norm", "shared_attn") if k in tree}
+    port["layers"] = [[_tree(tree["layers"], dev, (g, i))
+                       for i in range(cfg.attn_every)]
+                      for g in range(n_groups)]
+    port["tail_layers"] = [_tree(tree["tail_layers"], dev, (i,))
+                           for i in range(tail)]
+    return HybridLM(cfg, port)

@@ -6,7 +6,8 @@ build happens at first use, never at import (this module imports on a
 machine with no CUDA toolkit), into ``BUILD_DIR`` — ``src/repro_torch/
 _build/`` unless ``REPRO_TORCH_BUILD_DIR`` says otherwise, ignored by git.
 A library is named by a hash of its source and flags, so an edited source
-never loads a stale build.
+never loads a stale build.  ``load_all`` builds several sources at once,
+one ``nvcc`` process each, all started together.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -73,3 +75,17 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[source] = lib
         return lib
+
+
+def load_all(sources: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build every source that is not built yet, one ``nvcc`` each, all
+    started together; then load them.  Raises on the first failed build."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        futures = {src: pool.submit(build, src) for src in sources}
+        built = {src: fut.result() for src, fut in futures.items()}
+    with _lock:
+        for src, (path, log) in built.items():
+            if src not in _libs:
+                build_logs[src] = log
+                _libs[src] = ctypes.CDLL(str(path))
+        return {src: _libs[src] for src in sources}

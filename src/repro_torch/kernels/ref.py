@@ -1,4 +1,4 @@
-"""PyTorch oracles for the conv kernels (port of ``repro.kernels.ref``).
+"""PyTorch oracles for the kernels (port of ``repro.kernels.ref``).
 
 All reference functions use the paper's data layouts:
   IN  [inH, inW, IC, B]
@@ -72,3 +72,19 @@ def mm_unit_ref(flt_mtx: torch.Tensor, in_mtx: torch.Tensor) -> torch.Tensor:
     """The paper's MM_unit: OUT[OC,B] = FLT[IC,OC]^T @ IN[IC,B] (Eq. 2),
     f32 accumulation, cast to the input's dtype."""
     return (flt_mtx.float().T @ in_mtx.float()).to(in_mtx.dtype)
+
+
+def causal_conv1d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d (Mamba2 conv), x: [B, L, D], w: [K, D].
+
+    y[b, l, d] = sum_k w[k, d] * x[b, l - (K-1) + k, d], zeros off the left
+    edge; f32, taps summed forward from k = 0 as the reference's oracle
+    does; cast to x's dtype.
+    """
+    k = w.shape[0]
+    xf = x.float()
+    pad = F.pad(xf, (0, 0, k - 1, 0))
+    y = torch.zeros_like(xf)
+    for i in range(k):
+        y = y + w[i].float()[None, None, :] * pad[:, i:i + x.shape[1]]
+    return y.to(x.dtype)
