@@ -8,24 +8,43 @@ Phases, each of which raises (non-zero exit) on failure:
   1. card      name and power limit (``nvidia-smi``); no CUDA device or no
                ``src/repro_torch`` next to this script is an error.
   2. build     every kernel source of ``src/repro_torch/csrc`` (one nvcc
-               each, all started together), with each ptxas summary.
+               each, all started together), with each ptxas summary and
+               each library's count of tensor-core instructions (HGMMA,
+               HMMA) from ``cuobjdump -sass``; the bf16 flash kernel must
+               have some.
   3. kernels   every MG3M grain (TB11, TB18, TB88) forced on the
                reference's kernel-test scenes and on the dgrad
                (lhs-dilated) and wgrad (rhs-dilated) plans of two strided
-               scenes, each launch held against the grain's plain PyTorch
-               version on the same operands: f32 within rtol=atol=1e-4,
-               bf16 within 2e-2.
+               scenes, and TB18 on trunk L7 and L9 at batch 1 and 2, each
+               launch held against the grain's plain PyTorch version on
+               the same operands: f32 within rtol=atol=1e-4, bf16 within
+               2e-2.
   4. conv path the full-width ResNet trunk (``cnn_chain_scenes("resnet")``,
                224x224x3 in, 10 convs, ReLU between) registered on a
                ``ConvScheduler`` (strict, deadline flush), prewarmed, served
                from the background loop to ModelSession requests of batch
-               1 and 2; zero post-warm plan builds, no reference plans, one
-               request's output held against the plain-version chain, and
-               one request bitwise equal served alone and coalesced.
-  5. conv timing  each trunk layer's device time at batch 1; then per
-               grain at one main-path layer: the kernel, its plain version
-               and ``F.conv2d`` (f32, TF32 off; a yardstick the port never
-               calls), with CUDA events, beside the kernel's bound.
+               1 and 2 (four alone, a burst of eight, then eight of batch
+               1 that fill bucket 8); all three grains must have launched;
+               zero post-warm plan builds, no reference plans, every
+               served plan's kernel held against its plain version on the
+               card, one request's output held against the plain-version
+               chain, and one request bitwise equal served alone and
+               coalesced.
+  5. conv timing  each trunk layer at buckets 1, 2, 4 and 8: its plan's
+               time (CUDA events, host included) and the device time
+               (a CUDA graph of 20 calls, host left out) of its kernel, of
+               every grain forced and of ``F.conv2d`` on the same layer
+               (f32, TF32 off; a yardstick the port never calls); TB18's
+               kernel time at every compiled tile of its slice on five
+               trunk layers at batch 1 and 2 (the selector's tile ranking
+               is checked against these; each tile's output bitwise the
+               chosen one's); then
+               per grain at its layer of PERF.md's kernel table (TB11 at
+               L0, TB18 at L2, TB88 at L1, batch 1): the kernel, its
+               plain version and ``F.conv2d``, device time, beside the
+               kernel's bound.  A grain the selector no longer picks
+               there is forced and gets a second row at its costliest
+               main-path plan.
   6. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
                attention on tests/test_flash_kernel.py's (causal and not,
                plus D = 112), both also at the LM path's shapes, f32 and
@@ -49,8 +68,15 @@ Phases, each of which raises (non-zero exit) on failure:
                (``F.conv1d``, ``F.scaled_dot_product_attention``; never
                called by the port), beside the kernel's bound.
 
+In the ``kernels`` line, ``ms`` and ``library_ms`` are device time (20
+calls replayed from a CUDA graph, the host's time per call left out);
+``plain_ms`` is CUDA-event time of 20 back-to-back calls, the host's
+time included.
+
 The last three lines of output are the ``kernels`` JSON line (all five
-kernels), the card's name and power limit, and ``{"ok": true, ...}``.
+kernels; a conv grain off the main path at PERF.md's layer has a second
+row, ``<name>_main_path``), the card's name and power limit, and
+``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -84,6 +110,12 @@ KERNEL_SCENES = [(8, 16, 24, 10, 3, 1, 1), (4, 8, 8, 7, 1, 0, 1),
 # (B, IC, OC, inH, inW, flt, pad, stdH, stdW): tests/test_dilated.py's
 # "stride2" and "asym_stride"
 STRIDED_SCENES = [(2, 8, 4, 10, 10, 3, 1, 2, 2), (3, 5, 7, 11, 9, 3, 0, 3, 2)]
+# TB18's redesign targets: the small-spatial trunk layers, batch 1 and 2
+TB18_TRUNK = [("resnet/L7", 1), ("resnet/L7", 2), ("resnet/L9", 1),
+              ("resnet/L9", 2)]
+# PERF.md's per-grain timing layers (batch 1)
+TIMING_LAYERS = {"TB11": "resnet/L0", "TB18": "resnet/L2",
+                 "TB88": "resnet/L1"}
 
 
 def card_line() -> str:
@@ -105,6 +137,21 @@ def ptxas_summary(log: str) -> str:
             f"{max(spills, default=0)} bytes")
 
 
+def tensor_core_counts(lib_path) -> dict:
+    """``{function: (HGMMA, HMMA)}`` instruction counts of one built
+    library, from ``cuobjdump -sass`` (the toolkit's, next to nvcc)."""
+    from repro_torch.kernels import cuda_build
+    tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        counts[name] = (part.count("HGMMA"), part.count("HMMA"))
+    return counts
+
+
 def time_ms(torch, fn, iters: int = 20) -> float:
     """Mean milliseconds of ``fn()`` over ``iters`` back-to-back calls,
     CUDA events around the run, after one warm-up call."""
@@ -120,13 +167,39 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls
+    captured in one CUDA graph and replayed between two CUDA events, so
+    the host's time per call, longer than a small conv kernel's own, is
+    left out (``time_ms`` of back-to-back calls reads it instead)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up, outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def kernel_phase(torch, errs):
     """Force every grain on the test scenes; hold each launch against the
     plain version on the same operands.  Returns the number of checks."""
     from repro_torch.core.scene import ConvScene
     from repro_torch.kernels.mg3m_conv import conv_plain
+    from repro_torch.models.cnn import cnn_chain_scenes
     from repro_torch.plan import ConvOp, make_plan
 
+    chain = cnn_chain_scenes("resnet")
     gen = torch.Generator().manual_seed(0)
     checks = 0
     for dtype, tol in TOL.items():
@@ -149,8 +222,16 @@ def kernel_phase(torch, errs):
                            rand(sc.out_shape()))
             cases.append((sc, ConvOp.DGRAD, cot, flt))
             cases.append((sc, ConvOp.WGRAD, x, cot))
-        for sc, op, a, b in cases:
-            for grain in ("TB11", "TB18", "TB88"):
+        grains = [("TB11", "TB18", "TB88")] * len(cases)
+        for name, b in TB18_TRUNK:
+            sc = ConvScene(**{**chain[name].with_batch(b).__dict__,
+                              "dtype": dtype})
+            fan_in = sc.fltH * sc.fltW * sc.IC
+            cases.append((sc, ConvOp.FPROP, rand(sc.in_shape()),
+                          rand(sc.flt_shape()) * fan_in ** -0.5))
+            grains.append(("TB18",))
+        for (sc, op, a, b), names in zip(cases, grains):
+            for grain in names:
                 try:
                     plan = make_plan(sc, op, policy=grain)
                 except ValueError:
@@ -183,7 +264,7 @@ def he_weights(torch, chain):
             for name, sc in chain.items()}
 
 
-def main_path(torch, np):
+def main_path(torch, np, errs):
     from repro_torch.kernels import mg3m_conv as K
     from repro_torch.kernels.mg3m_conv import conv_plain
     from repro_torch.models.cnn import cnn_chain_scenes
@@ -226,6 +307,16 @@ def main_path(torch, np):
             sched.wait([r])
             lat.append(time.perf_counter() - t)
             reqs.append(r)
+        # eight requests of batch 1 submitted back to back: bucket 8,
+        # where the selector picks TB88 on several layers
+        xs = [torch.randn(sc0.in_shape()[:3] + (1,), generator=gen)
+              for _ in range(8)]
+        burst = [(time.perf_counter(), sess.submit(x, deadline_s=0.1))
+                 for x in xs]
+        for t, r in burst:
+            sched.wait([r])
+            lat.append(time.perf_counter() - t)
+            reqs.append(r)
     finally:
         sched.stop()
     counts = K.launch_counts()
@@ -243,11 +334,26 @@ def main_path(torch, np):
     for name, sc in chain.items():
         grains[name] = {b: sched.registry.get(sc.with_batch(b), ConvOp.FPROP)
                         .schedule for b in sched.flush_ladders()[name]}
-    used = {p.schedule for p in plans}
-    for grain in sorted(used):
+    for grain in ("TB11", "TB18", "TB88"):
         if counts[grain] == 0:
-            raise AssertionError(f"{grain} was chosen but never launched "
-                                 f"on the main path: {counts}")
+            raise AssertionError(f"{grain} never launched on the main "
+                                 f"path: {counts}")
+    # every served plan's kernel against its plain version, at the shapes
+    # the main path gave it (after the counts were read)
+    gen = torch.Generator().manual_seed(5)
+    for plan in plans:
+        x = torch.randn(plan.scene.in_shape(), generator=gen).cuda()
+        w = sched._layers[_layer_of(chain, plan.scene)].flt
+        fn, inp, flt, blocks = plan.kernel_call(x, w)
+        got = fn(inp, flt, plan.exec_scene, **blocks)
+        want = conv_plain(inp, flt, plan.exec_scene)
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=TOL["float32"],
+                              atol=TOL["float32"]):
+            raise AssertionError(f"{plan.describe()} disagrees with its "
+                                 f"plain version (max abs err {err})")
+        key = (plan.schedule, "float32")
+        errs[key] = max(errs.get(key, 0.0), err)
 
     # correctness: one request against the plain-version chain on the card
     req = reqs[0]
@@ -283,102 +389,176 @@ def main_path(torch, np):
     for name, by_bucket in grains.items():
         print(f"  {name} {chain[name].describe()[:60]} grain by bucket "
               f"{by_bucket}")
-    print(f"  launches on the main path: {counts}")
+    print(f"  launches on the main path: {counts}; {len(plans)} served "
+          f"plans held against their plain versions")
     return sched, chain, counts
 
 
+def _layer_of(chain, scene) -> str:
+    return next(n for n, sc in chain.items() if sc.with_batch(scene.B)
+                == scene)
+
+
 def layer_breakdown(torch, sched, chain, bucket: int = 1) -> float:
-    """Device time of each trunk layer's plan (padding, kernel, slicing)
-    at ``bucket``, CUDA events, beside every other grain forced on the same
-    layer (the data a calibrated selector would rank by); returns the
-    trunk's sum for the selector's choices in ms."""
+    """Time of each trunk layer's plan (padding, kernel, slicing) at
+    ``bucket``, CUDA events around back-to-back calls (so the host's time
+    per call counts where it is the longer), and the device time of its
+    kernel alone, of every grain's kernel forced on the same layer (the
+    data a calibrated selector would rank by) and of ``F.conv2d`` on the
+    same input (TF32 off); returns the trunk's plan-time sum in ms."""
     from repro_torch.plan import ConvOp, make_plan
 
+    F = torch.nn.functional
     gen = torch.Generator().manual_seed(4)
-    total = 0.0
+    total = k_total = lib_total = 0.0
     for name, sc in chain.items():
         plan = sched.registry.get(sc.with_batch(bucket), ConvOp.FPROP)
         x = torch.randn(plan.scene.in_shape(), generator=gen).cuda()
         w = sched._layers[name].flt
         ms = time_ms(torch, lambda: plan.execute(x, w))
+        fn, inp, flt, blocks = plan.kernel_call(x, w)
+        k_ms = device_ms(torch, lambda: fn(inp, flt, plan.exec_scene,
+                                           **blocks))
         total += ms
+        k_total += k_ms
         forced = {}
         for grain in ("TB11", "TB18", "TB88"):
             try:
                 fp = make_plan(plan.scene, policy=grain)
             except ValueError:
                 continue
-            forced[grain] = round(time_ms(torch, lambda: fp.execute(x, w)), 4)
-        print(f"  {name} B={bucket} {plan.schedule}: {ms:.4f} ms, "
-              f"{plan.scene.flops / ms / 1e6:.1f} GFLOP/s; forced grains "
-              f"ms {forced}")
-    print(f"  trunk B={bucket}: {total:.4f} ms of device time per forward")
-    return total
-
-
-def timing_phase(torch, sched, chain, counts, errs):
-    """Per kernel, at the first main-path layer whose plan chose it,
-    smallest bucket first: kernel, plain version, F.conv2d."""
-    from repro_torch.kernels.mg3m_conv import conv_plain
-    from repro_torch.plan import ConvOp
-
-    F = torch.nn.functional
-    rows = []
-    buckets = sorted({b for rungs in sched.flush_ladders().values()
-                      for b in rungs})
-    for grain in ("TB11", "TB18", "TB88"):
-        found = None
-        for b in buckets:
-            for name, sc in chain.items():
-                plan = sched.registry.get(sc.with_batch(b), ConvOp.FPROP)
-                if plan.schedule == grain:
-                    found = (name, plan)
-                    break
-            if found:
-                break
-        if found is None:
-            raise AssertionError(f"{grain} serves no main-path layer")
-        name, plan = found
+            ffn, finp, fflt, fblocks = fp.kernel_call(x, w)
+            forced[grain] = round(device_ms(torch, lambda: ffn(
+                finp, fflt, fp.exec_scene, **fblocks)), 4)
         sc = plan.scene
-        gen = torch.Generator().manual_seed(3)
-        x = torch.randn(sc.in_shape(), generator=gen).cuda()
-        w = sched._layers[name].flt
-        fn, inp, flt, blocks = plan.kernel_call(x, w)
-        got = fn(inp, flt, sc, **blocks)
-        want = conv_plain(inp, flt, sc)
-        err = (got - want).abs().max().item()
-        errs[(grain, "float32")] = max(errs.get((grain, "float32"), 0.0),
-                                       err)
         x_nchw = x.permute(3, 2, 0, 1).contiguous()
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            lib_ms = time_ms(torch, lambda: F.conv2d(
+            lib_ms = device_ms(torch, lambda: F.conv2d(
                 x_nchw, w_oihw, stride=(sc.stdH, sc.stdW),
                 padding=(sc.padH, sc.padW)))
-        k_ms = time_ms(torch, lambda: fn(inp, flt, sc, **blocks))
-        p_ms = time_ms(torch, lambda: conv_plain(inp, flt, sc))
-        nbytes = (inp.numel() * inp.element_size()
-                  + flt.numel() * flt.element_size()
-                  + got.numel() * got.element_size())
-        ops_ms = sc.flops / PEAK_FP32_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_HBM_BW * 1e3
-        rows.append({
-            "name": f"mg3m_{grain.lower()}", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": REPLACES[grain],
-            "launches": counts[grain],
-            "max_abs_err": errs[(grain, "float32")],
-            "max_abs_err_bf16": errs.get((grain, "bfloat16")),
-            "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms,
-            "shape": f"{name} B={sc.B} {plan.describe()}",
-            "gflop": sc.flops / 1e9, "mbytes": nbytes / 1e6,
-        })
-        print(f"  {grain} at {name} B={sc.B}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
-              f"{max(ops_ms, bytes_ms):.4f} ms")
+        lib_total += lib_ms
+        print(f"  {name} B={bucket} {plan.describe()} "
+              f"{getattr(plan.choice, 'tile', '')}: {ms:.4f} ms "
+              f"(kernel {k_ms:.4f}, {sc.flops / k_ms / 1e6:.1f} GFLOP/s); "
+              f"F.conv2d {lib_ms:.4f} ms; forced grains ms {forced}")
+    print(f"  trunk B={bucket}: plans {total:.4f} ms per forward (events), "
+          f"kernels {k_total:.4f} ms (device), F.conv2d layer by layer "
+          f"{lib_total:.4f} ms (device)")
+    return total
+
+
+def tb18_tile_sweep(torch, chain, buckets=(1, 2)) -> None:
+    """TB18's kernel time at every compiled tile of the slice width the
+    selector chose, on the trunk's 3x3 and strided 1x1 layers at each
+    bucket (f32), beside the tile it chose: the data its model's tile
+    ranking is tested against.  Each tile is passed to the wrapper, which
+    sizes the launch (footprint, grid) for it; each tile's output is held
+    bitwise to the chosen tile's."""
+    from repro_torch.analysis.footprint import tb18_smem, tb18_tiles
+    from repro_torch.core.mapping import SMEM_BUDGET
+    from repro_torch.plan import make_plan
+
+    gen = torch.Generator().manual_seed(9)
+    for name, bucket in [(n, b) for b in buckets for n in (
+            "resnet/L2", "resnet/L5", "resnet/L7", "resnet/L8",
+            "resnet/L9")]:
+        plan = make_plan(chain[name].with_batch(bucket), policy="TB18")
+        sc = plan.scene
+        x = torch.randn(sc.in_shape(), generator=gen).cuda()
+        w = (torch.randn(sc.flt_shape(), generator=gen)
+             * (sc.fltH * sc.fltW * sc.IC) ** -0.5).cuda()
+        fn, inp, flt, blocks = plan.kernel_call(x, w)
+        es, bm = plan.exec_scene, blocks["bm"]
+        want = fn(inp, flt, es, **blocks)
+        times = {}
+        for tile in tb18_tiles(bm):
+            if tb18_smem(es, tile) > SMEM_BUDGET:
+                continue
+            if not torch.equal(fn(inp, flt, es, bm=bm, tile=tile), want):
+                raise AssertionError(f"TB18 tile {tile} changes the "
+                                     f"output at {name}")
+            times[tile] = round(device_ms(torch, lambda: fn(
+                inp, flt, es, bm=bm, tile=tile)), 4)
+        print(f"  TB18 tiles at {name} B={bucket} bm={bm} (chosen "
+              f"{blocks['tile']}): ms {times}")
+
+
+def timing_phase(torch, sched, chain, counts, errs):
+    """Per kernel, at its layer of ``TIMING_LAYERS`` (batch 1): kernel,
+    plain version, F.conv2d.  Where the selector picks another grain
+    there, the grain is forced (the row says so) and a second row,
+    ``<name>_main_path``, times it at its costliest main-path plan."""
+    from repro_torch.plan import ConvOp, make_plan
+
+    rows = []
+    for grain in ("TB11", "TB18", "TB88"):
+        name = TIMING_LAYERS[grain]
+        plan = sched.registry.get(chain[name].with_batch(1), ConvOp.FPROP)
+        if plan.schedule == grain:
+            rows.append(_grain_row(torch, sched, chain, plan, counts, errs,
+                                   f"mg3m_{grain.lower()}", name))
+            continue
+        forced = make_plan(plan.scene, policy=grain)
+        rows.append(_grain_row(torch, sched, chain, forced, counts, errs,
+                               f"mg3m_{grain.lower()}",
+                               f"{name} (forced: off the main path)"))
+        served = max((p for p in sched.registry.plans().values()
+                      if p.schedule == grain), key=lambda p: p.scene.flops)
+        rows.append(_grain_row(torch, sched, chain, served, counts, errs,
+                               f"mg3m_{grain.lower()}_main_path",
+                               _layer_of(chain, served.scene)))
     return rows
+
+
+def _grain_row(torch, sched, chain, plan, counts, errs, row_name, where):
+    """One ``kernels`` row: the plan's kernel, its plain version and
+    ``F.conv2d`` on one seeded input, beside the kernel's bound."""
+    from repro_torch.kernels.mg3m_conv import conv_plain
+
+    F = torch.nn.functional
+    grain, sc = plan.schedule, plan.scene
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(sc.in_shape(), generator=gen).cuda()
+    w = sched._layers[_layer_of(chain, sc)].flt
+    fn, inp, flt, blocks = plan.kernel_call(x, w)
+    got = fn(inp, flt, sc, **blocks)
+    want = conv_plain(inp, flt, sc)
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=TOL["float32"],
+                          atol=TOL["float32"]):
+        raise AssertionError(f"{plan.describe()} disagrees with its plain "
+                             f"version (max abs err {err})")
+    errs[(grain, "float32")] = max(errs.get((grain, "float32"), 0.0), err)
+    x_nchw = x.permute(3, 2, 0, 1).contiguous()
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_ms = device_ms(torch, lambda: F.conv2d(
+            x_nchw, w_oihw, stride=(sc.stdH, sc.stdW),
+            padding=(sc.padH, sc.padW)))
+    k_ms = device_ms(torch, lambda: fn(inp, flt, sc, **blocks))
+    p_ms = time_ms(torch, lambda: conv_plain(inp, flt, sc))
+    nbytes = (inp.numel() * inp.element_size()
+              + flt.numel() * flt.element_size()
+              + got.numel() * got.element_size())
+    ops_ms = sc.flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BW * 1e3
+    print(f"  {grain} at {where} B={sc.B}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms")
+    return {
+        "name": row_name, "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES[grain],
+        "launches": counts[grain],
+        "max_abs_err": errs[(grain, "float32")],
+        "max_abs_err_bf16": errs.get((grain, "bfloat16")),
+        "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": lib_ms,
+        "shape": f"{where} B={sc.B} {plan.describe()}",
+        "gflop": sc.flops / 1e9, "mbytes": nbytes / 1e6,
+    }
 
 
 # --------------------------------------------------------------------------
@@ -732,9 +912,9 @@ def lm_timing_phase(torch, counts, errs):
         got = fn()
         _hold(torch, name, "bfloat16", got, plain(), errs, shape)
         lib_err = (lib_out(lib()).float() - got.float()).abs().max().item()
-        k_ms = time_ms(torch, fn)
+        k_ms = device_ms(torch, fn)
         p_ms = time_ms(torch, plain)
-        lib_ms = time_ms(torch, lib)
+        lib_ms = device_ms(torch, lib)
         nbytes += got.numel() * got.element_size()
         ops_ms = flops / PEAK_BF16_FLOPS * 1e3
         bytes_ms = nbytes / PEAK_HBM_BW * 1e3
@@ -801,6 +981,16 @@ def main() -> int:
     for src in SOURCES:
         print(f"ptxas: {src}: "
               f"{ptxas_summary(cuda_build.build_logs.get(src, ''))}")
+        counts = tensor_core_counts(cuda_build.build(src)[0])
+        hg = sum(c[0] for c in counts.values())
+        hm = sum(c[1] for c in counts.values())
+        print(f"sass: {src}: {len(counts)} kernels, HGMMA {hg}, HMMA {hm}")
+        if src == "flash_attention.cu":
+            bf16 = {n: c for n, c in counts.items()
+                    if "flash_fwd_bf16_kernel" in n}
+            if not bf16 or not all(sum(c) for c in bf16.values()):
+                raise AssertionError(f"the bf16 flash kernel issues no "
+                                     f"tensor-core instruction: {bf16}")
 
     errs = {}
     t0 = time.perf_counter()
@@ -809,8 +999,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; max abs err "
           f"{ {f'{g}/{d}': e for (g, d), e in sorted(errs.items())} }")
 
-    sched, chain, counts = main_path(torch, np)
-    layer_breakdown(torch, sched, chain)
+    sched, chain, counts = main_path(torch, np, errs)
+    for bucket in (1, 2, 4, 8):
+        layer_breakdown(torch, sched, chain, bucket)
+    tb18_tile_sweep(torch, chain)
     rows = timing_phase(torch, sched, chain, counts, errs)
 
     lm_errs = lm_kernel_phase(torch)

@@ -7,12 +7,14 @@ changes is the machine they are mapped onto (see ``csrc/mg3m_conv.cu``):
         blocks walk strips of output-column tiles.  Feasible only while
         ``fh*fw*IC*OC`` fits the shared-memory budget.
   TB18  an OC slice of the filter resident per block; blocks over (slice,
-        column strip).
+        column strip), on one of the compiled tiles of
+        ``footprint.TB18_SHAPES``: the tile is a dimension of the search,
+        priced here with the grain and stored in ``ScheduleChoice.tile``.
   TB88  a tiled GEMM: FLT and IN tiles both streamed per (tap, k-chunk).
 
 The selector is an analytic model — compute term (kernel-tile-quantized
 MACs over the f32 rate, stretched by how badly the work units fill the
-card's SMs) against a traffic term (the bytes each residency pattern
+card's SMs and by how few warps a busy SM holds) against a traffic term (the bytes each residency pattern
 streams over the HBM rate), plus a per-step overhead.  The constants are
 the H100 SXM datasheet's; the per-step overhead is an assumption, not a
 measurement.  ``CostModel``/``ClassCorrection`` keep the reference's shape
@@ -30,8 +32,9 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.analysis.footprint import (TB11_BM, RES_BK, THREADS,
-                                            col_tile, kernel_bm)
+from repro_torch.analysis.footprint import (TB11_BM, TB18_KC, RES_BK,
+                                            THREADS, col_tile, kernel_bm,
+                                            tb18_threads)
 from repro_torch.analysis.footprint import vmem_bytes as _vmem_bytes
 from repro_torch.core.scene import ConvScene, ceil_div, dtype_itemsize
 
@@ -43,6 +46,13 @@ H100_SMS = 132                 # H100 SXM datasheet: streaming multiprocessors
 H100_SMEM_PER_BLOCK = 232448   # H100 SXM datasheet: 227 KB opt-in per block
 H100_SMEM_PER_SM = 233472      # H100 SXM datasheet: 228 KB per SM
 _THREADS_PER_SM = 2048         # H100 SXM datasheet: resident threads per SM
+_BLOCKS_PER_SM = 32            # H100 SXM datasheet: resident blocks per SM
+# Assumption, not datasheet: an SM issues f32 FMAs at its full rate only
+# with 16 warps resident (four per scheduler, to hide shared-load and FMA
+# latency), and in proportion to its warps below that.  It ranks TB18's
+# compiled tiles as their chip times did on trunk L5/L7/L9 at batch 1
+# and 2 (PERF.md §6, chip_smoke.py's tile sweep).
+_FULL_RATE_WARPS = 16
 _SMEM_PER_BLOCK_RESERVED = 1024  # the runtime's share per resident block
 
 # Assumption, not measured: the fixed cost of one (tap, k-chunk) step of a
@@ -167,6 +177,7 @@ class ScheduleChoice:
     hbm_s: float
     vmem_bytes: int
     notes: str = ""
+    tile: Tuple[int, ...] = ()   # TB18's compiled (BM, BC, TM, TC); () else
 
     @property
     def bound(self) -> str:
@@ -176,55 +187,70 @@ class ScheduleChoice:
 # --------------------------------------------------------------------------
 # the kernels' launch shape, as the model sees it
 # --------------------------------------------------------------------------
-def _units(scene: ConvScene, schedule: str, bm: int) -> Tuple[int, int]:
+def blocks_per_sm(smem: int, threads: int,
+                  smem_per_sm: int = H100_SMEM_PER_SM) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes one SM holds at
+    once (threads, blocks and shared memory all limit residency)."""
+    return min(_THREADS_PER_SM // threads, _BLOCKS_PER_SM,
+               smem_per_sm // (smem + _SMEM_PER_BLOCK_RESERVED))
+
+
+def _col_tile(schedule: str, bm: int, tile: Tuple[int, ...]) -> int:
+    """Columns of one block tile: TB18's from its compiled tile."""
+    if schedule == "TB11":
+        return col_tile(TB11_BM)
+    if schedule == "TB18":
+        return tile[1]
+    return col_tile(bm)
+
+
+def _threads(schedule: str, tile: Tuple[int, ...]) -> int:
+    return tb18_threads(tile) if schedule == "TB18" else THREADS
+
+
+def _units(scene: ConvScene, schedule: str, bm: int,
+           tile: Tuple[int, ...] = ()) -> Tuple[int, int]:
     """(column tiles, m-tiles) of the work: a unit is one column tile x one
     m-tile (TB11 counts its whole OC as one m-tile unit per column tile)."""
     cols = scene.num_spatial_tasks * scene.N
+    n_ct = ceil_div(cols, _col_tile(schedule, bm, tile))
     if schedule == "TB11":
-        return ceil_div(cols, col_tile(TB11_BM)), 1
-    return ceil_div(cols, col_tile(bm)), ceil_div(scene.M, bm)
+        return n_ct, 1
+    return n_ct, ceil_div(scene.M, bm)
 
 
-def _slots(smem: int) -> int:
-    """Blocks the card holds at once at ``smem`` bytes of shared memory
-    per block (threads and shared memory both limit residency)."""
-    per_sm = min(_THREADS_PER_SM // THREADS,
-                 H100_SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
-    return H100_SMS * max(1, per_sm)
-
-
-def grid_steps(scene: ConvScene, schedule: str, bm: int, bk: int) -> int:
+def grid_steps(scene: ConvScene, schedule: str, bm: int, bk: int,
+               tile: Tuple[int, ...] = ()) -> int:
     """Total (tap, k-chunk) steps all blocks take.  Counts every
     ``fltH x fltW`` tap, holes included: the kernels walk them all and
     mask the hole loads, exactly as the reference's grid does."""
-    n_ct, n_m = _units(scene, schedule, bm)
+    n_ct, n_m = _units(scene, schedule, bm, tile)
     taps = scene.fltH * scene.fltW
     if schedule == "TB11":
         return n_ct * ceil_div(scene.M, TB11_BM) * taps * ceil_div(scene.K,
                                                                    RES_BK)
-    chunk = RES_BK if schedule == "TB18" else bk
+    chunk = TB18_KC if schedule == "TB18" else bk
     return n_ct * n_m * taps * ceil_div(scene.K, chunk)
 
 
-def _quantized_macs(scene: ConvScene, schedule: str, bm: int,
-                    bk: int) -> float:
+def _quantized_macs(scene: ConvScene, schedule: str, bm: int, bk: int,
+                    tile: Tuple[int, ...] = ()) -> float:
     """MACs the kernel tiles actually issue: rows rounded to the compiled
     m-tile, columns to the tile width, K to the k chunk, all taps."""
     cols = scene.num_spatial_tasks * scene.N
     taps = scene.fltH * scene.fltW
+    bc = _col_tile(schedule, bm, tile)
     if schedule == "TB11":
         rows = ceil_div(scene.M, TB11_BM) * TB11_BM
-        bc = col_tile(TB11_BM)
         k = scene.K
     else:
         rows = ceil_div(scene.M, bm) * kernel_bm(bm)
-        bc = col_tile(bm)
         k = scene.K if schedule == "TB18" else ceil_div(scene.K, bk) * bk
     return rows * ceil_div(cols, bc) * bc * taps * k
 
 
-def _traffic_bytes(scene: ConvScene, schedule: str, bm: int,
-                   slots: int) -> int:
+def _traffic_bytes(scene: ConvScene, schedule: str, bm: int, slots: int,
+                   tile: Tuple[int, ...] = ()) -> int:
     """Bytes each residency pattern streams: the filter once per block
     that loads it, the gathered input window (the implicit GEMM's B
     operand) once per m-tile pass, the output once."""
@@ -233,7 +259,7 @@ def _traffic_bytes(scene: ConvScene, schedule: str, bm: int,
     flt = taps * scene.K * scene.M * it
     in_win = scene.num_spatial_tasks * scene.N * taps * scene.K * it
     out = scene.bytes_out()
-    n_ct, n_m = _units(scene, schedule, bm)
+    n_ct, n_m = _units(scene, schedule, bm, tile)
     if schedule == "TB11":
         return (flt * min(n_ct, slots)
                 + ceil_div(scene.M, TB11_BM) * in_win + out)
@@ -245,19 +271,27 @@ def _traffic_bytes(scene: ConvScene, schedule: str, bm: int,
 
 def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
            model: Optional[CostModel] = None,
-           budget: int = SMEM_BUDGET) -> Optional[ScheduleChoice]:
+           budget: int = SMEM_BUDGET,
+           tile: Tuple[int, ...] = ()) -> Optional[ScheduleChoice]:
     model = model if model is not None else DEFAULT_COST_MODEL
-    smem = _vmem_bytes(scene, schedule, bm, bn, bk)
+    smem = _vmem_bytes(scene, schedule, bm, bn, bk, tile)
     if smem > budget:
         return None
-    slots = _slots(smem)
-    n_ct, n_m = _units(scene, schedule, bm)
+    threads = _threads(schedule, tile)
+    per_sm = max(1, blocks_per_sm(smem, threads))
+    slots = H100_SMS * per_sm
+    n_ct, n_m = _units(scene, schedule, bm, tile)
     units = n_ct * n_m
     waves = ceil_div(units, slots)
     fill = units / (waves * slots)     # share of the card's slots in use
-    macs = _quantized_macs(scene, schedule, bm, bk)
-    raw_compute_s = 2 * macs / model.mxu_rate(scene.dtype) / fill
-    raw_hbm_s = _traffic_bytes(scene, schedule, bm, slots) / model.hbm_bw
+    # a busy SM issues at the full rate only with enough warps resident:
+    # small TB18 blocks on a few-output layer leave it latency-bound
+    warps = min(per_sm, ceil_div(units, H100_SMS)) * threads // 32
+    issue = min(1.0, warps / _FULL_RATE_WARPS)
+    macs = _quantized_macs(scene, schedule, bm, bk, tile)
+    raw_compute_s = 2 * macs / model.mxu_rate(scene.dtype) / fill / issue
+    raw_hbm_s = _traffic_bytes(scene, schedule, bm, slots,
+                               tile) / model.hbm_bw
     # class decided on the raw terms, as calibration buckets them
     bound = "compute" if raw_compute_s >= raw_hbm_s else "memory"
     corr = model.correction_for(schedule, bound,
@@ -268,26 +302,31 @@ def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
                 else model.step_overhead_s)
     # steps of blocks that run side by side overlap: charge one block's
     # share per wave
-    overhead_s = grid_steps(scene, schedule, bm, bk) / min(units,
-                                                           slots) * per_step
+    overhead_s = grid_steps(scene, schedule, bm, bk, tile) / min(
+        units, slots) * per_step
     total = max(compute_s, hbm_s) + overhead_s
     return ScheduleChoice(schedule, bm, bn, bk, total, compute_s, hbm_s,
-                          smem)
+                          smem, tile=tuple(tile))
 
 
 def candidate_blocks(scene: ConvScene, schedule: str
-                     ) -> Tuple[Tuple[int, int, int], ...]:
-    """Kernel-tile (bm, bn, bk) candidates per schedule; the enumeration
-    lives in ``tune.space`` as in the reference."""
-    from repro_torch.tune.space import block_candidates  # avoids a cycle
-    return block_candidates(scene, schedule)
+                     ) -> Tuple[Tuple[int, int, int, Tuple[int, ...]], ...]:
+    """Kernel-tile ``(bm, bn, bk, tile)`` candidates per schedule: the
+    blocks ``tune.space`` enumerates, as in the reference, each with every
+    compiled TB18 tile that runs it (``()`` for TB11/TB88, whose tile
+    follows from ``bm``)."""
+    from repro_torch.tune.space import (block_candidates,  # avoids a cycle
+                                        tile_candidates)
+    return tuple((bm, bn, bk, tile)
+                 for bm, bn, bk in block_candidates(scene, schedule)
+                 for tile in tile_candidates(schedule, bm))
 
 
 def select_schedule(scene: ConvScene,
                     allowed: Tuple[str, ...] = SCHEDULES,
                     model: Optional[CostModel] = None,
                     budget: int = SMEM_BUDGET) -> ScheduleChoice:
-    """Pick the best (schedule, blocks) for a scene.
+    """Pick the best (schedule, blocks, tile) for a scene.
 
     ``allowed`` restricts the grains considered (a forced schedule passes
     a 1-tuple); when none of them fits the shared-memory ``budget`` at any
@@ -295,8 +334,9 @@ def select_schedule(scene: ConvScene,
     silently becomes another one."""
     best: Optional[ScheduleChoice] = None
     for schedule in allowed:
-        for bm, bn, bk in candidate_blocks(scene, schedule):
-            choice = _score(scene, schedule, bm, bn, bk, model, budget)
+        for bm, bn, bk, tile in candidate_blocks(scene, schedule):
+            choice = _score(scene, schedule, bm, bn, bk, model, budget,
+                            tile)
             if choice is not None and (best is None
                                        or choice.predicted_s < best.predicted_s):
                 best = choice

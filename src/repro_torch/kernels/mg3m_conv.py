@@ -7,7 +7,10 @@ Port of ``repro.kernels.mg3m_conv``.  The three grains are CUDA kernels in
                  resident in shared memory, persistent blocks over strips
                  of output-column tiles.
   ``conv_tb18``  replaces ``conv_tb18`` (:320): an OC slice ``bm`` wide
-                 resident per block, blocks over (slice, column strip).
+                 resident per block, blocks over (slice, column strip),
+                 on the compiled tile ``(BM, BC, TM, TC)`` the selector
+                 chose (columns ``BC`` per block, ``TM x TC`` results
+                 per thread; ``footprint.TB18_SHAPES``).
   ``conv_tb88``  replaces ``conv_tb88`` (:352): tiled GEMM, blocks over
                  (column tile, m-tile), loop over (tap, k-chunk ``bk``).
 
@@ -39,8 +42,10 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.analysis.footprint import (BK_MAX, KERNEL_BM, TB11_BM,
-                                            col_tile, vmem_bytes)
-from repro_torch.core.mapping import device_limits, smem_budget
+                                            THREADS, col_tile, tb18_threads,
+                                            vmem_bytes)
+from repro_torch.core.mapping import (blocks_per_sm, device_limits,
+                                      smem_budget)
 from repro_torch.core.scene import ConvScene, ceil_div
 from repro_torch.kernels import cuda_build
 
@@ -77,7 +82,9 @@ def _index_params(scene: ConvScene) -> Tuple[int, int, int, int]:
 class LaunchSpec:
     """Checked launch geometry of one schedule over one scene (the port's
     ``KernelGridSpec``): operand shapes exactly as launched, the blocking,
-    and the block's shared-memory footprint."""
+    the block's shared-memory footprint and, for TB18, its compiled tile
+    ``(BM, BC, TM, TC)`` (empty for the other grains, whose tile follows
+    from ``bm``)."""
 
     schedule: str
     scene: ConvScene
@@ -88,6 +95,12 @@ class LaunchSpec:
     bn: int
     bk: int
     smem: int
+    tile: Tuple[int, ...] = ()
+
+    @property
+    def bc(self) -> int:
+        """Columns of a TB18 block tile (0 for the other grains)."""
+        return self.tile[1] if self.tile else 0
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -97,12 +110,14 @@ def _require(cond: bool, msg: str) -> None:
 
 def launch_spec(scene: ConvScene, schedule: str, *, in_shape: Shape4,
                 flt_shape: Shape4, bm: int = 0, bn: int = 0, bk: int = 0,
+                tile: Tuple[int, ...] = (),
                 smem_budget: int = 0) -> LaunchSpec:
     """Validate a launch of ``schedule`` over ``scene`` with operands of
     the given shapes: the input K must match the filter's, the spatial
     extents must be what the route expects, the blocking must divide the
-    launched dims, and — when ``smem_budget`` > 0 — the block's
-    shared-memory footprint must fit it.  Raises ``ValueError``."""
+    launched dims, TB18's ``tile`` must be a compiled tile for ``bm``,
+    and — when ``smem_budget`` > 0 — the block's shared-memory footprint
+    must fit it.  Raises ``ValueError``."""
     in_shape, flt_shape = tuple(in_shape), tuple(flt_shape)
     _require(len(in_shape) == 4 and len(flt_shape) == 4,
              f"operands must be 4-D, got {in_shape} and {flt_shape}")
@@ -133,14 +148,15 @@ def launch_spec(scene: ConvScene, schedule: str, *, in_shape: Shape4,
                  f"{scene.describe()}")
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
-    smem = vmem_bytes(scene, schedule, bm, bn, bk)
+    tile = tuple(tile) if schedule == "TB18" else ()
+    smem = vmem_bytes(scene, schedule, bm, bn, bk, tile)
     if smem_budget > 0:
         _require(smem <= smem_budget,
                  f"{schedule} blocking ({bm}, {bn}, {bk}) needs {smem} B of "
                  f"shared memory (budget {smem_budget} B) for "
                  f"{scene.describe()}")
     return LaunchSpec(schedule, scene, in_shape, flt_shape,
-                      (scene.outH, scene.outW, m, n), bm, bn, bk, smem)
+                      (scene.outH, scene.outW, m, n), bm, bn, bk, smem, tile)
 
 
 # --------------------------------------------------------------------------
@@ -202,7 +218,7 @@ class _Geom(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "Hl", "Wl", "K", "N", "M", "outH", "outW", "fh", "fw", "stdH",
         "stdW", "fdilH", "fdilW", "padH", "padW", "dilH", "dilW", "bm", "bk",
-        "grid")]
+        "grid", "bc", "tm", "tc")]
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -224,19 +240,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _grid(spec: LaunchSpec, device: torch.device) -> int:
-    """Blocks along the column axis for the persistent grains: enough to
-    fill every SM at the occupancy the footprint allows, never more than
-    there are column tiles."""
+def launch_grid(spec: LaunchSpec, device=None) -> Tuple[int, int, int, int]:
+    """``(grid x, grid y, column tile, threads)`` of a launch on ``device``
+    (the datasheet's card when None or a CPU).  TB88: a block per (column
+    tile, m-tile).  TB11/TB18 (persistent): grid x blocks walk strips of
+    column tiles ``x, x + grid x, ...``: as few tiles per block as the
+    card's resident slots allow at the footprint's occupancy, spread over
+    as few blocks as that takes; TB18 adds one grid row per OC slice."""
+    cols = spec.out_shape[0] * spec.out_shape[1] * spec.out_shape[3]
     if spec.schedule == "TB88":
-        return 0
+        bc = col_tile(spec.bm)
+        return ceil_div(cols, bc), spec.out_shape[2] // spec.bm, bc, THREADS
     _, smem_sm, sms = device_limits(device)
-    slots = sms * max(1, min(8, smem_sm // (spec.smem + 1024)))
-    bm = TB11_BM if spec.schedule == "TB11" else spec.bm
-    n_ct = ceil_div(spec.out_shape[0] * spec.out_shape[1]
-                    * spec.out_shape[3], col_tile(bm))
-    slices = spec.out_shape[2] // spec.bm if spec.schedule == "TB18" else 1
-    return max(1, min(n_ct, ceil_div(slots, slices)))
+    if spec.schedule == "TB11":
+        bc, threads, slices = col_tile(TB11_BM), THREADS, 1
+    else:
+        bc = spec.bc
+        threads = tb18_threads(spec.tile)
+        slices = spec.out_shape[2] // spec.bm
+    slots = sms * max(1, blocks_per_sm(spec.smem, threads, smem_sm))
+    n_ct = ceil_div(cols, bc)
+    rounds = ceil_div(n_ct, max(1, slots // slices))   # tiles per block
+    return ceil_div(n_ct, rounds), slices, bc, threads
 
 
 def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
@@ -255,7 +280,8 @@ def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
     geom = _Geom(hl, wl, k, n, spec.flt_shape[3], sc.outH, sc.outW,
                  sc.fltH, sc.fltW, sc.stdH, sc.stdW, sc.fdilH, sc.fdilW,
                  pad_h, pad_w, dil_h, dil_w, spec.bm, spec.bk,
-                 _grid(spec, inp.device))
+                 launch_grid(spec, inp.device)[0],
+                 *(spec.tile[1:] if spec.tile else (0, 0, 0)))
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
     lib = library()
     with torch.cuda.device(inp.device):
@@ -284,9 +310,9 @@ def conv_tb11(inp: torch.Tensor, flt: torch.Tensor,
 
 
 def conv_tb18(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
-              bm: int) -> torch.Tensor:
+              bm: int, tile: Tuple[int, ...]) -> torch.Tensor:
     spec = launch_spec(scene, "TB18", in_shape=inp.shape,
-                       flt_shape=flt.shape, bm=bm,
+                       flt_shape=flt.shape, bm=bm, tile=tile,
                        smem_budget=smem_budget(inp.device))
     if inp.device.type == "cpu":
         return conv_plain(inp, flt, scene)

@@ -288,22 +288,24 @@ def _launch_operands(inp: torch.Tensor, flt: torch.Tensor, spec: ExecSpec
             _pad_axis(_pad_axis(flt, 2, spec.kp), 3, spec.mp))
 
 
-def _kernel_blocks(spec: ExecSpec) -> dict:
-    """The blocking keyword arguments of the grain's wrapper."""
+def _kernel_blocks(spec: ExecSpec, choice: ScheduleChoice) -> dict:
+    """The blocking keyword arguments of the grain's wrapper (TB18's
+    compiled tile comes from the choice: the exec spec is the
+    reference's, field for field)."""
     if spec.schedule == "TB11":
         return {}
     if spec.schedule == "TB18":
-        return {"bm": spec.bm}
+        return {"bm": spec.bm, "tile": choice.tile}
     return {"bm": spec.bm, "bn": spec.bn, "bk": spec.bk}
 
 
 def _conv_body(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene,
-               spec: ExecSpec) -> torch.Tensor:
+               spec: ExecSpec, choice: ScheduleChoice) -> torch.Tensor:
     """Kernel dispatch from a precomputed spec: launch operands, the
     grain's wrapper, slice-back to the true output."""
     inp_a, flt_a = _launch_operands(inp, flt, spec)
     out = kernels.WRAPPERS[spec.schedule](inp_a, flt_a, scene,
-                                          **_kernel_blocks(spec))
+                                          **_kernel_blocks(spec, choice))
     out = out[:, :, :spec.m, :spec.n]
     if (spec.out_h, spec.out_w) not in ((0, 0), (scene.outH, scene.outW)):
         out = out[:spec.out_h, :spec.out_w]
@@ -386,7 +388,7 @@ class ConvPlan:
         if self.uses_reference:
             return _REF[self.op](a, b, self.scene)
         out = _conv_body(*_OPERANDS[self.op.value](a, b), self.exec_scene,
-                         self.spec)
+                         self.spec, self.choice)
         return wgrad_finish(out) if self.op is ConvOp.WGRAD else out
 
     __call__ = execute
@@ -402,7 +404,7 @@ class ConvPlan:
         a, b = _OPERANDS[self.op.value](a, b)
         inp, flt = _launch_operands(a, b, self.spec)
         return (kernels.WRAPPERS[self.spec.schedule], inp, flt,
-                _kernel_blocks(self.spec))
+                _kernel_blocks(self.spec, self.choice))
 
     def io_shapes(self) -> Tuple[Tuple[int, ...], Tuple[int, ...],
                                  Tuple[int, ...]]:

@@ -13,6 +13,7 @@ def choice_to_dict(choice: ScheduleChoice) -> Dict:
         "bk": choice.bk, "predicted_s": choice.predicted_s,
         "compute_s": choice.compute_s, "hbm_s": choice.hbm_s,
         "vmem_bytes": choice.vmem_bytes, "notes": choice.notes,
+        "tile": list(choice.tile),
     }
 
 
@@ -22,4 +23,5 @@ def choice_from_dict(d: Dict) -> ScheduleChoice:
         bk=int(d["bk"]), predicted_s=float(d["predicted_s"]),
         compute_s=float(d["compute_s"]), hbm_s=float(d["hbm_s"]),
         vmem_bytes=int(d["vmem_bytes"]), notes=d.get("notes", ""),
+        tile=tuple(int(t) for t in d.get("tile", ())),
     )

@@ -7,7 +7,8 @@ for, not the reference's 128/256/512 TPU ladders (those do not fit
 
   TB11  a single point — the whole filter resident.
   TB18  OC-slice widths from the compiled m-tiles below OC, plus OC
-        itself when one slice can hold it.
+        itself when one slice can hold it; each runs on any compiled
+        TB18 tile of its m-tile (``tile_candidates``).
   TB88  compiled m-tiles of 16..128 x k chunks of 8/16/32, clipped to the
         scene; ``bn`` is the whole batch (a tile's columns span pixels
         and batch together).
@@ -20,7 +21,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
-from repro_torch.analysis.footprint import BK_MAX, KERNEL_BM, vmem_bytes
+from repro_torch.analysis.footprint import (BK_MAX, KERNEL_BM, tb18_tiles,
+                                            vmem_bytes)
 from repro_torch.core.mapping import SCHEDULES, SMEM_BUDGET
 from repro_torch.core.scene import ConvScene
 
@@ -36,9 +38,10 @@ class CandidatePoint:
     bm: int
     bn: int
     bk: int
+    tile: Tuple[int, ...] = ()
 
-    def key(self) -> Tuple[str, int, int, int]:
-        return (self.schedule, self.bm, self.bn, self.bk)
+    def key(self) -> Tuple:
+        return (self.schedule, self.bm, self.bn, self.bk, self.tile)
 
 
 def block_candidates(scene: ConvScene, schedule: str
@@ -59,6 +62,13 @@ def block_candidates(scene: ConvScene, schedule: str
                                for bm in _TB88_BM for bk in _TB88_BK))
 
 
+def tile_candidates(schedule: str, bm: int) -> Tuple[Tuple[int, ...], ...]:
+    """The compiled tiles a ``bm``-wide block of ``schedule`` may run on:
+    TB18's of ``footprint.TB18_SHAPES``; one implied tile, ``()``, for
+    TB11/TB88."""
+    return tb18_tiles(bm) if schedule == "TB18" else ((),)
+
+
 def enumerate_space(scene: ConvScene,
                     schedules: Sequence[str] = SCHEDULES,
                     vmem_budget: int = SMEM_BUDGET
@@ -67,6 +77,9 @@ def enumerate_space(scene: ConvScene,
     points = []
     for schedule in schedules:
         for bm, bn, bk in block_candidates(scene, schedule):
-            if vmem_bytes(scene, schedule, bm, bn, bk) <= vmem_budget:
-                points.append(CandidatePoint(schedule, bm, bn, bk))
+            for tile in tile_candidates(schedule, bm):
+                if vmem_bytes(scene, schedule, bm, bn, bk,
+                              tile) <= vmem_budget:
+                    points.append(CandidatePoint(schedule, bm, bn, bk,
+                                                 tile))
     return tuple(points)

@@ -241,7 +241,8 @@ def test_wrappers_on_cpu_run_the_plain_version_without_counting():
     f = torch.from_numpy(_np((3, 3, 8, 16), 15))
     K.reset_launch_counts()
     want = K.conv_plain(x, f, sc)
-    for out in (K.conv_tb11(x, f, sc), K.conv_tb18(x, f, sc, bm=8),
+    for out in (K.conv_tb11(x, f, sc), K.conv_tb18(x, f, sc, bm=8,
+                                                  tile=(8, 64, 4, 2)),
                 K.conv_tb88(x, f, sc, bm=16, bn=2, bk=8)):
         assert torch.equal(out, want)
     assert K.launch_counts() == {"TB11": 0, "TB18": 0, "TB88": 0}
