@@ -15,36 +15,39 @@ Phases, each of which raises (non-zero exit) on failure:
   3. kernels   every MG3M grain (TB11, TB18, TB88) forced on the
                reference's kernel-test scenes and on the dgrad
                (lhs-dilated) and wgrad (rhs-dilated) plans of two strided
-               scenes, and TB18 on trunk L7 and L9 at batch 1 and 2, each
-               launch held against the grain's plain PyTorch version on
-               the same operands: f32 within rtol=atol=1e-4, bf16 within
-               2e-2.
+               scenes, and on trunk layers (TB18 on L7 and L9 at batch 1
+               and 2, TB11 on L0 at batch 2, TB88 on L2 at batch 1 and L9
+               at batch 8), each launch held against the grain's plain
+               PyTorch version on the same operands: f32 within
+               rtol=atol=1e-4, bf16 within 2e-2.
   4. conv path the full-width ResNet trunk (``cnn_chain_scenes("resnet")``,
                224x224x3 in, 10 convs, ReLU between) registered on a
                ``ConvScheduler`` (strict, deadline flush), prewarmed, served
                from the background loop to ModelSession requests of batch
-               1 and 2 (four alone, a burst of eight, then eight of batch
-               1 that fill bucket 8); all three grains must have launched;
+               1 and 2 (four alone, a burst of eight, eight of batch 1,
+               then eight of batch 1 through ``serve``: one dispatch at
+               bucket 8); all three grains must have launched;
                zero post-warm plan builds, no reference plans, every
                served plan's kernel held against its plain version on the
                card, one request's output held against the plain-version
                chain, and one request bitwise equal served alone and
                coalesced.
   5. conv timing  each trunk layer at buckets 1, 2, 4 and 8: its plan's
-               time (CUDA events, host included) and the device time
-               (a CUDA graph of 20 calls, host left out) of its kernel, of
-               every grain forced and of ``F.conv2d`` on the same layer
-               (f32, TF32 off; a yardstick the port never calls); TB18's
-               kernel time at every compiled tile of its slice on five
-               trunk layers at batch 1 and 2 (the selector's tile ranking
-               is checked against these; each tile's output bitwise the
-               chosen one's); then
+               time (CUDA events, host included), the selector's modeled
+               time, and the device time (a CUDA graph of 20 calls, host
+               left out) of its kernel, of every grain forced and of
+               ``F.conv2d`` on the same layer (f32, TF32 off; a yardstick
+               the port never calls); each grain's kernel time at every
+               compiled tile that runs its block (TB18 on five trunk
+               layers at batch 1 and 2, TB88 on four at batch 4 and 8,
+               TB11 on L0 at batch 1 and 2; each tile's output bitwise
+               the chosen one's); then
                per grain at its layer of PERF.md's kernel table (TB11 at
-               L0, TB18 at L2, TB88 at L1, batch 1): the kernel, its
+               L0, TB18 at L2, TB88 at L1, batch 1; forced where the
+               selector picks another grain there): the kernel, its
                plain version and ``F.conv2d``, device time, beside the
-               kernel's bound.  A grain the selector no longer picks
-               there is forced and gets a second row at its costliest
-               main-path plan.
+               kernel's bound; and a second row at the grain's served
+               plan of the largest kernel time on the main path.
   6. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
                attention on tests/test_flash_kernel.py's (causal and not,
                plus D = 112), both also at the LM path's shapes, f32 and
@@ -74,9 +77,8 @@ calls replayed from a CUDA graph, the host's time per call left out);
 time included.
 
 The last three lines of output are the ``kernels`` JSON line (all five
-kernels; a conv grain off the main path at PERF.md's layer has a second
-row, ``<name>_main_path``), the card's name and power limit, and
-``{"ok": true, ...}``.
+kernels; each conv grain has a second row, ``<name>_main_path``), the
+card's name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -110,9 +112,19 @@ KERNEL_SCENES = [(8, 16, 24, 10, 3, 1, 1), (4, 8, 8, 7, 1, 0, 1),
 # (B, IC, OC, inH, inW, flt, pad, stdH, stdW): tests/test_dilated.py's
 # "stride2" and "asym_stride"
 STRIDED_SCENES = [(2, 8, 4, 10, 10, 3, 1, 2, 2), (3, 5, 7, 11, 9, 3, 0, 3, 2)]
-# TB18's redesign targets: the small-spatial trunk layers, batch 1 and 2
-TB18_TRUNK = [("resnet/L7", 1), ("resnet/L7", 2), ("resnet/L9", 1),
-              ("resnet/L9", 2)]
+# (grain, layer, batch) forced on the trunk in the kernel phase: TB18's
+# small-spatial layers at batch 1 and 2, TB11 on the stem, TB88 on a
+# batch-1 (column-major) and a batch-8 (k-major) layer
+TRUNK_CASES = [("TB18", "resnet/L7", 1), ("TB18", "resnet/L7", 2),
+               ("TB18", "resnet/L9", 1), ("TB18", "resnet/L9", 2),
+               ("TB11", "resnet/L0", 2), ("TB88", "resnet/L2", 1),
+               ("TB88", "resnet/L9", 8)]
+# the grains' tile sweeps: (grain, layers, buckets)
+TILE_SWEEPS = [("TB18", ("resnet/L2", "resnet/L5", "resnet/L7", "resnet/L8",
+                         "resnet/L9"), (1, 2)),
+               ("TB88", ("resnet/L2", "resnet/L5", "resnet/L7", "resnet/L9"),
+                (4, 8)),
+               ("TB11", ("resnet/L0",), (1, 2))]
 # PERF.md's per-grain timing layers (batch 1)
 TIMING_LAYERS = {"TB11": "resnet/L0", "TB18": "resnet/L2",
                  "TB88": "resnet/L1"}
@@ -223,13 +235,13 @@ def kernel_phase(torch, errs):
             cases.append((sc, ConvOp.DGRAD, cot, flt))
             cases.append((sc, ConvOp.WGRAD, x, cot))
         grains = [("TB11", "TB18", "TB88")] * len(cases)
-        for name, b in TB18_TRUNK:
+        for grain, name, b in TRUNK_CASES:
             sc = ConvScene(**{**chain[name].with_batch(b).__dict__,
                               "dtype": dtype})
             fan_in = sc.fltH * sc.fltW * sc.IC
             cases.append((sc, ConvOp.FPROP, rand(sc.in_shape()),
                           rand(sc.flt_shape()) * fan_in ** -0.5))
-            grains.append(("TB18",))
+            grains.append((grain,))
         for (sc, op, a, b), names in zip(cases, grains):
             for grain in names:
                 try:
@@ -319,6 +331,13 @@ def main_path(torch, np, errs):
             reqs.append(r)
     finally:
         sched.stop()
+    # and eight of batch 1 through ``serve`` with the loop stopped: one
+    # coalesced dispatch at bucket 8 whatever the timing of the bursts
+    xs8 = [torch.randn(sc0.in_shape()[:3] + (1,), generator=gen)
+           for _ in range(8)]
+    t = time.perf_counter()
+    outs8 = sess.serve(xs8)
+    lat.append(time.perf_counter() - t)
     counts = K.launch_counts()
     stats = sched.stats(since=snap)
 
@@ -327,8 +346,9 @@ def main_path(torch, np, errs):
     plans = sched.registry.plans().values()
     if any(p.uses_reference for p in plans):
         raise AssertionError("a served plan runs the torch reference")
-    if stats["requests"] != len(reqs):
-        raise AssertionError(f"served {stats['requests']} of {len(reqs)}")
+    if stats["requests"] != len(reqs) + len(xs8):
+        raise AssertionError(f"served {stats['requests']} of "
+                             f"{len(reqs) + len(xs8)}")
 
     grains = {}
     for name, sc in chain.items():
@@ -372,16 +392,16 @@ def main_path(torch, np, errs):
     rel = ((out - z).abs().max() / z.abs().max().clamp_min(1e-30)).item()
     if rel > 1e-4:
         raise AssertionError(f"session output vs plain chain: rel err {rel}")
-    # a burst request served again alone (another bucket, possibly other
-    # grains) is bitwise what it was inside the coalesced dispatch: every
-    # kernel sums tap-major, k ascending, whatever the batch or blocking
-    alone = sess.serve([reqs[-1].x])[0]
-    if not torch.equal(alone, reqs[-1].out):
+    # a request of the bucket-8 dispatch served again alone (bucket 1,
+    # other grains) is bitwise what it was coalesced: every kernel sums
+    # tap-major, k ascending, whatever the batch, grain or tile
+    alone = sess.serve([xs8[-1]])[0]
+    if not torch.equal(alone, outs8[-1]):
         raise AssertionError("a request served alone differs bitwise from "
                              "the same request served coalesced")
 
     ms = np.asarray(lat) * 1e3
-    print(f"main path: {len(reqs)} requests, {stats['dispatches']} "
+    print(f"main path: {stats['requests']} requests, {stats['dispatches']} "
           f"dispatches, prewarm {prewarm_s:.3f} s ({built} plans), "
           f"p50 {np.percentile(ms, 50):.3f} ms, p99 "
           f"{np.percentile(ms, 99):.3f} ms, deadline misses "
@@ -440,7 +460,9 @@ def layer_breakdown(torch, sched, chain, bucket: int = 1) -> float:
         lib_total += lib_ms
         print(f"  {name} B={bucket} {plan.describe()} "
               f"{getattr(plan.choice, 'tile', '')}: {ms:.4f} ms "
-              f"(kernel {k_ms:.4f}, {sc.flops / k_ms / 1e6:.1f} GFLOP/s); "
+              f"(kernel {k_ms:.4f}, modeled "
+              f"{plan.choice.predicted_s * 1e3:.4f}, "
+              f"{sc.flops / k_ms / 1e6:.1f} GFLOP/s); "
               f"F.conv2d {lib_ms:.4f} ms; forced grains ms {forced}")
     print(f"  trunk B={bucket}: plans {total:.4f} ms per forward (events), "
           f"kernels {k_total:.4f} ms (device), F.conv2d layer by layer "
@@ -448,66 +470,79 @@ def layer_breakdown(torch, sched, chain, bucket: int = 1) -> float:
     return total
 
 
-def tb18_tile_sweep(torch, chain, buckets=(1, 2)) -> None:
-    """TB18's kernel time at every compiled tile of the slice width the
-    selector chose, on the trunk's 3x3 and strided 1x1 layers at each
-    bucket (f32), beside the tile it chose: the data its model's tile
-    ranking is tested against.  Each tile is passed to the wrapper, which
-    sizes the launch (footprint, grid) for it; each tile's output is held
-    bitwise to the chosen tile's."""
-    from repro_torch.analysis.footprint import tb18_smem, tb18_tiles
+def tile_sweep(torch, chain) -> None:
+    """Each grain's kernel time at every compiled tile that runs the block
+    the selector chose for it (``TILE_SWEEPS``, f32), beside the tile it
+    chose: the data its model's tile ranking is tested against.  Each
+    tile is passed to the wrapper, which sizes the launch (footprint,
+    grid) for it; each tile's output is held bitwise to the chosen
+    tile's."""
+    from repro_torch.analysis.footprint import tiles, vmem_bytes
     from repro_torch.core.mapping import SMEM_BUDGET
     from repro_torch.plan import make_plan
 
     gen = torch.Generator().manual_seed(9)
-    for name, bucket in [(n, b) for b in buckets for n in (
-            "resnet/L2", "resnet/L5", "resnet/L7", "resnet/L8",
-            "resnet/L9")]:
-        plan = make_plan(chain[name].with_batch(bucket), policy="TB18")
-        sc = plan.scene
-        x = torch.randn(sc.in_shape(), generator=gen).cuda()
-        w = (torch.randn(sc.flt_shape(), generator=gen)
-             * (sc.fltH * sc.fltW * sc.IC) ** -0.5).cuda()
-        fn, inp, flt, blocks = plan.kernel_call(x, w)
-        es, bm = plan.exec_scene, blocks["bm"]
-        want = fn(inp, flt, es, **blocks)
-        times = {}
-        for tile in tb18_tiles(bm):
-            if tb18_smem(es, tile) > SMEM_BUDGET:
-                continue
-            if not torch.equal(fn(inp, flt, es, bm=bm, tile=tile), want):
-                raise AssertionError(f"TB18 tile {tile} changes the "
-                                     f"output at {name}")
-            times[tile] = round(device_ms(torch, lambda: fn(
-                inp, flt, es, bm=bm, tile=tile)), 4)
-        print(f"  TB18 tiles at {name} B={bucket} bm={bm} (chosen "
-              f"{blocks['tile']}): ms {times}")
+    for grain, layers, buckets in TILE_SWEEPS:
+        for name, bucket in [(n, b) for b in buckets for n in layers]:
+            plan = make_plan(chain[name].with_batch(bucket), policy=grain)
+            sc = plan.scene
+            x = torch.randn(sc.in_shape(), generator=gen).cuda()
+            w = (torch.randn(sc.flt_shape(), generator=gen)
+                 * (sc.fltH * sc.fltW * sc.IC) ** -0.5).cuda()
+            fn, inp, flt, blocks = plan.kernel_call(x, w)
+            es, ch = plan.exec_scene, plan.choice
+            want = fn(inp, flt, es, **blocks)
+            times = {}
+            for tile in tiles(grain, ch.bm):
+                if vmem_bytes(es, grain, ch.bm, ch.bn, ch.bk,
+                              tile) > SMEM_BUDGET:
+                    continue
+                kw = {**blocks, "tile": tile}
+                if not torch.equal(fn(inp, flt, es, **kw), want):
+                    raise AssertionError(f"{grain} tile {tile} changes the "
+                                         f"output at {name}")
+                times[tile] = round(device_ms(torch, lambda: fn(
+                    inp, flt, es, **kw)), 4)
+            print(f"  {grain} tiles at {name} B={bucket} bm={ch.bm} "
+                  f"(chosen {ch.tile}): ms {times}")
 
 
 def timing_phase(torch, sched, chain, counts, errs):
     """Per kernel, at its layer of ``TIMING_LAYERS`` (batch 1): kernel,
-    plain version, F.conv2d.  Where the selector picks another grain
-    there, the grain is forced (the row says so) and a second row,
-    ``<name>_main_path``, times it at its costliest main-path plan."""
+    plain version, F.conv2d; where the selector picks another grain
+    there, the grain is forced (the row says so).  A second row,
+    ``<name>_main_path``, times the grain's served plan whose kernel took
+    the longest (device time) and names its layer and bucket."""
     from repro_torch.plan import ConvOp, make_plan
 
     rows = []
+    gen = torch.Generator().manual_seed(10)
     for grain in ("TB11", "TB18", "TB88"):
         name = TIMING_LAYERS[grain]
         plan = sched.registry.get(chain[name].with_batch(1), ConvOp.FPROP)
-        if plan.schedule == grain:
-            rows.append(_grain_row(torch, sched, chain, plan, counts, errs,
-                                   f"mg3m_{grain.lower()}", name))
-            continue
-        forced = make_plan(plan.scene, policy=grain)
-        rows.append(_grain_row(torch, sched, chain, forced, counts, errs,
-                               f"mg3m_{grain.lower()}",
-                               f"{name} (forced: off the main path)"))
-        served = max((p for p in sched.registry.plans().values()
-                      if p.schedule == grain), key=lambda p: p.scene.flops)
-        rows.append(_grain_row(torch, sched, chain, served, counts, errs,
-                               f"mg3m_{grain.lower()}_main_path",
-                               _layer_of(chain, served.scene)))
+        where = name
+        if plan.schedule != grain:
+            plan = make_plan(plan.scene, policy=grain)
+            where = f"{name} (forced: off the main path)"
+        rows.append(_grain_row(torch, sched, chain, plan, counts, errs,
+                               f"mg3m_{grain.lower()}", where))
+        served = []
+        for p in sched.registry.plans().values():
+            if p.schedule != grain:
+                continue
+            x = torch.randn(p.scene.in_shape(), generator=gen).cuda()
+            w = sched._layers[_layer_of(chain, p.scene)].flt
+            fn, inp, flt, blocks = p.kernel_call(x, w)
+            served.append((device_ms(torch, lambda: fn(
+                inp, flt, p.exec_scene, **blocks)), p))
+        if not served:
+            raise AssertionError(f"{grain} serves no plan on the main path")
+        slow = max(served, key=lambda t: t[0])[1]
+        rows.append(_grain_row(
+            torch, sched, chain, slow, counts, errs,
+            f"mg3m_{grain.lower()}_main_path",
+            f"{_layer_of(chain, slow.scene)} (served: the longest of "
+            f"{len(served)} {grain} plans)"))
     return rows
 
 
@@ -1002,7 +1037,7 @@ def main() -> int:
     sched, chain, counts = main_path(torch, np, errs)
     for bucket in (1, 2, 4, 8):
         layer_breakdown(torch, sched, chain, bucket)
-    tb18_tile_sweep(torch, chain)
+    tile_sweep(torch, chain)
     rows = timing_phase(torch, sched, chain, counts, errs)
 
     lm_errs = lm_kernel_phase(torch)

@@ -4,21 +4,28 @@ Port of ``repro.core.mapping``.  The three grains keep their meaning; what
 changes is the machine they are mapped onto (see ``csrc/mg3m_conv.cu``):
 
   TB11  the whole filter resident in one block's shared memory; persistent
-        blocks walk strips of output-column tiles.  Feasible only while
+        blocks walk (column tile, m-tile) work items.  Feasible only while
         ``fh*fw*IC*OC`` fits the shared-memory budget.
   TB18  an OC slice of the filter resident per block; blocks over (slice,
-        column strip), on one of the compiled tiles of
-        ``footprint.TB18_SHAPES``: the tile is a dimension of the search,
-        priced here with the grain and stored in ``ScheduleChoice.tile``.
-  TB88  a tiled GEMM: FLT and IN tiles both streamed per (tap, k-chunk).
+        column strip).
+  TB88  a tiled GEMM: FLT and IN tiles both streamed per chunk of the
+        flattened reduction; blocks over (column tile, m-tile).
 
-The selector is an analytic model — compute term (kernel-tile-quantized
-MACs over the f32 rate, stretched by how badly the work units fill the
-card's SMs and by how few warps a busy SM holds) against a traffic term (the bytes each residency pattern
-streams over the HBM rate), plus a per-step overhead.  The constants are
-the H100 SXM datasheet's; the per-step overhead is an assumption, not a
-measurement.  ``CostModel``/``ClassCorrection`` keep the reference's shape
-so a calibration port can fit corrections later.
+Each grain runs one of its compiled tiles ``(BM, BC, TM, TC)``
+(``footprint.TB11_SHAPES`` / ``TB18_SHAPES`` / ``TB88_SHAPES``): the tile
+is a dimension of the search, priced here with the grain and stored in
+``ScheduleChoice.tile``, which the plan launches as is.
+
+The selector is an analytic model: a compute term (the busiest SM's
+share of the kernel-tile-quantized MACs at the f32 rate, slowed by how
+few warps the SM holds and by the issue slots its threads spend on
+shared reads, staging copies and stores beside the FMAs) against a
+traffic term (the bytes each residency pattern streams over the HBM
+rate), plus per-chunk overhead and the load of a resident filter.  The
+machine constants are the H100 SXM datasheet's; the others are
+assumptions fitted to chip times, labelled below.  ``CostModel`` /
+``ClassCorrection`` keep the reference's shape so a calibration port can
+fit corrections later.
 
 The port may choose a different grain than the reference for the same
 scene: the two machines differ.  Parity between the packages covers
@@ -32,9 +39,8 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.analysis.footprint import (TB11_BM, TB18_KC, RES_BK,
-                                            THREADS, col_tile, kernel_bm,
-                                            tb18_threads)
+from repro_torch.analysis.footprint import (GEMM_KC, TB18_KC,
+                                            tile_threads)
 from repro_torch.analysis.footprint import vmem_bytes as _vmem_bytes
 from repro_torch.core.scene import ConvScene, ceil_div, dtype_itemsize
 
@@ -47,16 +53,30 @@ H100_SMEM_PER_BLOCK = 232448   # H100 SXM datasheet: 227 KB opt-in per block
 H100_SMEM_PER_SM = 233472      # H100 SXM datasheet: 228 KB per SM
 _THREADS_PER_SM = 2048         # H100 SXM datasheet: resident threads per SM
 _BLOCKS_PER_SM = 32            # H100 SXM datasheet: resident blocks per SM
-# Assumption, not datasheet: an SM issues f32 FMAs at its full rate only
-# with 16 warps resident (four per scheduler, to hide shared-load and FMA
-# latency), and in proportion to its warps below that.  It ranks TB18's
-# compiled tiles as their chip times did on trunk L5/L7/L9 at batch 1
-# and 2 (PERF.md §6, chip_smoke.py's tile sweep).
-_FULL_RATE_WARPS = 16
+# Assumptions, not datasheet, fitted to the forced-grain, forced-tile chip
+# times of every trunk layer at buckets 1, 2, 4 and 8 (PERF.md §6): they
+# rank TB18's compiled tiles as the card did (batch 1 and 2) and put the
+# selector's picks within 3 % of the fastest measured grain and tile in
+# the trunk's sum at each bucket.
+# - An SM issues at its full rate only with 12 warps resident (three per
+#   scheduler, to hide shared-load and FMA latency), in proportion below.
+_FULL_RATE_WARPS = 12
+_ISSUE_EXPONENT = 0.5
+# - Issue slots a thread spends per 16-byte (or narrower) shared read of
+#   its operands, per staging copy (a cp.async and its address) and per
+#   global store of its outputs, beside its one slot per FMA.
+_ISSUE_PER_READ = 3.0
+_ISSUE_PER_COPY = 8.0
+_ISSUE_PER_STORE = 64.0
+# - The rate at which an SM pulls a resident filter (TB11's whole filter,
+#   TB18's slice) from L2 before its first chunk: the card's 8e12 B/s over
+#   its SMs.
+L2_TO_SM_BW = 8e12
 _SMEM_PER_BLOCK_RESERVED = 1024  # the runtime's share per resident block
+_REGS_PER_SM = 65536             # H100 SXM datasheet: 32-bit registers
 
-# Assumption, not measured: the fixed cost of one (tap, k-chunk) step of a
-# block (two barriers plus the tile-staging latency the FMAs don't hide).
+# Assumption, not measured: the fixed cost of one reduction chunk of a
+# block (its barrier plus the staging latency the FMAs don't hide).
 STEP_OVERHEAD_S = 300e-9
 
 SMEM_BUDGET = H100_SMEM_PER_BLOCK
@@ -171,13 +191,14 @@ class ScheduleChoice:
     schedule: str          # TB11 | TB18 | TB88
     bm: int                # OC block (TB18 slice width / TB88 m-tile)
     bn: int                # batch block (always the whole batch here)
-    bk: int                # IC block; TB11/TB18 carry the full IC
+    bk: int                # IC block; TB11/TB18 carry the full IC; TB88's
+                           # only pads IC (the kernel chunks the reduction)
     predicted_s: float     # modeled runtime (seconds) on one H100
     compute_s: float
     hbm_s: float
     vmem_bytes: int
     notes: str = ""
-    tile: Tuple[int, ...] = ()   # TB18's compiled (BM, BC, TM, TC); () else
+    tile: Tuple[int, ...] = ()   # the compiled (BM, BC, TM, TC) it runs on
 
     @property
     def bound(self) -> str:
@@ -195,62 +216,135 @@ def blocks_per_sm(smem: int, threads: int,
                smem_per_sm // (smem + _SMEM_PER_BLOCK_RESERVED))
 
 
-def _col_tile(schedule: str, bm: int, tile: Tuple[int, ...]) -> int:
-    """Columns of one block tile: TB18's from its compiled tile."""
-    if schedule == "TB11":
-        return col_tile(TB11_BM)
+def _resident_blocks(schedule: str, smem: int, tile: Tuple[int, ...]) -> int:
+    """Blocks one SM holds: shared memory and threads, and for TB11/TB88
+    the registers their launch bounds size a thread for (csrc
+    ``gemm_min_blocks``: 170 for an 8 x 8 thread tile, else 128)."""
+    threads = tile_threads(tile)
+    n = max(1, blocks_per_sm(smem, threads))
+    if schedule != "TB18":
+        regs = 170 if tile[2] * tile[3] >= 64 else 128
+        n = max(1, min(n, _REGS_PER_SM // (threads * regs)))
+    return n
+
+
+def _copy_elems(scene: ConvScene, schedule: str, tile: Tuple[int, ...]
+                ) -> int:
+    """Elements per staging copy of the IN tile, as the kernels choose it:
+    16 bytes of a column's k values at batch 1 where K allows; at batch
+    N > 1 up to 16 bytes of a pixel's N batch entries (TB11/TB88, and
+    TB18 in bf16), single elements otherwise."""
+    it = dtype_itemsize(scene.dtype)
+    v = 16 // it
+    if scene.N == 1:
+        return v if scene.K % v == 0 else 1
+    if schedule == "TB18" and it == 4:
+        return 1
+    run = scene.N * it
+    for nbytes in (16, 8, 4):
+        if run % nbytes == 0 and tile[1] % scene.N == 0:
+            return nbytes // it
+    return 1
+
+
+def _store_elems(scene: ConvScene, schedule: str,
+                 tile: Tuple[int, ...]) -> int:
+    """Outputs per store instruction: TB11/TB88 store a thread's rows of a
+    column 16 bytes at a time at batch 1, a pixel's batch run (or pairs of
+    it at even N) at batch > 1; TB18 stores single elements."""
     if schedule == "TB18":
-        return tile[1]
-    return col_tile(bm)
+        return 1
+    v = 16 // dtype_itemsize(scene.dtype)
+    if scene.N == 1:
+        return min(tile[2], v)
+    vc = min(tile[3], v)
+    if tile[1] % scene.N:
+        return 1
+    return vc if scene.N % vc == 0 else 2 if scene.N % 2 == 0 else 1
 
 
-def _threads(schedule: str, tile: Tuple[int, ...]) -> int:
-    return tb18_threads(tile) if schedule == "TB18" else THREADS
+def _fma_share(scene: ConvScene, schedule: str, bm: int, bk: int,
+               tile: Tuple[int, ...]) -> float:
+    """Share of a thread's issue slots that are FMAs: per reduction value
+    it issues TM x TC FMAs, its shared reads of TM filter rows and TC
+    columns (16 bytes or its vector at a time; 4 k values of a column at
+    once where the IN tile is column-major) and its share of the block's
+    staging copies (TB88 also copies its filter tile); per tile, its
+    stores."""
+    bmt, bc, tm, tc = tile
+    it = dtype_itemsize(scene.dtype)
+    v = 16 // it
+    col_major = scene.N == 1 or (schedule == "TB18" and it == 4)
+    reads = tm / min(tm, v) + (tc / 4 if col_major else tc / min(tc, v))
+    copies = bc / _copy_elems(scene, schedule, tile)
+    if schedule == "TB88":
+        copies += bmt / (v if scene.M % v == 0 and bm % v == 0 else 1)
+    red = (scene.fltH * scene.fltW * scene.K if schedule != "TB88"
+           else _reduction(scene, schedule, bk))
+    fma = tm * tc * red
+    return fma / (fma + red * (_ISSUE_PER_READ * reads
+                               + _ISSUE_PER_COPY * copies / tile_threads(tile))
+                  + _ISSUE_PER_STORE * tm * tc
+                  / _store_elems(scene, schedule, tile))
+
+
+def _resident_bytes(scene: ConvScene, schedule: str,
+                    tile: Tuple[int, ...]) -> int:
+    """Filter bytes a block loads before its first chunk: TB11's whole
+    padded filter, TB18's padded slice; TB88 streams its filter."""
+    it = dtype_itemsize(scene.dtype)
+    taps = scene.fltH * scene.fltW
+    if schedule == "TB11":
+        return (ceil_div(taps * scene.K, GEMM_KC) * GEMM_KC
+                * ceil_div(scene.M, tile[0]) * tile[0] * it)
+    if schedule == "TB18":
+        return taps * ceil_div(scene.K, 8) * 8 * tile[0] * it
+    return 0
 
 
 def _units(scene: ConvScene, schedule: str, bm: int,
-           tile: Tuple[int, ...] = ()) -> Tuple[int, int]:
+           tile: Tuple[int, ...]) -> Tuple[int, int]:
     """(column tiles, m-tiles) of the work: a unit is one column tile x one
-    m-tile (TB11 counts its whole OC as one m-tile unit per column tile)."""
+    m-tile (TB11's m-tiles are its compiled BM inside the whole OC)."""
     cols = scene.num_spatial_tasks * scene.N
-    n_ct = ceil_div(cols, _col_tile(schedule, bm, tile))
-    if schedule == "TB11":
-        return n_ct, 1
-    return n_ct, ceil_div(scene.M, bm)
+    n_ct = ceil_div(cols, tile[1])
+    return n_ct, ceil_div(scene.M, tile[0] if schedule == "TB11" else bm)
+
+
+def _reduction(scene: ConvScene, schedule: str, bk: int) -> int:
+    """Reduction values TB11/TB88 walk: every ``fltH x fltW`` tap (holes
+    included: the kernels mask their loads, exactly as the reference's
+    grid walks them) times K, TB88's K padded to the plan's ``bk``."""
+    k = ceil_div(scene.K, bk) * bk if schedule == "TB88" else scene.K
+    return scene.fltH * scene.fltW * k
 
 
 def grid_steps(scene: ConvScene, schedule: str, bm: int, bk: int,
-               tile: Tuple[int, ...] = ()) -> int:
-    """Total (tap, k-chunk) steps all blocks take.  Counts every
-    ``fltH x fltW`` tap, holes included: the kernels walk them all and
-    mask the hole loads, exactly as the reference's grid does."""
+               tile: Tuple[int, ...]) -> int:
+    """Total chunk steps all blocks take: TB18 walks (tap, 32-k chunk),
+    TB11/TB88 the flattened reduction in chunks of ``GEMM_KC``."""
     n_ct, n_m = _units(scene, schedule, bm, tile)
-    taps = scene.fltH * scene.fltW
-    if schedule == "TB11":
-        return n_ct * ceil_div(scene.M, TB11_BM) * taps * ceil_div(scene.K,
-                                                                   RES_BK)
-    chunk = TB18_KC if schedule == "TB18" else bk
-    return n_ct * n_m * taps * ceil_div(scene.K, chunk)
+    if schedule == "TB18":
+        return n_ct * n_m * scene.fltH * scene.fltW * ceil_div(scene.K,
+                                                               TB18_KC)
+    return n_ct * n_m * ceil_div(_reduction(scene, schedule, bk), GEMM_KC)
 
 
 def _quantized_macs(scene: ConvScene, schedule: str, bm: int, bk: int,
-                    tile: Tuple[int, ...] = ()) -> float:
+                    tile: Tuple[int, ...]) -> float:
     """MACs the kernel tiles actually issue: rows rounded to the compiled
-    m-tile, columns to the tile width, K to the k chunk, all taps."""
-    cols = scene.num_spatial_tasks * scene.N
-    taps = scene.fltH * scene.fltW
-    bc = _col_tile(schedule, bm, tile)
-    if schedule == "TB11":
-        rows = ceil_div(scene.M, TB11_BM) * TB11_BM
-        k = scene.K
+    BM per m-tile, columns to the tile width, the reduction to TB18's k
+    chunk per tap or to whole TB11/TB88 chunks."""
+    n_ct, n_m = _units(scene, schedule, bm, tile)
+    if schedule == "TB18":
+        red = scene.fltH * scene.fltW * scene.K
     else:
-        rows = ceil_div(scene.M, bm) * kernel_bm(bm)
-        k = scene.K if schedule == "TB18" else ceil_div(scene.K, bk) * bk
-    return rows * ceil_div(cols, bc) * bc * taps * k
+        red = ceil_div(_reduction(scene, schedule, bk), GEMM_KC) * GEMM_KC
+    return n_m * tile[0] * n_ct * tile[1] * red
 
 
 def _traffic_bytes(scene: ConvScene, schedule: str, bm: int, slots: int,
-                   tile: Tuple[int, ...] = ()) -> int:
+                   tile: Tuple[int, ...]) -> int:
     """Bytes each residency pattern streams: the filter once per block
     that loads it, the gathered input window (the implicit GEMM's B
     operand) once per m-tile pass, the output once."""
@@ -261,8 +355,7 @@ def _traffic_bytes(scene: ConvScene, schedule: str, bm: int, slots: int,
     out = scene.bytes_out()
     n_ct, n_m = _units(scene, schedule, bm, tile)
     if schedule == "TB11":
-        return (flt * min(n_ct, slots)
-                + ceil_div(scene.M, TB11_BM) * in_win + out)
+        return flt * min(n_ct * n_m, slots) + n_m * in_win + out
     if schedule == "TB18":
         grid_x = min(n_ct, ceil_div(slots, n_m))
         return flt * grid_x + n_m * in_win + out
@@ -277,19 +370,22 @@ def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
     smem = _vmem_bytes(scene, schedule, bm, bn, bk, tile)
     if smem > budget:
         return None
-    threads = _threads(schedule, tile)
-    per_sm = max(1, blocks_per_sm(smem, threads))
+    threads = tile_threads(tile)
+    per_sm = _resident_blocks(schedule, smem, tile)
     slots = H100_SMS * per_sm
     n_ct, n_m = _units(scene, schedule, bm, tile)
     units = n_ct * n_m
-    waves = ceil_div(units, slots)
-    fill = units / (waves * slots)     # share of the card's slots in use
-    # a busy SM issues at the full rate only with enough warps resident:
-    # small TB18 blocks on a few-output layer leave it latency-bound
-    warps = min(per_sm, ceil_div(units, H100_SMS)) * threads // 32
-    issue = min(1.0, warps / _FULL_RATE_WARPS)
+    # the busiest SM's share of the units, and the warps it holds while it
+    # works through them: a busy SM issues at the full rate only with
+    # enough warps resident (few-output layers leave it latency-bound)
+    busiest = ceil_div(units, H100_SMS)
+    resident = min(per_sm, busiest)
+    issue = min(1.0, resident * threads / 32
+                / _FULL_RATE_WARPS) ** _ISSUE_EXPONENT
     macs = _quantized_macs(scene, schedule, bm, bk, tile)
-    raw_compute_s = 2 * macs / model.mxu_rate(scene.dtype) / fill / issue
+    sm_rate = model.mxu_rate(scene.dtype) / H100_SMS
+    raw_compute_s = (busiest * 2 * macs / units / sm_rate / issue
+                     / _fma_share(scene, schedule, bm, bk, tile))
     raw_hbm_s = _traffic_bytes(scene, schedule, bm, slots,
                                tile) / model.hbm_bw
     # class decided on the raw terms, as calibration buckets them
@@ -300,10 +396,12 @@ def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
     hbm_s = raw_hbm_s / max(corr.bw_scale, 1e-30)
     per_step = (corr.overhead_s if corr.overhead_s is not None
                 else model.step_overhead_s)
-    # steps of blocks that run side by side overlap: charge one block's
-    # share per wave
-    overhead_s = grid_steps(scene, schedule, bm, bk, tile) / min(
-        units, slots) * per_step
+    # the busiest SM's chunk steps, overlapped across its resident blocks,
+    # and its resident blocks' filter loads
+    overhead_s = (grid_steps(scene, schedule, bm, bk, tile) / units
+                  * busiest / resident * per_step
+                  + resident * _resident_bytes(scene, schedule, tile)
+                  / (L2_TO_SM_BW / H100_SMS))
     total = max(compute_s, hbm_s) + overhead_s
     return ScheduleChoice(schedule, bm, bn, bk, total, compute_s, hbm_s,
                           smem, tile=tuple(tile))
@@ -313,8 +411,7 @@ def candidate_blocks(scene: ConvScene, schedule: str
                      ) -> Tuple[Tuple[int, int, int, Tuple[int, ...]], ...]:
     """Kernel-tile ``(bm, bn, bk, tile)`` candidates per schedule: the
     blocks ``tune.space`` enumerates, as in the reference, each with every
-    compiled TB18 tile that runs it (``()`` for TB11/TB88, whose tile
-    follows from ``bm``)."""
+    compiled tile of the grain that runs it."""
     from repro_torch.tune.space import (block_candidates,  # avoids a cycle
                                         tile_candidates)
     return tuple((bm, bn, bk, tile)
@@ -347,11 +444,7 @@ def select_schedule(scene: ConvScene,
                 f"budget ({budget} B) at any candidate blocking for "
                 f"{scene.describe()}; allow TB88 (or use schedule=None) "
                 f"for a tiled fallback")
-        choice = _score(scene, "TB88", min(16, scene.M), scene.N,
-                        min(8, scene.K), model, budget)
-        if choice is None:
-            raise ValueError(f"no feasible schedule for {scene.describe()}")
-        best = choice
+        raise ValueError(f"no feasible schedule for {scene.describe()}")
     return best
 
 

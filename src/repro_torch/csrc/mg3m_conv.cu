@@ -29,35 +29,35 @@
 // give bitwise the same output whatever the batch a column is served in;
 // f32 operands on tensor cores would need TF32.
 //
-// TB11 and TB88 (first version): 256 threads, a 4 x 4 register tile per
-// thread (BM * BC == 4096), every shared value feeding four FMAs, tiles
-// staged by the threads between two barriers.
-//
-// TB18 (redesigned): the limit is getting operands to the FMAs, so
-//   * a TM x TC register tile per thread, (BM / TM) x (BC / TC) threads,
-//     8 x 4 or, where a layer has few outputs and needs more warps per SM,
-//     4 x 2: the thread's 8 filter rows are one 16-byte shared read (bf16)
-//     or two (f32), its IN operand is read as 4 (f32) or 8 (bf16) k values
-//     of a column at once, so every shared load feeds 5 (4 x 2) to 10
-//     (8 x 4) FMAs, with no conversion or bounds check of the filter in
-//     the loop (the resident slice is padded with zeros to the compiled BM
-//     and to K rounded up to 8); the 4 x 2 tile unrolls a full k chunk;
-//   * the IN tile (32 k x BC columns) is double-buffered and staged by
-//     cp.async with zero-fill (src-size 0) for masked taps, holes and k
-//     past K.  At batch 1 it is column-major and a copy is 16 bytes of a
-//     column's contiguous k values; f32 at batch > 1 copies single
-//     elements; bf16 at batch N > 1 is k-major and a copy is up to 16 bytes
-//     of one pixel's N contiguous batch entries (4 bytes at N = 2), since
-//     a 2-byte element is below cp.async's minimum (bf16 shapes that allow
-//     neither go through registers).  The next chunk's copies are in
-//     flight while this chunk's FMAs run, one barrier per chunk;
-//   * each column's input offset is computed once per tap per tile into a
-//     [taps][BC] table, not per element;
-//   * the tile is one of the compiled (BM, BC, TM, TC) below, chosen in
-//     Python by the selector (core/mapping prices every tile: masked
-//     columns, waves over the 132 SMs at the footprint's occupancy, and
-//     the warps an SM holds) and passed in the Geom.
-// Its bound at trunk L9, batch 1 (0.925 GFLOP): 0.0138 ms at 67 TFLOP/s.
+// All three are built from the same pieces, for one limit: getting
+// operands to the FMAs.
+//   * A TM x TC register tile per thread, (BM / TM) x (BC / TC) threads:
+//     a thread's filter rows are one or two 16-byte shared reads, its
+//     input columns the same, so every shared load feeds 5 (TB18's 4 x 2)
+//     to 16 (8 x 8) FMAs, with no conversion or bounds check in the loop
+//     (what a tile does not cover is zero-filled in shared memory).
+//   * The IN tile is double-buffered and staged by cp.async with zero-fill
+//     (src-size 0) for masked taps, holes and reduction values past the
+//     end; the next chunk's copies are in flight while this chunk's FMAs
+//     run, one barrier per chunk.  At batch 1 it is column-major and a
+//     copy is 16 bytes of a column's contiguous k values; at batch N > 1
+//     it is k-major and a copy is up to 16 bytes of one pixel's N
+//     contiguous batch entries.
+//   * Input offsets are computed once per tile into tables, never per
+//     element in the copy loops.  TB11/TB88 store a thread's outputs 16
+//     bytes at a time where a column's rows (batch 1) or a pixel's batch
+//     run (batch > 1) allow.
+//   * The tile is one of the compiled (BM, BC, TM, TC) below, chosen in
+//     Python by the selector (core/mapping prices every tile: masked rows
+//     and columns, waves over the 132 SMs at the footprint's occupancy,
+//     and the warps an SM holds) and passed in the Geom.
+// TB18 (the OC slice resident) walks the reduction tap by tap in chunks
+// of 32 k.  TB11 and TB88 share one body (gemm_body) that walks it as one
+// axis r = tap * K + k in chunks of 32, which is exactly the tap-major,
+// k-ascending order, and lets a chunk cross taps where K is small (the
+// stem's 7 x 7 x 3 reduction is 5 chunks, not 49).  TB88 streams a
+// [32 r][BM] filter tile beside the IN tile; TB11 holds the whole filter,
+// zero-padded to the compiled BM and to whole chunks, in shared memory.
 //
 // The index map (the reference's _in_index_map, mg3m_conv.py:64-89) is the
 // one device function in_coord.  Dense route: the input arrives
@@ -87,24 +87,13 @@ struct Geom {
   int padH, padW;    // 0 on the dense route (input pre-padded)
   int dilH, dilW;    // 1 on the dense route
   int bm;            // TB18 slice width / TB88 m-tile
-  int bk;            // TB88 k chunk
+  int bk;            // TB88 k block of the plan (the kernel does not read it)
   int grid;          // TB11/TB18: blocks along the column axis
-  int bc;            // TB18: column tile (a compiled width for bm)
-  int tm, tc;        // TB18: thread tile (8 x 4 or 4 x 2)
+  int bc;            // compiled tile: columns
+  int tm, tc;        // compiled tile: thread tile
+  int tbm;           // compiled tile: rows (TB11/TB88)
 };
 
-constexpr int THREADS = 256;
-constexpr int TM = 4;        // register tile rows (OC)
-constexpr int TC = 4;        // register tile columns (pixel x batch)
-constexpr int TILE = THREADS * TM * TC;
-constexpr int RES_BK = 16;   // k chunk of the IN tile in TB11
-constexpr int BK_MAX = 32;   // largest TB88 k chunk
-constexpr int COL_TABLE = 3; // int (oh, ow, n) per tile column
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -127,187 +116,8 @@ __device__ __forceinline__ int in_coord(int o, int tap, int stride, int fdil,
   return q >= 0 && q < extent ? q : -1;
 }
 
-// Column table of the tile starting at column c0: (oh, ow, n) per column,
-// oh = -1 past the last column.
-template <int BC>
-__device__ void fill_columns(int c0, const Geom& g, int* col_oh, int* col_ow,
-                             int* col_n) {
-  const int C = g.outH * g.outW * g.N;
-  for (int cc = threadIdx.x; cc < BC; cc += THREADS) {
-    const int c = c0 + cc;
-    if (c < C) {
-      const int p = c / g.N;
-      col_n[cc] = c % g.N;
-      col_oh[cc] = p / g.outW;
-      col_ow[cc] = p % g.outW;
-    } else {
-      col_oh[cc] = -1;
-      col_ow[cc] = 0;
-      col_n[cc] = 0;
-    }
-  }
-}
-
-// Cooperative block copy of `total` elements, store(e, load(e)), with
-// COPY_UNROLL independent loads in flight per thread: a single outstanding
-// load per thread leaves the staging loops waiting on memory latency.
-constexpr int COPY_UNROLL = 8;
-
-template <typename V, typename Load, typename Store>
-__device__ __forceinline__ void coop_copy(int total, Load load, Store store) {
-  for (int e0 = threadIdx.x; e0 < total; e0 += THREADS * COPY_UNROLL) {
-    V v[COPY_UNROLL];
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u) {
-      const int e = e0 + u * THREADS;
-      if (e < total) v[u] = load(e);
-    }
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u) {
-      const int e = e0 + u * THREADS;
-      if (e < total) store(e, v[u]);
-    }
-  }
-}
-
-// in_s[kk][cc] = IN[at(col cc, tap (i, j)), k0 + kk, n(cc)] as f32, zero
-// where masked.  kk runs fastest across threads (at batch 1 the k axis is
-// the contiguous one), over a power-of-two stride so that splitting the
-// element index takes a shift and a mask, not an integer division.
-template <typename T, int BC>
-__device__ void stage_in(const T* __restrict__ in, const Geom& g, int i, int j,
-                         int k0, int kc, const int* col_oh, const int* col_ow,
-                         const int* col_n, float* in_s) {
-  int ks = 0;
-  while ((1 << ks) < kc) ++ks;
-  const int kmask = (1 << ks) - 1;
-  coop_copy<float>(
-      BC << ks,
-      [&](int e) {
-        const int kk = e & kmask;
-        const int cc = e >> ks;
-        const int oh = col_oh[cc];
-        if (kk >= kc || oh < 0) return 0.f;
-        const int ih = in_coord(oh, i, g.stdH, g.fdilH, g.padH, g.dilH, g.Hl);
-        const int iw =
-            in_coord(col_ow[cc], j, g.stdW, g.fdilW, g.padW, g.dilW, g.Wl);
-        if (ih < 0 || iw < 0) return 0.f;
-        return to_f(in[(((size_t)ih * g.Wl + iw) * g.K + k0 + kk) * g.N +
-                       col_n[cc]]);
-      },
-      [&](int e, float v) {
-        if ((e & kmask) < kc) in_s[(e & kmask) * BC + (e >> ks)] = v;
-      });
-}
-
-// acc[r][s] += sum_kk flt_at(kk, row r) * in_s[kk][col s]; thread rows are
-// tm + r * BM/TM and columns tc + s * BC/TC, so a warp's filter reads hit
-// consecutive banks and its input reads broadcast.
-template <int BM, int BC, typename FltAt>
-__device__ __forceinline__ void fma_tile(float (&acc)[TM][TC], int kc,
-                                         const float* in_s, FltAt flt_at,
-                                         int tm, int tc) {
-  constexpr int MT = BM / TM;
-  constexpr int CT = BC / TC;
-  for (int kk = 0; kk < kc; ++kk) {
-    float a[TM], b[TC];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) a[r] = flt_at(kk, tm + r * MT);
-#pragma unroll
-    for (int s = 0; s < TC; ++s) b[s] = in_s[kk * BC + tc + s * CT];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int s = 0; s < TC; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
-  }
-}
-
-template <typename T, int BM, int BC>
-__device__ void store_tile(T* __restrict__ out, const Geom& g,
-                           const float (&acc)[TM][TC], int m0, int mlim,
-                           int c0, int tm, int tc) {
-  constexpr int MT = BM / TM;
-  constexpr int CT = BC / TC;
-  const int C = g.outH * g.outW * g.N;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int ml = tm + r * MT;
-    if (ml >= mlim) continue;
-#pragma unroll
-    for (int s = 0; s < TC; ++s) {
-      const int c = c0 + tc + s * CT;
-      if (c >= C) continue;
-      const int p = c / g.N;
-      out[((size_t)p * g.M + m0 + ml) * g.N + c % g.N] = from_f<T>(acc[r][s]);
-    }
-  }
-}
-
 __host__ __device__ constexpr size_t round16(size_t b) {
   return (b + 15) / 16 * 16;
-}
-
-// TB11's body: filter columns [w0, w0 + W) of every tap
-// stay resident in shared memory (in the IO type) while the block walks
-// its strip of column tiles, m-tile by m-tile inside the resident width.
-template <typename T, int BM>
-__device__ void resident_body(const T* __restrict__ in,
-                              const T* __restrict__ flt, T* __restrict__ out,
-                              const Geom& g, int w0, int W) {
-  constexpr int BC = TILE / BM;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int taps = g.fh * g.fw;
-  const size_t res_elems = (size_t)taps * g.K * W;
-  T* flt_res = reinterpret_cast<T*>(smem);
-  float* in_s = reinterpret_cast<float*>(smem + round16(res_elems * sizeof(T)));
-  int* col_oh = reinterpret_cast<int*>(in_s + RES_BK * BC);
-  int* col_ow = col_oh + BC;
-  int* col_n = col_ow + BC;
-
-  coop_copy<T>(
-      (int)res_elems,
-      [&](int e) { return flt[(size_t)(e / W) * g.M + w0 + e % W]; },
-      [&](int e, T v) { flt_res[e] = v; });
-  __syncthreads();
-
-  const int tm = threadIdx.x % (BM / TM);
-  const int tc = threadIdx.x / (BM / TM);
-  const int n_ct = (g.outH * g.outW * g.N + BC - 1) / BC;
-  for (int ct = blockIdx.x; ct < n_ct; ct += gridDim.x) {
-    const int c0 = ct * BC;
-    fill_columns<BC>(c0, g, col_oh, col_ow, col_n);
-    __syncthreads();
-    for (int m0 = 0; m0 < W; m0 += BM) {
-      const int mlim = min(BM, W - m0);
-      float acc[TM][TC] = {};
-      for (int t = 0; t < taps; ++t) {
-        const int i = t / g.fw, j = t % g.fw;
-        for (int k0 = 0; k0 < g.K; k0 += RES_BK) {
-          const int kc = min(RES_BK, g.K - k0);
-          stage_in<T, BC>(in, g, i, j, k0, kc, col_oh, col_ow, col_n, in_s);
-          __syncthreads();
-          const T* fr = flt_res + ((size_t)t * g.K + k0) * W + m0;
-          fma_tile<BM, BC>(
-              acc, kc, in_s,
-              [&](int kk, int ml) {
-                return ml < mlim ? to_f(fr[(size_t)kk * W + ml]) : 0.f;
-              },
-              tm, tc);
-          __syncthreads();
-        }
-      }
-      store_tile<T, BM, BC>(out, g, acc, w0 + m0, mlim, c0, tm, tc);
-    }
-  }
-}
-
-// TB11 (replaces conv_tb11, repro/kernels/mg3m_conv.py:288): persistent
-// blocks, each loading the whole filter once; feasible while it fits 227 KB.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    mg3m_tb11_kernel(const T* __restrict__ in, const T* __restrict__ flt,
-                     T* __restrict__ out, Geom g) {
-  resident_body<T, 64>(in, flt, out, g, 0, g.M);
 }
 
 // ---------------------------------------------------------------------------
@@ -342,75 +152,66 @@ __device__ __forceinline__ void cp_async_n(void* dst, const void* src,
                  "l"(src), "r"(n) : "memory");
 }
 
-// VK consecutive k values of one staged column (16 bytes) as f32, and the
-// TM resident filter rows of one k (8 to 32 bytes) as f32, both exact;
-// copy1 stages one element, zero where masked.
+// NV contiguous values in shared memory as f32 (exact): 16-, 8- or 4-byte
+// reads (a thread's filter rows, its k-major columns, a column's k values)
+template <int NV>
+__device__ __forceinline__ void ldv(const float* p, float* x) {
+  if constexpr (NV % 4 == 0) {
+#pragma unroll
+    for (int u = 0; u < NV / 4; ++u) {
+      const float4 v = reinterpret_cast<const float4*>(p)[u];
+      x[4 * u] = v.x; x[4 * u + 1] = v.y; x[4 * u + 2] = v.z;
+      x[4 * u + 3] = v.w;
+    }
+  } else if constexpr (NV == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+template <int NV>
+__device__ __forceinline__ void ldv(const __nv_bfloat16* p, float* x) {
+  if constexpr (NV % 8 == 0) {
+#pragma unroll
+    for (int u = 0; u < NV / 8; ++u) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[u];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        x[8 * u + 2 * i] = f.x;
+        x[8 * u + 2 * i + 1] = f.y;
+      }
+    }
+  } else if constexpr (NV == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else if constexpr (NV == 2) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = __bfloat162float(*p);
+  }
+}
+
+// One element staged, zero where masked: a 4-byte cp.async for f32; a
+// 2-byte bf16 is below cp.async's minimum and goes through registers.
 template <typename T> struct Io;
 template <> struct Io<float> {
-  static constexpr int VK = 4;
-  __device__ static void in16(const float* p, float (&x)[VK]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  }
-  template <int TM>
-  __device__ static void rows(const float* p, float (&x)[TM]) {
-#pragma unroll
-    for (int u = 0; u < TM / 4; ++u) {
-      const float4 a = reinterpret_cast<const float4*>(p)[u];
-      x[4 * u] = a.x; x[4 * u + 1] = a.y; x[4 * u + 2] = a.z;
-      x[4 * u + 3] = a.w;
-    }
-  }
-  template <int TC>
-  __device__ static void cols(const float* p, float (&x)[TC]) {
-    if constexpr (TC == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p);
-      x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-    } else {
-      const float2 v = *reinterpret_cast<const float2*>(p);
-      x[0] = v.x; x[1] = v.y;
-    }
-  }
   __device__ static void copy1(float* dst, const float* src, bool ok) {
     cp_async_n(dst, src, 4, ok);
   }
 };
 template <> struct Io<__nv_bfloat16> {
-  static constexpr int VK = 8;
-  __device__ static void in16(const __nv_bfloat16* p, float (&x)[VK]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-  template <int TM>
-  __device__ static void rows(const __nv_bfloat16* p, float (&x)[TM]) {
-    if constexpr (TM == 8) {
-      in16(p, x);
-    } else if constexpr (TM == 2) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-      x[0] = f.x;
-      x[1] = f.y;
-    } else {
-      const uint2 v = *reinterpret_cast<const uint2*>(p);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int i = 0; i < TM / 2; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        x[2 * i] = f.x;
-        x[2 * i + 1] = f.y;
-      }
-    }
-  }
-  template <int TC>
-  __device__ static void cols(const __nv_bfloat16* p, float (&x)[TC]) {
-    rows<TC>(p, x);
-  }
   __device__ static void copy1(__nv_bfloat16* dst,
                                     const __nv_bfloat16* src, bool ok) {
     *dst = ok ? *src : __float2bfloat16(0.f);
@@ -431,16 +232,16 @@ template <typename T, int BM, int TM, int TC, int CT, int KCP>
 __device__ __forceinline__ void fma_chunk(float (&acc)[TM][TC], int kc8,
                                           const T* src, const T* fr,
                                           int tc) {
-  constexpr int VK = Io<T>::VK;
+  constexpr int VK = 16 / (int)sizeof(T);   // a column's k values a read
   auto step = [&](int kk) {
     float b[TC][VK];
 #pragma unroll
     for (int s = 0; s < TC; ++s)
-      Io<T>::in16(src + (tc + s * CT) * KCP + kk, b[s]);
+      ldv<VK>(src + (tc + s * CT) * KCP + kk, b[s]);
 #pragma unroll
     for (int j = 0; j < VK; ++j) {
       float a[TM];
-      Io<T>::template rows<TM>(fr + (size_t)(kk + j) * BM, a);
+      ldv<TM>(fr + (size_t)(kk + j) * BM, a);
 #pragma unroll
       for (int r = 0; r < TM; ++r)
 #pragma unroll
@@ -468,8 +269,8 @@ __device__ __forceinline__ void fma_chunk_kmajor(float (&acc)[TM][TC],
                                                  const T* fr, int tc) {
   auto step = [&](int kk) {
     float b[TC], a[TM];
-    Io<T>::template cols<TC>(src + kk * BC + tc * TC, b);
-    Io<T>::template rows<TM>(fr + (size_t)kk * BM, a);
+    ldv<TC>(src + kk * BC + tc * TC, b);
+    ldv<TM>(fr + (size_t)kk * BM, a);
 #pragma unroll
     for (int r = 0; r < TM; ++r)
 #pragma unroll
@@ -648,53 +449,393 @@ __global__ void __launch_bounds__(BM / TM * (BC / TC))
   }
 }
 
-// TB88 (replaces conv_tb88, mg3m_conv.py:352): block (column tile,
-// m-tile); the (tap, k-chunk) loop stages an f32 FLT tile [bk][BM] and an
-// f32 IN tile [bk][BC] per step.  Nothing resident, so it fits any scene.
-template <typename T, int BM>
-__global__ void __launch_bounds__(THREADS)
-    mg3m_tb88_kernel(const T* __restrict__ in, const T* __restrict__ flt,
-                     T* __restrict__ out, Geom g) {
-  constexpr int BC = TILE / BM;
+// ---------------------------------------------------------------------------
+// TB11 and TB88: one implicit-GEMM body over the flattened reduction
+// r = tap * K + k, r < R = fh * fw * K, in chunks of G_KC.
+// ---------------------------------------------------------------------------
+constexpr int G_KC = 32;   // reduction values per chunk
+static_assert(G_KC == T18_KC, "the IN tile's row stride is TB18's");
+
+// NV f32 values stored as NV contiguous values of T: 16-, 8- or 4-byte
+// stores (p aligned to them)
+template <int NV>
+__device__ __forceinline__ void stv(float* p, const float* x) {
+  if constexpr (NV % 4 == 0) {
+#pragma unroll
+    for (int u = 0; u < NV / 4; ++u)
+      reinterpret_cast<float4*>(p)[u] =
+          make_float4(x[4 * u], x[4 * u + 1], x[4 * u + 2], x[4 * u + 3]);
+  } else if constexpr (NV == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+template <int NV>
+__device__ __forceinline__ void stv(__nv_bfloat16* p, const float* x) {
+  if constexpr (NV >= 2) {
+    __nv_bfloat162 h[NV / 2];
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i)
+      h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    if constexpr (NV == 8)
+      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+    else if constexpr (NV == 4)
+      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(p) = h[0];
+  } else {
+    *p = __float2bfloat16(x[0]);
+  }
+}
+
+// Shared memory of one block (analysis/footprint.gemm_smem), in order:
+//   filter  TB88: a ring of two [G_KC][BM] tiles; TB11: the whole filter
+//           [nq * G_KC][Mp] (nq chunks, Mp = M rounded up to BM), the pads
+//           zero;
+//   IN      a ring of two tiles of BC * t18_row elements: column-major
+//           [BC][t18_row] at batch 1, k-major [G_KC][BC] otherwise;
+//   rtab    [2][G_KC] int4 per reduction value of the chunk being staged:
+//           (tap row i * BC, tap column j * BC, k * N), i = -1 past R;
+//   rowtab  [fh][BC] per column: ih * Wl * K * N, -1 where masked;
+//   coltab  [fw][BC] per column: iw * K * N + n, -1 where masked.
+// A column's input offset at (i, j, k) is rowtab + coltab + k * N.
+template <typename T, int BM, int BC, int TM, int TC, bool RES>
+__device__ __forceinline__ void gemm_body(const T* __restrict__ in,
+                                          const T* __restrict__ flt,
+                                          T* __restrict__ out, const Geom& g) {
+  constexpr int THR = BM / TM * (BC / TC);
+  constexpr int V = 16 / (int)sizeof(T);   // elements per 16 bytes
+  constexpr int VR = TM < V ? TM : V;      // filter rows per shared read
+  constexpr int VC = TC < V ? TC : V;      // k-major columns per read
+  constexpr int VK = 4;                    // column-major k values per read
+  constexpr int MT = BM / TM;
+  constexpr int CT = BC / TC;
+  constexpr int KCP = t18_row<T>();
+  static_assert(THR >= 2 * G_KC, "two chunks' rtab rows, one per thread");
+  static_assert(TM % VR == 0 && TC % VC == 0 && G_KC % V == 0, "tile");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* flt_s = reinterpret_cast<float*>(smem);
-  float* in_s = flt_s + g.bk * BM;
-  int* col_oh = reinterpret_cast<int*>(in_s + g.bk * BC);
-  int* col_ow = col_oh + BC;
-  int* col_n = col_ow + BC;
 
-  const int c0 = blockIdx.x * BC;
-  const int m0 = blockIdx.y * g.bm;
-  const int mlim = g.bm;
-  const int tm = threadIdx.x % (BM / TM);
-  const int tc = threadIdx.x / (BM / TM);
-  fill_columns<BC>(c0, g, col_oh, col_ow, col_n);
-  __syncthreads();
+  const int R = g.fh * g.fw * g.K;
+  const int nq = (R + G_KC - 1) / G_KC;
+  const int C = g.outH * g.outW * g.N;
+  const int n_ct = (C + BC - 1) / BC;
+  const int Mp = RES ? (g.M + BM - 1) / BM * BM : BM;   // filter row stride
+  const size_t flt_elems =
+      RES ? (size_t)nq * G_KC * Mp : (size_t)2 * G_KC * BM;
+  T* flt_s = reinterpret_cast<T*>(smem);
+  T* in_s = reinterpret_cast<T*>(smem + round16(flt_elems * sizeof(T)));
+  int4* rtab = reinterpret_cast<int4*>(in_s + 2 * BC * KCP);
+  int* rowtab = reinterpret_cast<int*>(rtab + 2 * G_KC);
+  int* coltab = rowtab + g.fh * BC;
 
-  float acc[TM][TC] = {};
-  const int taps = g.fh * g.fw;
-  for (int t = 0; t < taps; ++t) {
-    const int i = t / g.fw, j = t % g.fw;
-    for (int k0 = 0; k0 < g.K; k0 += g.bk) {
-      const int kc = min(g.bk, g.K - k0);
-      coop_copy<float>(
-          kc * BM,
-          [&](int e) {
-            const int kk = e / BM, ml = e % BM;
-            return ml < mlim ? to_f(flt[((size_t)t * g.K + k0 + kk) * g.M +
-                                        m0 + ml])
-                             : 0.f;
-          },
-          [&](int e, float v) { flt_s[e] = v; });
-      stage_in<T, BC>(in, g, i, j, k0, kc, col_oh, col_ow, col_n, in_s);
-      __syncthreads();
-      fma_tile<BM, BC>(
-          acc, kc, in_s, [&](int kk, int ml) { return flt_s[kk * BM + ml]; },
-          tm, tc);
-      __syncthreads();
+  const int tm = threadIdx.x % MT, tc = threadIdx.x / MT;
+  const bool cmaj = g.N == 1;
+  const bool in_al = reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  const bool flt_al = reinterpret_cast<uintptr_t>(flt) % 16 == 0;
+  const bool out_al = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // column-major: 16-byte copies of V k values where K % V == 0
+  const bool in_vec = cmaj && in_al && g.K % V == 0;
+  // k-major: EB bytes (E columns of one pixel) per copy; bf16 single
+  // elements (2 bytes, below cp.async's minimum) go through registers
+  int EB = (int)sizeof(T);
+  if (!cmaj && in_al && BC % g.N == 0) {
+    const int run = g.N * (int)sizeof(T);
+    EB = run % 16 == 0 ? 16 : run % 8 == 0 ? 8 : run % 4 == 0 ? 4 : EB;
+  }
+  const int E = EB / (int)sizeof(T);
+  int pk_shift = 0;   // log2(BC / E): no division in the copy loop
+  while ((E << pk_shift) < BC) ++pk_shift;
+  const int pk_mask = (1 << pk_shift) - 1;
+  // TB88's filter tile: 16-byte copies where the m-tile is whole vectors
+  const bool flt_vec = flt_al && g.M % V == 0 && g.bm % V == 0;
+
+  int c0 = 0, m0 = 0;
+
+  auto in_off = [&](int4 s, int cc) {
+    if (s.x < 0) return -1;
+    const int a = rowtab[s.x + cc], b = coltab[s.y + cc];
+    return a >= 0 && b >= 0 ? a + b + s.z : -1;
+  };
+
+  auto fill_r = [&](int q, int buf, int rr) {
+    const int r = q * G_KC + rr;
+    int4 s = make_int4(-1, 0, 0, 0);
+    if (r < R) {
+      const int t = r / g.K, k = r - t * g.K;
+      const int i = t / g.fw, j = t - i * g.fw;
+      s = make_int4(i * BC, j * BC, k * g.N, 0);
+    }
+    rtab[buf * G_KC + rr] = s;
+  };
+
+  auto stage = [&](int q, int buf) {
+    const int4* rt = rtab + buf * G_KC;
+    T* dst = in_s + buf * BC * KCP;
+    if (in_vec) {
+      constexpr int SEGS = G_KC / V;
+      for (int e = threadIdx.x; e < BC * SEGS; e += THR) {
+        const int cc = e / SEGS, rr = e % SEGS * V;
+        const int off = in_off(rt[rr], cc);
+        cp_async_n(dst + cc * KCP + rr, in + (off >= 0 ? off : 0), 16,
+                   off >= 0);
+      }
+    } else if (cmaj) {
+      for (int e = threadIdx.x; e < BC * G_KC; e += THR) {
+        const int cc = e / G_KC, rr = e % G_KC;
+        const int off = in_off(rt[rr], cc);
+        Io<T>::copy1(dst + cc * KCP + rr, in + (off >= 0 ? off : 0),
+                     off >= 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < (G_KC << pk_shift); e += THR) {
+        const int rr = e >> pk_shift, cc = (e & pk_mask) * E;
+        const int off = in_off(rt[rr], cc);
+        T* d = dst + rr * BC + cc;
+        const T* s = in + (off >= 0 ? off : 0);
+        if (EB >= 4)
+          cp_async_n(d, s, EB, off >= 0);
+        else
+          Io<T>::copy1(d, s, off >= 0);
+      }
+    }
+    if constexpr (!RES) {
+      T* fd = flt_s + buf * G_KC * BM;
+      const int r0 = q * G_KC;
+      if (flt_vec) {
+        constexpr int SEG = BM / V;
+        for (int e = threadIdx.x; e < G_KC * SEG; e += THR) {
+          const int rr = e / SEG, ml = e % SEG * V;
+          const bool ok = r0 + rr < R && ml < g.bm;
+          cp_async_n(fd + rr * BM + ml,
+                     flt + (ok ? (size_t)(r0 + rr) * g.M + m0 + ml : 0), 16,
+                     ok);
+        }
+      } else {
+        for (int e = threadIdx.x; e < G_KC * BM; e += THR) {
+          const int rr = e / BM, ml = e % BM;
+          const bool ok = r0 + rr < R && ml < g.bm;
+          Io<T>::copy1(fd + e,
+                       flt + (ok ? (size_t)(r0 + rr) * g.M + m0 + ml : 0),
+                       ok);
+        }
+      }
+    }
+  };
+
+  if constexpr (RES) {
+    // the whole filter, zero past R rows and M columns, once per block
+    const int rows = nq * G_KC;
+    if (flt_al && g.M % V == 0) {
+      const int segs = Mp / V;
+      for (int e = threadIdx.x; e < rows * segs; e += THR) {
+        const int r = e / segs, m = (e - r * segs) * V;
+        const bool ok = r < R && m < g.M;
+        cp_async_n(flt_s + (size_t)r * Mp + m,
+                   flt + (ok ? (size_t)r * g.M + m : 0), 16, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < rows * Mp; e += THR) {
+        const int r = e / Mp, m = e - r * Mp;
+        const bool ok = r < R && m < g.M;
+        Io<T>::copy1(flt_s + e, flt + (ok ? (size_t)r * g.M + m : 0), ok);
+      }
     }
   }
-  store_tile<T, BM, BC>(out, g, acc, m0, mlim, c0, tm, tc);
+
+  // one BM x BC output tile: the chunks of the reduction, double-buffered
+  auto tile = [&](int ct, int mt) {
+    c0 = ct * BC;
+    m0 = mt * (RES ? BM : g.bm);
+    __syncthreads();   // the last tile is done with the tables and buffers
+    for (int e = threadIdx.x; e < (g.fh + g.fw) * BC; e += THR) {
+      const int a = e / BC, c = c0 + e % BC;
+      int v = -1;
+      if (c < C) {
+        const int p = c / g.N, n = c - p * g.N;
+        const int oh = p / g.outW, ow = p - oh * g.outW;
+        if (a < g.fh) {
+          const int ih =
+              in_coord(oh, a, g.stdH, g.fdilH, g.padH, g.dilH, g.Hl);
+          if (ih >= 0) v = ih * g.Wl * g.K * g.N;
+        } else {
+          const int iw =
+              in_coord(ow, a - g.fh, g.stdW, g.fdilW, g.padW, g.dilW, g.Wl);
+          if (iw >= 0) v = iw * g.K * g.N + n;
+        }
+      }
+      rowtab[e] = v;   // coltab follows rowtab
+    }
+    if (threadIdx.x < G_KC)
+      fill_r(0, 0, threadIdx.x);
+    else if (threadIdx.x < 2 * G_KC)
+      fill_r(1, 1, threadIdx.x - G_KC);
+    __syncthreads();
+    stage(0, 0);
+    cp_async_commit();
+
+    float acc[TM][TC];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int s = 0; s < TC; ++s) acc[r][s] = 0.f;
+    const int fs = RES ? Mp : BM;
+    for (int q = 0; q < nq; ++q) {
+      cp_async_wait_all();
+      __syncthreads();   // chunk q is in; every thread is done with q - 1
+      if (q + 1 < nq) stage(q + 1, (q + 1) & 1);
+      cp_async_commit();
+
+      const T* fr = (RES ? flt_s + (size_t)q * G_KC * Mp + m0
+                         : flt_s + (q & 1) * G_KC * BM) + tm * VR;
+      const T* src = in_s + (q & 1) * BC * KCP;
+      if (cmaj) {
+#pragma unroll 2
+        for (int kk = 0; kk < G_KC; kk += VK) {
+          float b[TC][VK];
+#pragma unroll
+          for (int s = 0; s < TC; ++s)
+            ldv<VK>(src + (tc + s * CT) * KCP + kk, b[s]);
+#pragma unroll
+          for (int j = 0; j < VK; ++j) {
+            float a[TM];
+#pragma unroll
+            for (int v = 0; v < TM / VR; ++v)
+              ldv<VR>(fr + (kk + j) * fs + v * MT * VR, a + v * VR);
+#pragma unroll
+            for (int r = 0; r < TM; ++r)
+#pragma unroll
+              for (int s = 0; s < TC; ++s)
+                acc[r][s] = fmaf(a[r], b[s][j], acc[r][s]);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int kk = 0; kk < G_KC; ++kk) {
+          float a[TM], b[TC];
+#pragma unroll
+          for (int v = 0; v < TM / VR; ++v)
+            ldv<VR>(fr + kk * fs + v * MT * VR, a + v * VR);
+#pragma unroll
+          for (int v = 0; v < TC / VC; ++v)
+            ldv<VC>(src + kk * BC + (v * CT + tc) * VC, b + v * VC);
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+#pragma unroll
+            for (int s = 0; s < TC; ++s)
+              acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
+        }
+      }
+      // the chunk after next reuses this chunk's rtab rows: its copies were
+      // issued before this iteration's barrier
+      if (threadIdx.x < G_KC && q + 2 < nq) fill_r(q + 2, q & 1, threadIdx.x);
+    }
+
+    // a thread's outputs: VR consecutive rows of a column are contiguous
+    // at batch 1, VC consecutive columns of a row (one pixel's batch run)
+    // at batch N > 1: one 16-byte (or narrower) store each where whole
+    const int mlim = RES ? min(BM, g.M - m0) : g.bm;
+    if (cmaj) {
+      const bool vst = out_al && g.M % VR == 0 && mlim % VR == 0;
+#pragma unroll
+      for (int s = 0; s < TC; ++s) {
+        const int c = c0 + tc + s * CT;
+        if (c >= C) continue;
+#pragma unroll
+        for (int v = 0; v < TM / VR; ++v) {
+          const int ml = (v * MT + tm) * VR;
+          T* o = out + (size_t)c * g.M + m0 + ml;
+          float x[VR];
+#pragma unroll
+          for (int u = 0; u < VR; ++u) x[u] = acc[v * VR + u][s];
+          if (vst) {
+            if (ml < mlim) stv<VR>(o, x);
+          } else {
+#pragma unroll
+            for (int u = 0; u < VR; ++u)
+              if (ml + u < mlim) o[u] = from_f<T>(x[u]);
+          }
+        }
+      }
+    } else {
+      // SW columns a store: the thread's VC columns where they are one
+      // pixel's, pairs of them where N is even
+      const int sw = !out_al || BC % g.N != 0 ? 1
+                     : g.N % VC == 0          ? VC
+                     : g.N % 2 == 0           ? 2
+                                              : 1;
+#pragma unroll
+      for (int v = 0; v < TC / VC; ++v) {
+        const int c = c0 + (v * CT + tc) * VC;
+        size_t off[VC];   // each column's (pixel, batch) offset, -1 past C
+#pragma unroll
+        for (int u = 0; u < VC; ++u) {
+          const int p = (c + u) / g.N, n = c + u - p * g.N;
+          off[u] = c + u < C ? (size_t)p * g.M * g.N + n : ~(size_t)0;
+        }
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const int ml = ((r / VR) * MT + tm) * VR + r % VR;
+          if (ml >= mlim) continue;
+          T* o = out + (size_t)(m0 + ml) * g.N;
+          const float* x = &acc[r][v * VC];
+          if (sw == VC) {
+            if (off[0] != ~(size_t)0) stv<VC>(o + off[0], x);
+          } else if (sw == 2) {
+#pragma unroll
+            for (int u = 0; u < VC; u += 2)
+              if (off[u] != ~(size_t)0) stv<2>(o + off[u], x + u);
+          } else {
+#pragma unroll
+            for (int u = 0; u < VC; ++u)
+              if (off[u] != ~(size_t)0) o[off[u]] = from_f<T>(x[u]);
+          }
+        }
+      }
+    }
+  };
+
+  if constexpr (RES) {
+    // persistent: work items (column tile, m-tile), x, x + grid, ...
+    const int n_mt = Mp / BM;
+    for (int w = blockIdx.x; w < n_ct * n_mt; w += gridDim.x)
+      tile(w / n_mt, w - w / n_mt * n_mt);
+  } else {
+    tile(blockIdx.x, blockIdx.y);
+  }
+}
+
+// Threads of a TB11/TB88 block, and the blocks per SM its registers are
+// sized for: 128 registers a thread, but an 8 x 8 tile's 64 accumulators
+// get 170 (255 at 256 threads), under which it spills nothing.
+__host__ __device__ constexpr int gemm_threads(int BM, int BC, int TM,
+                                               int TC) {
+  return BM / TM * (BC / TC);
+}
+__host__ __device__ constexpr int gemm_min_blocks(int BM, int BC, int TM,
+                                                  int TC) {
+  return (TM * TC >= 64 ? 384 : 512) / gemm_threads(BM, BC, TM, TC);
+}
+
+// TB11 (replaces conv_tb11, mg3m_conv.py:288): persistent blocks, each
+// loading the whole filter once; feasible while it fits 227 KB.
+template <typename T, int BM, int BC, int TM, int TC>
+__global__ void __launch_bounds__(gemm_threads(BM, BC, TM, TC),
+                                  gemm_min_blocks(BM, BC, TM, TC))
+    mg3m_tb11_kernel(const T* __restrict__ in, const T* __restrict__ flt,
+                     T* __restrict__ out, Geom g) {
+  gemm_body<T, BM, BC, TM, TC, true>(in, flt, out, g);
+}
+
+// TB88 (replaces conv_tb88, mg3m_conv.py:352): block (column tile,
+// m-tile), the filter streamed in [G_KC][BM] tiles beside the IN tile.
+// Nothing resident but the column tables.
+template <typename T, int BM, int BC, int TM, int TC>
+__global__ void __launch_bounds__(gemm_threads(BM, BC, TM, TC),
+                                  gemm_min_blocks(BM, BC, TM, TC))
+    mg3m_tb88_kernel(const T* __restrict__ in, const T* __restrict__ flt,
+                     T* __restrict__ out, Geom g) {
+  gemm_body<T, BM, BC, TM, TC, false>(in, flt, out, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -703,7 +844,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 static int launch(void (*kernel)(const T*, const T*, T*, Geom), dim3 grid,
                   size_t smem, const T* in, const T* flt, T* out,
-                  const Geom& g, cudaStream_t stream, int threads = THREADS) {
+                  const Geom& g, cudaStream_t stream, int threads) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -713,21 +854,62 @@ static int launch(void (*kernel)(const T*, const T*, T*, Geom), dim3 grid,
   return (int)cudaGetLastError();
 }
 
+// TB11's and TB88's shared memory (analysis/footprint.gemm_smem): see
+// gemm_body.
 template <typename T>
-static size_t resident_smem(const Geom& g, int W, int BM) {
-  const int BC = TILE / BM;
-  return round16((size_t)g.fh * g.fw * g.K * W * sizeof(T)) +
-         sizeof(float) * (RES_BK * BC + COL_TABLE * BC);
+static size_t gemm_smem(const Geom& g, int BM, int BC, bool res) {
+  const size_t nq = ((size_t)g.fh * g.fw * g.K + G_KC - 1) / G_KC;
+  const size_t flt = res ? nq * G_KC * (size_t)((g.M + BM - 1) / BM * BM)
+                         : (size_t)2 * G_KC * BM;
+  return round16(flt * sizeof(T)) + 2 * (size_t)BC * t18_row<T>() * sizeof(T) +
+         2 * G_KC * sizeof(int4) + 4 * (size_t)(g.fh + g.fw) * BC;
 }
 
+template <typename T, int BM, int BC, int TM, int TC>
+static int tb11_shape(const void* in, const void* flt, void* out,
+                      const Geom& g, cudaStream_t s) {
+  return launch(mg3m_tb11_kernel<T, BM, BC, TM, TC>, dim3(g.grid),
+                gemm_smem<T>(g, BM, BC, true), (const T*)in, (const T*)flt,
+                (T*)out, g, s, BM / TM * (BC / TC));
+}
+
+template <typename T, int BM, int BC, int TM, int TC>
+static int tb88_shape(const void* in, const void* flt, void* out,
+                      const Geom& g, cudaStream_t s) {
+  const int C = g.outH * g.outW * g.N;
+  return launch(mg3m_tb88_kernel<T, BM, BC, TM, TC>,
+                dim3((C + BC - 1) / BC, g.M / g.bm),
+                gemm_smem<T>(g, BM, BC, false), (const T*)in, (const T*)flt,
+                (T*)out, g, s, BM / TM * (BC / TC));
+}
+
+// The compiled (BM, BC, TM, TC) tiles of TB11 (footprint.TB11_SHAPES) and
+// TB88 (footprint.TB88_SHAPES).
 template <typename T>
 static int tb11(const void* in, const void* flt, void* out, const Geom& g,
                 cudaStream_t s) {
-  const size_t smem = resident_smem<T>(g, g.M, 64);
-  return launch(mg3m_tb11_kernel<T>, dim3(g.grid), smem, (const T*)in,
-                (const T*)flt, (T*)out, g, s);
+#define TB11_SHAPE(BM_, BC_, TM_, TC_)                                \
+  if (g.tbm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)      \
+    return tb11_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
+  TB11_SHAPE(64, 128, 8, 8) TB11_SHAPE(64, 128, 8, 4)
+  TB11_SHAPE(64, 64, 8, 4) TB11_SHAPE(64, 64, 4, 4) TB11_SHAPE(64, 32, 4, 4)
+#undef TB11_SHAPE
+  return -1;
 }
 
+template <typename T>
+static int tb88(const void* in, const void* flt, void* out, const Geom& g,
+                cudaStream_t s) {
+#define TB88_SHAPE(BM_, BC_, TM_, TC_)                                \
+  if (g.tbm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)      \
+    return tb88_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
+  TB88_SHAPE(128, 64, 8, 8) TB88_SHAPE(64, 128, 8, 8)
+  TB88_SHAPE(64, 128, 8, 4) TB88_SHAPE(64, 64, 8, 4)
+  TB88_SHAPE(64, 64, 4, 4) TB88_SHAPE(32, 128, 8, 4)
+  TB88_SHAPE(64, 32, 4, 4) TB88_SHAPE(128, 32, 4, 4)
+#undef TB88_SHAPE
+  return -1;
+}
 // TB18's shared memory (analysis/footprint.tb18_smem): the padded slice,
 // the double-buffered IN tile and the offset table.
 template <typename T>
@@ -765,31 +947,12 @@ static int tb18(const void* in, const void* flt, void* out, const Geom& g,
   return -1;
 }
 
-template <typename T, int BM>
-static int tb88_bm(const void* in, const void* flt, void* out, const Geom& g,
-                   cudaStream_t s) {
-  constexpr int BC = TILE / BM;
-  const size_t smem =
-      sizeof(float) * ((size_t)g.bk * BM + (size_t)g.bk * BC + COL_TABLE * BC);
-  const int C = g.outH * g.outW * g.N;
-  return launch(mg3m_tb88_kernel<T, BM>, dim3((C + BC - 1) / BC, g.M / g.bm),
-                smem, (const T*)in, (const T*)flt, (T*)out, g, s);
-}
-
-// The compiled m-tile that runs a runtime width bm (footprint.kernel_bm),
-// for TB88.
-#define DISPATCH_BM(fn, T, bm, ...)                         \
-  ((bm) <= 8     ? fn<T, 8>(__VA_ARGS__)                    \
-   : (bm) <= 16  ? fn<T, 16>(__VA_ARGS__)                   \
-   : (bm) <= 32  ? fn<T, 32>(__VA_ARGS__)                   \
-   : (bm) <= 64  ? fn<T, 64>(__VA_ARGS__)                   \
-   : (bm) <= 128 ? fn<T, 128>(__VA_ARGS__)                  \
-                 : -1)
-
 static bool valid(const Geom* g) {
   return g && g->K > 0 && g->N > 0 && g->M > 0 && g->outH > 0 &&
          g->outW > 0 && g->fh > 0 && g->fw > 0 && g->dilH > 0 &&
-         g->dilW > 0;
+         g->dilW > 0 &&
+         // the offset tables hold int32 input offsets
+         (long long)g->Hl * g->Wl * g->K * g->N < (1ll << 31);
 }
 
 // TB18 slices and TB88 m-tiles: a width that divides M.
@@ -816,10 +979,7 @@ int mg3m_tb11(int dtype, const void* in, const void* flt, void* out,
 
 int mg3m_tb18(int dtype, const void* in, const void* flt, void* out,
               const Geom* g, void* stream) {
-  // the offset table holds int32 input offsets
-  if (!valid(g) || !valid_bm(g) || g->grid <= 0 ||
-      (long long)g->Hl * g->Wl * g->K * g->N >= (1ll << 31))
-    return -1;
+  if (!valid(g) || !valid_bm(g) || g->grid <= 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return tb18<float>(in, flt, out, *g, s);
   if (dtype == 1) return tb18<__nv_bfloat16>(in, flt, out, *g, s);
@@ -828,13 +988,10 @@ int mg3m_tb18(int dtype, const void* in, const void* flt, void* out,
 
 int mg3m_tb88(int dtype, const void* in, const void* flt, void* out,
               const Geom* g, void* stream) {
-  if (!valid(g) || !valid_bm(g) || g->bk <= 0 || g->bk > BK_MAX ||
-      g->K % g->bk != 0)
-    return -1;
+  if (!valid(g) || !valid_bm(g) || g->bm > g->tbm) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return DISPATCH_BM(tb88_bm, float, g->bm, in, flt, out, *g, s);
-  if (dtype == 1)
-    return DISPATCH_BM(tb88_bm, __nv_bfloat16, g->bm, in, flt, out, *g, s);
+  if (dtype == 0) return tb88<float>(in, flt, out, *g, s);
+  if (dtype == 1) return tb88<__nv_bfloat16>(in, flt, out, *g, s);
   return -1;
 }
 

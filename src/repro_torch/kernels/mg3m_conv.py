@@ -4,15 +4,17 @@ Port of ``repro.kernels.mg3m_conv``.  The three grains are CUDA kernels in
 ``csrc/mg3m_conv.cu`` (built by ``kernels.cuda_build`` at first use):
 
   ``conv_tb11``  replaces ``conv_tb11`` (mg3m_conv.py:288): whole filter
-                 resident in shared memory, persistent blocks over strips
-                 of output-column tiles.
+                 resident in shared memory, persistent blocks over (column
+                 tile, m-tile) work items.
   ``conv_tb18``  replaces ``conv_tb18`` (:320): an OC slice ``bm`` wide
-                 resident per block, blocks over (slice, column strip),
-                 on the compiled tile ``(BM, BC, TM, TC)`` the selector
-                 chose (columns ``BC`` per block, ``TM x TC`` results
-                 per thread; ``footprint.TB18_SHAPES``).
+                 resident per block, blocks over (slice, column strip).
   ``conv_tb88``  replaces ``conv_tb88`` (:352): tiled GEMM, blocks over
-                 (column tile, m-tile), loop over (tap, k-chunk ``bk``).
+                 (column tile, m-tile ``bm``), filter and input streamed
+                 per chunk of the flattened reduction (tap, k).
+
+Each runs on the compiled tile ``(BM, BC, TM, TC)`` the selector chose
+(``BM x BC`` outputs per block, ``TM x TC`` per thread;
+``footprint.TB11_SHAPES`` / ``TB18_SHAPES`` / ``TB88_SHAPES``).
 
 A column is one (output pixel, batch) pair, so at batch 1 a block still
 has a full tile of work.  Each wrapper checks device, dtype, shape and
@@ -41,8 +43,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.analysis.footprint import (BK_MAX, KERNEL_BM, TB11_BM,
-                                            THREADS, col_tile, tb18_threads,
+from repro_torch.analysis.footprint import (KERNEL_BM, tile_threads,
                                             vmem_bytes)
 from repro_torch.core.mapping import (blocks_per_sm, device_limits,
                                       smem_budget)
@@ -82,9 +83,8 @@ def _index_params(scene: ConvScene) -> Tuple[int, int, int, int]:
 class LaunchSpec:
     """Checked launch geometry of one schedule over one scene (the port's
     ``KernelGridSpec``): operand shapes exactly as launched, the blocking,
-    the block's shared-memory footprint and, for TB18, its compiled tile
-    ``(BM, BC, TM, TC)`` (empty for the other grains, whose tile follows
-    from ``bm``)."""
+    the compiled tile ``(BM, BC, TM, TC)`` and the block's shared-memory
+    footprint on it."""
 
     schedule: str
     scene: ConvScene
@@ -99,8 +99,8 @@ class LaunchSpec:
 
     @property
     def bc(self) -> int:
-        """Columns of a TB18 block tile (0 for the other grains)."""
-        return self.tile[1] if self.tile else 0
+        """Columns of a block tile."""
+        return self.tile[1]
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -115,9 +115,9 @@ def launch_spec(scene: ConvScene, schedule: str, *, in_shape: Shape4,
     """Validate a launch of ``schedule`` over ``scene`` with operands of
     the given shapes: the input K must match the filter's, the spatial
     extents must be what the route expects, the blocking must divide the
-    launched dims, TB18's ``tile`` must be a compiled tile for ``bm``,
-    and — when ``smem_budget`` > 0 — the block's shared-memory footprint
-    must fit it.  Raises ``ValueError``."""
+    launched dims, ``tile`` must be a compiled tile of the grain for
+    ``bm``, and — when ``smem_budget`` > 0 — the block's shared-memory
+    footprint must fit it.  Raises ``ValueError``."""
     in_shape, flt_shape = tuple(in_shape), tuple(flt_shape)
     _require(len(in_shape) == 4 and len(flt_shape) == 4,
              f"operands must be 4-D, got {in_shape} and {flt_shape}")
@@ -140,15 +140,14 @@ def launch_spec(scene: ConvScene, schedule: str, *, in_shape: Shape4,
                  f"{scene.describe()}")
         bn, bk = n, k
     elif schedule == "TB88":
-        _require(0 < bm <= KERNEL_BM[-1] and 0 < bn and 0 < bk <= BK_MAX
+        _require(0 < bm <= KERNEL_BM[-1] and 0 < bn and 0 < bk
                  and m % bm == 0 and n % bn == 0 and k % bk == 0,
                  f"TB88 blocking ({bm}/{bn}/{bk}) must divide the launched "
                  f"(M={m}, N={n}, K={k}) dims, with bm <= "
-                 f"{KERNEL_BM[-1]} and bk <= {BK_MAX}, for "
-                 f"{scene.describe()}")
+                 f"{KERNEL_BM[-1]}, for {scene.describe()}")
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
-    tile = tuple(tile) if schedule == "TB18" else ()
+    tile = tuple(tile)
     smem = vmem_bytes(scene, schedule, bm, bn, bk, tile)
     if smem_budget > 0:
         _require(smem <= smem_budget,
@@ -218,7 +217,7 @@ class _Geom(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "Hl", "Wl", "K", "N", "M", "outH", "outW", "fh", "fw", "stdH",
         "stdW", "fdilH", "fdilW", "padH", "padW", "dilH", "dilW", "bm", "bk",
-        "grid", "bc", "tm", "tc")]
+        "grid", "bc", "tm", "tc", "tbm")]
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -242,26 +241,28 @@ def library() -> ctypes.CDLL:
 
 def launch_grid(spec: LaunchSpec, device=None) -> Tuple[int, int, int, int]:
     """``(grid x, grid y, column tile, threads)`` of a launch on ``device``
-    (the datasheet's card when None or a CPU).  TB88: a block per (column
-    tile, m-tile).  TB11/TB18 (persistent): grid x blocks walk strips of
-    column tiles ``x, x + grid x, ...``: as few tiles per block as the
-    card's resident slots allow at the footprint's occupancy, spread over
-    as few blocks as that takes; TB18 adds one grid row per OC slice."""
+    (the datasheet's card when None or a CPU), all read from the spec's
+    tile.  TB88: a block per (column tile, m-tile).  TB11/TB18
+    (persistent): grid x blocks walk their work ``x, x + grid x, ...``:
+    as few items per block as the card's resident slots allow at the
+    footprint's occupancy, spread over as few blocks as that takes.  A
+    TB18 item is a column tile, with one grid row per OC slice; a TB11
+    item is a (column tile, m-tile) pair, item ``w`` being column tile
+    ``w // n_m``, m-tile ``w % n_m`` of the tile's BM."""
     cols = spec.out_shape[0] * spec.out_shape[1] * spec.out_shape[3]
-    if spec.schedule == "TB88":
-        bc = col_tile(spec.bm)
-        return ceil_div(cols, bc), spec.out_shape[2] // spec.bm, bc, THREADS
-    _, smem_sm, sms = device_limits(device)
-    if spec.schedule == "TB11":
-        bc, threads, slices = col_tile(TB11_BM), THREADS, 1
-    else:
-        bc = spec.bc
-        threads = tb18_threads(spec.tile)
-        slices = spec.out_shape[2] // spec.bm
-    slots = sms * max(1, blocks_per_sm(spec.smem, threads, smem_sm))
+    m = spec.out_shape[2]
+    bc, threads = spec.bc, tile_threads(spec.tile)
     n_ct = ceil_div(cols, bc)
-    rounds = ceil_div(n_ct, max(1, slots // slices))   # tiles per block
-    return ceil_div(n_ct, rounds), slices, bc, threads
+    if spec.schedule == "TB88":
+        return n_ct, m // spec.bm, bc, threads
+    _, smem_sm, sms = device_limits(device)
+    slots = sms * max(1, blocks_per_sm(spec.smem, threads, smem_sm))
+    if spec.schedule == "TB11":
+        items, rows = n_ct * ceil_div(m, spec.tile[0]), 1
+    else:
+        items, rows = n_ct, m // spec.bm
+    per_block = ceil_div(items, max(1, slots // rows))
+    return ceil_div(items, per_block), rows, bc, threads
 
 
 def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
@@ -280,8 +281,8 @@ def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
     geom = _Geom(hl, wl, k, n, spec.flt_shape[3], sc.outH, sc.outW,
                  sc.fltH, sc.fltW, sc.stdH, sc.stdW, sc.fdilH, sc.fdilW,
                  pad_h, pad_w, dil_h, dil_w, spec.bm, spec.bk,
-                 launch_grid(spec, inp.device)[0],
-                 *(spec.tile[1:] if spec.tile else (0, 0, 0)))
+                 launch_grid(spec, inp.device)[0], *spec.tile[1:],
+                 spec.tile[0])
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
     lib = library()
     with torch.cuda.device(inp.device):
@@ -295,12 +296,12 @@ def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
     return out
 
 
-def conv_tb11(inp: torch.Tensor, flt: torch.Tensor,
-              scene: ConvScene) -> torch.Tensor:
-    """TB11 over launched operands (see module doc); returns
-    ``[outH, outW, M, N]``."""
+def conv_tb11(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
+              tile: Tuple[int, ...]) -> torch.Tensor:
+    """TB11 over launched operands (see module doc) on compiled ``tile``;
+    returns ``[outH, outW, M, N]``."""
     spec = launch_spec(scene, "TB11", in_shape=inp.shape,
-                       flt_shape=flt.shape,
+                       flt_shape=flt.shape, tile=tile,
                        smem_budget=smem_budget(inp.device))
     if inp.device.type == "cpu":
         return conv_plain(inp, flt, scene)
@@ -322,9 +323,10 @@ def conv_tb18(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
 
 
 def conv_tb88(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
-              bm: int, bn: int, bk: int) -> torch.Tensor:
+              bm: int, bn: int, bk: int,
+              tile: Tuple[int, ...]) -> torch.Tensor:
     spec = launch_spec(scene, "TB88", in_shape=inp.shape,
-                       flt_shape=flt.shape, bm=bm, bn=bn, bk=bk,
+                       flt_shape=flt.shape, bm=bm, bn=bn, bk=bk, tile=tile,
                        smem_budget=smem_budget(inp.device))
     if inp.device.type == "cpu":
         return conv_plain(inp, flt, scene)

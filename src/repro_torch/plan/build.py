@@ -289,14 +289,15 @@ def _launch_operands(inp: torch.Tensor, flt: torch.Tensor, spec: ExecSpec
 
 
 def _kernel_blocks(spec: ExecSpec, choice: ScheduleChoice) -> dict:
-    """The blocking keyword arguments of the grain's wrapper (TB18's
+    """The blocking keyword arguments of the grain's wrapper (the
     compiled tile comes from the choice: the exec spec is the
     reference's, field for field)."""
     if spec.schedule == "TB11":
-        return {}
+        return {"tile": choice.tile}
     if spec.schedule == "TB18":
         return {"bm": spec.bm, "tile": choice.tile}
-    return {"bm": spec.bm, "bn": spec.bn, "bk": spec.bk}
+    return {"bm": spec.bm, "bn": spec.bn, "bk": spec.bk,
+            "tile": choice.tile}
 
 
 def _conv_body(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene,

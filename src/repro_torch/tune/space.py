@@ -7,11 +7,16 @@ for, not the reference's 128/256/512 TPU ladders (those do not fit
 
   TB11  a single point — the whole filter resident.
   TB18  OC-slice widths from the compiled m-tiles below OC, plus OC
-        itself when one slice can hold it; each runs on any compiled
-        TB18 tile of its m-tile (``tile_candidates``).
-  TB88  compiled m-tiles of 16..128 x k chunks of 8/16/32, clipped to the
-        scene; ``bn`` is the whole batch (a tile's columns span pixels
-        and batch together).
+        itself when one slice can hold it.
+  TB88  the compiled tiles' m-tiles, clipped to the scene; ``bn`` is the
+        whole batch (a tile's columns span pixels and batch together).
+        The kernel walks its reduction in chunks of its own, so ``bk``
+        only pads K in the plan (as in the reference, it must divide the
+        launched K): one ``bk`` per m-tile, the one of 8/16/32 (clipped to
+        K) that pads K least.
+
+Each block runs on any compiled tile of its grain that holds it
+(``tile_candidates``).
 
 Dilated scenes enumerate the same space: the blocks depend only on the
 MM_unit dims (M, N, K), which dilation never changes.
@@ -21,13 +26,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
-from repro_torch.analysis.footprint import (BK_MAX, KERNEL_BM, tb18_tiles,
+from repro_torch.analysis.footprint import (KERNEL_BM, TB88_SHAPES, tiles,
                                             vmem_bytes)
 from repro_torch.core.mapping import SCHEDULES, SMEM_BUDGET
-from repro_torch.core.scene import ConvScene
+from repro_torch.core.scene import ConvScene, round_up
 
-_TB88_BM = tuple(b for b in KERNEL_BM if b >= 16)
-_TB88_BK = tuple(b for b in (8, 16, 32) if b <= BK_MAX)
+_TB88_BM = tuple(sorted({t[0] for t in TB88_SHAPES}))
+_TB88_BK = (8, 16, 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +63,15 @@ def block_candidates(scene: ConvScene, schedule: str
         return tuple(dict.fromkeys(cands))
     if schedule != "TB88":
         raise ValueError(f"unknown schedule {schedule!r}")
-    return tuple(dict.fromkeys((min(bm, m), n, min(bk, k))
-                               for bm in _TB88_BM for bk in _TB88_BK))
+    bk = min((min(b, k) for b in _TB88_BK),
+             key=lambda b: (round_up(k, b), -b))
+    return tuple(dict.fromkeys((min(bm, m), n, bk) for bm in _TB88_BM))
 
 
 def tile_candidates(schedule: str, bm: int) -> Tuple[Tuple[int, ...], ...]:
-    """The compiled tiles a ``bm``-wide block of ``schedule`` may run on:
-    TB18's of ``footprint.TB18_SHAPES``; one implied tile, ``()``, for
-    TB11/TB88."""
-    return tb18_tiles(bm) if schedule == "TB18" else ((),)
+    """The compiled tiles (``footprint.TB11_SHAPES`` / ``TB18_SHAPES`` /
+    ``TB88_SHAPES``) a ``bm``-wide block of ``schedule`` may run on."""
+    return tiles(schedule, bm)
 
 
 def enumerate_space(scene: ConvScene,

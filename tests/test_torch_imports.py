@@ -1,4 +1,4 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` never
+"""The port stands alone: ``src/repro_torch`` and the chip scripts never
 import JAX or the reference package, and importing them never imports
 ``triton`` or loads the CUDA library (the package must import on a machine
 with no GPU toolchain)."""
@@ -13,7 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "chip_trunk_ab.py",
+                             "chip_tile_sweep.py")]
 _BANNED_ROOTS = {"jax", "jaxlib", "repro"}
 _LOADERS = {("ctypes", "CDLL"), ("ctypes", "cdll"), ("cuda_build", "load"),
             ("cpp_extension", "load")}

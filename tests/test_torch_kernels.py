@@ -125,7 +125,7 @@ def test_conv_plain_matches_oracle_on_launched_operands(name):
     f = torch.from_numpy(_np(sc.flt_shape(), 9))
     plan = make_plan(sc, policy="TB88", device="cpu")
     fn, inp, flt, blocks = plan.kernel_call(x, f)
-    assert fn is K.conv_tb88 and set(blocks) == {"bm", "bn", "bk"}
+    assert fn is K.conv_tb88 and set(blocks) == {"bm", "bn", "bk", "tile"}
     got = K.conv_plain(inp, flt, sc)[:, :, :sc.OC, :sc.B]
     np.testing.assert_allclose(got.numpy(), tref.conv_ref(x, f, sc).numpy(),
                                **TOL)
@@ -217,7 +217,7 @@ def test_launch_spec_rejects_bad_geometry():
     sc = ConvScene(**_kw(2, 8, 16, 6, 3, 1, 1))
     good_in, good_flt = (8, 8, 8, 2), (3, 3, 8, 16)
     K.launch_spec(sc, "TB88", in_shape=good_in, flt_shape=good_flt, bm=16,
-                  bn=2, bk=8)
+                  bn=2, bk=8, tile=(32, 128, 8, 4))
     with pytest.raises(ValueError, match="K dim"):
         K.launch_spec(sc, "TB11", in_shape=(8, 8, 4, 2), flt_shape=good_flt)
     with pytest.raises(ValueError, match="spatial extent"):
@@ -230,7 +230,7 @@ def test_launch_spec_rejects_bad_geometry():
                       bm=16, bn=2, bk=64)
     with pytest.raises(ValueError, match="shared memory"):
         K.launch_spec(sc, "TB11", in_shape=good_in, flt_shape=good_flt,
-                      smem_budget=1024)
+                      tile=(64, 64, 4, 4), smem_budget=1024)
     with pytest.raises(ValueError, match="unknown schedule"):
         K.launch_spec(sc, "TB99", in_shape=good_in, flt_shape=good_flt)
 
@@ -241,9 +241,10 @@ def test_wrappers_on_cpu_run_the_plain_version_without_counting():
     f = torch.from_numpy(_np((3, 3, 8, 16), 15))
     K.reset_launch_counts()
     want = K.conv_plain(x, f, sc)
-    for out in (K.conv_tb11(x, f, sc), K.conv_tb18(x, f, sc, bm=8,
-                                                  tile=(8, 64, 4, 2)),
-                K.conv_tb88(x, f, sc, bm=16, bn=2, bk=8)):
+    for out in (K.conv_tb11(x, f, sc, tile=(64, 64, 4, 4)),
+                K.conv_tb18(x, f, sc, bm=8, tile=(8, 64, 4, 2)),
+                K.conv_tb88(x, f, sc, bm=16, bn=2, bk=8,
+                            tile=(32, 128, 8, 4))):
         assert torch.equal(out, want)
     assert K.launch_counts() == {"TB11": 0, "TB18": 0, "TB88": 0}
 

@@ -130,7 +130,7 @@ def test_tb18_footprint_pads_k_and_the_slice():
     sc = ConvScene(B=3, IC=5, OC=7, inH=9, inW=9, fltH=3, fltW=3)
     tile = make_plan(sc, policy="TB18", device="cpu").choice.tile
     bc = tile[1]
-    assert tile in FP.tb18_tiles(7) and tile[0] == 8
+    assert tile in FP.tiles("TB18", 7) and tile[0] == 8
     want = -(-(9 * 8 * 8 * 4) // 16) * 16 + 2 * bc * 144 + 9 * bc * 4
     assert FP.tb18_smem(sc, tile) == want
     assert FP.vmem_bytes(sc, "TB18", 7, 3, 5, tile) == want
@@ -141,14 +141,14 @@ def test_tb18_footprint_pads_k_and_the_slice():
 def test_tb18_shapes_are_the_compiled_set():
     for tile in FP.TB18_SHAPES:
         bm, bc, tm, tc = tile
-        threads = FP.tb18_threads(tile)
+        threads = FP.tile_threads(tile)
         assert bm in FP.KERNEL_BM and (tm, tc) in ((8, 4), (4, 2))
         assert bm % tm == 0 and bc % tc == 0
         assert 32 <= threads <= 256 and threads % 32 == 0
     # every compiled m-tile can run TB18
-    assert all(FP.tb18_tiles(bm) for bm in FP.KERNEL_BM)
-    # TB11/TB88 keep their tile
-    assert FP.THREADS == 256 and FP.TILE_ELEMS == 4096
+    assert all(FP.tiles("TB18", bm) for bm in FP.KERNEL_BM)
+    # TB11/TB88 run their own compiled tiles (tests/test_torch_redesign_grains)
+    assert FP.TB18_SHAPES is FP.SHAPES["TB18"]
 
 
 # -- TB18: launch geometry ----------------------------------------------------
@@ -159,8 +159,8 @@ def test_tb18_grid_covers_every_output_once(case, dtype):
     spec = _tb18_spec(_with(sc, dtype=dtype), op)
     gx, gy, bc, threads = K.launch_grid(spec)
     assert spec.tile in FP.TB18_SHAPES
-    assert spec.tile[0] == FP.kernel_bm(spec.bm)
-    assert bc == spec.bc and threads == FP.tb18_threads(spec.tile)
+    assert spec.tile in FP.tiles("TB18", spec.bm)
+    assert bc == spec.bc and threads == FP.tile_threads(spec.tile)
     assert gy * spec.bm == spec.out_shape[2]
     assert (_coverage(spec) == 1).all()
 
@@ -187,7 +187,7 @@ def test_selector_prices_tb18_at_its_own_tile(name):
     sc = TRUNK[name].with_batch(1)
     cands = tmapping.candidate_blocks(sc, "TB18")
     for bm, _, _, _ in cands:
-        assert {c[3] for c in cands if c[0] == bm} == set(FP.tb18_tiles(bm))
+        assert {c[3] for c in cands if c[0] == bm} == set(FP.tiles("TB18", bm))
     for bm, _, _, tile in cands:
         bc = tile[1]
         n_ct, n_m = tmapping._units(sc, "TB18", bm, tile)
@@ -208,7 +208,7 @@ FASTEST = [("resnet/L7", 1, (16, 128, 4, 2)), ("resnet/L9", 1, (8, 128, 4, 2)),
 def test_selector_ranks_tiles_as_the_card_did(name, batch, tile):
     sc = TRUNK[name].with_batch(batch)
     scores = {t: tmapping._score(sc, "TB18", tile[0], batch, sc.K, tile=t)
-              for t in FP.tb18_tiles(tile[0])}
+              for t in FP.tiles("TB18", tile[0])}
     best = min((c.predicted_s, t) for t, c in scores.items() if c)[1]
     assert best == tile
 
@@ -223,7 +223,7 @@ def test_plan_launches_the_tile_it_chose(name, dtype):
     sc = _with(TRUNK[name].with_batch(1), dtype=dtype)
     plan = make_plan(sc, policy="TB18", device="cpu")
     spec = _tb18_spec(sc)
-    assert plan.choice.tile in FP.tb18_tiles(plan.choice.bm)
+    assert plan.choice.tile in FP.tiles("TB18", plan.choice.bm)
     assert spec.tile == plan.choice.tile
     assert spec.smem == plan.choice.vmem_bytes
     assert choice_from_dict(choice_to_dict(plan.choice)) == plan.choice
