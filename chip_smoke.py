@@ -37,17 +37,13 @@ Phases, each of which raises (non-zero exit) on failure:
                time, and the device time (a CUDA graph of 20 calls, host
                left out) of its kernel, of every grain forced and of
                ``F.conv2d`` on the same layer (f32, TF32 off; a yardstick
-               the port never calls); each grain's kernel time at every
-               compiled tile that runs its block (TB18 on five trunk
-               layers at batch 1 and 2, TB88 on four at batch 4 and 8,
-               TB11 on L0 at batch 1 and 2; each tile's output bitwise
-               the chosen one's); then
-               per grain at its layer of PERF.md's kernel table (TB11 at
-               L0, TB18 at L2, TB88 at L1, batch 1; forced where the
-               selector picks another grain there): the kernel, its
-               plain version and ``F.conv2d``, device time, beside the
-               kernel's bound; and a second row at the grain's served
-               plan of the largest kernel time on the main path.
+               the port never calls; ``chip_tile_sweep.py`` times every
+               compiled tile); then per grain at its layer of PERF.md's
+               kernel table (TB11 at L0, TB18 at L2, TB88 at L1, batch 1;
+               forced where the selector picks another grain there): the
+               kernel, its plain version and ``F.conv2d``, device time,
+               beside the kernel's bound; and a second row at the grain's
+               served plan of the largest kernel time on the main path.
   6. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
                attention on tests/test_flash_kernel.py's (causal and not,
                plus D = 112), both also at the LM path's shapes, f32 and
@@ -119,12 +115,6 @@ TRUNK_CASES = [("TB18", "resnet/L7", 1), ("TB18", "resnet/L7", 2),
                ("TB18", "resnet/L9", 1), ("TB18", "resnet/L9", 2),
                ("TB11", "resnet/L0", 2), ("TB88", "resnet/L2", 1),
                ("TB88", "resnet/L9", 8)]
-# the grains' tile sweeps: (grain, layers, buckets)
-TILE_SWEEPS = [("TB18", ("resnet/L2", "resnet/L5", "resnet/L7", "resnet/L8",
-                         "resnet/L9"), (1, 2)),
-               ("TB88", ("resnet/L2", "resnet/L5", "resnet/L7", "resnet/L9"),
-                (4, 8)),
-               ("TB11", ("resnet/L0",), (1, 2))]
 # PERF.md's per-grain timing layers (batch 1)
 TIMING_LAYERS = {"TB11": "resnet/L0", "TB18": "resnet/L2",
                  "TB88": "resnet/L1"}
@@ -468,43 +458,6 @@ def layer_breakdown(torch, sched, chain, bucket: int = 1) -> float:
           f"kernels {k_total:.4f} ms (device), F.conv2d layer by layer "
           f"{lib_total:.4f} ms (device)")
     return total
-
-
-def tile_sweep(torch, chain) -> None:
-    """Each grain's kernel time at every compiled tile that runs the block
-    the selector chose for it (``TILE_SWEEPS``, f32), beside the tile it
-    chose: the data its model's tile ranking is tested against.  Each
-    tile is passed to the wrapper, which sizes the launch (footprint,
-    grid) for it; each tile's output is held bitwise to the chosen
-    tile's."""
-    from repro_torch.analysis.footprint import tiles, vmem_bytes
-    from repro_torch.core.mapping import SMEM_BUDGET
-    from repro_torch.plan import make_plan
-
-    gen = torch.Generator().manual_seed(9)
-    for grain, layers, buckets in TILE_SWEEPS:
-        for name, bucket in [(n, b) for b in buckets for n in layers]:
-            plan = make_plan(chain[name].with_batch(bucket), policy=grain)
-            sc = plan.scene
-            x = torch.randn(sc.in_shape(), generator=gen).cuda()
-            w = (torch.randn(sc.flt_shape(), generator=gen)
-                 * (sc.fltH * sc.fltW * sc.IC) ** -0.5).cuda()
-            fn, inp, flt, blocks = plan.kernel_call(x, w)
-            es, ch = plan.exec_scene, plan.choice
-            want = fn(inp, flt, es, **blocks)
-            times = {}
-            for tile in tiles(grain, ch.bm):
-                if vmem_bytes(es, grain, ch.bm, ch.bn, ch.bk,
-                              tile) > SMEM_BUDGET:
-                    continue
-                kw = {**blocks, "tile": tile}
-                if not torch.equal(fn(inp, flt, es, **kw), want):
-                    raise AssertionError(f"{grain} tile {tile} changes the "
-                                         f"output at {name}")
-                times[tile] = round(device_ms(torch, lambda: fn(
-                    inp, flt, es, **kw)), 4)
-            print(f"  {grain} tiles at {name} B={bucket} bm={ch.bm} "
-                  f"(chosen {ch.tile}): ms {times}")
 
 
 def timing_phase(torch, sched, chain, counts, errs):
@@ -1037,7 +990,6 @@ def main() -> int:
     sched, chain, counts = main_path(torch, np, errs)
     for bucket in (1, 2, 4, 8):
         layer_breakdown(torch, sched, chain, bucket)
-    tile_sweep(torch, chain)
     rows = timing_phase(torch, sched, chain, counts, errs)
 
     lm_errs = lm_kernel_phase(torch)

@@ -53,31 +53,41 @@ H100_SMEM_PER_BLOCK = 232448   # H100 SXM datasheet: 227 KB opt-in per block
 H100_SMEM_PER_SM = 233472      # H100 SXM datasheet: 228 KB per SM
 _THREADS_PER_SM = 2048         # H100 SXM datasheet: resident threads per SM
 _BLOCKS_PER_SM = 32            # H100 SXM datasheet: resident blocks per SM
-# Assumptions, not datasheet, fitted to the forced-grain, forced-tile chip
-# times of every trunk layer at buckets 1, 2, 4 and 8 (PERF.md §6): they
-# rank TB18's compiled tiles as the card did (batch 1 and 2) and put the
-# selector's picks within 3 % of the fastest measured grain and tile in
-# the trunk's sum at each bucket.
-# - An SM issues at its full rate only with 12 warps resident (three per
-#   scheduler, to hide shared-load and FMA latency), in proportion below.
+# Assumptions, not datasheet: fitted for speed alone by
+# ``chip_tile_sweep.py --fit`` (``--starts 2 --seed 4``) to forced-grain,
+# forced-tile chip times: the whole ResNet trunk (f32 twice, bf16 once)
+# and the layers where TB11 fits in the other five CNNs (f32 and bf16),
+# buckets 1-8 (PERF.md §6).  The fit minimizes the picks' trunk sums over
+# the fastest measured configuration's, served and per forced grain.  On
+# the f32 ResNet trunk the served picks come out +2.1 / +4.9 / +5.1 /
+# +2.6 % over the fastest at buckets 1 / 2 / 4 / 8; single picks miss by
+# up to 18 % (TB11 at L1 B=2).  TB11 and TB88 tie within about 3 %
+# wherever TB11's filter fits, so which of them serves the stem is the
+# model's guess: the fit serves TB11 on L0-L1 (and L3 at B=8), within 2 %
+# of the fastest on L0 but 7-18 % behind it on L1 at B >= 2; TB11 is the
+# fastest measured on bf16 stems.  A fit to the f32 ResNet trunk alone
+# serves TB11 nowhere, at +2.3 / +4.8 / +5.0 / +2.7 %.
+# - An SM issues at its full rate only with _FULL_RATE_WARPS warps
+#   resident (to hide shared-load and FMA latency), below it in
+#   proportion to (warps / _FULL_RATE_WARPS) ** _ISSUE_EXPONENT.
 _FULL_RATE_WARPS = 12
-_ISSUE_EXPONENT = 0.5
+_ISSUE_EXPONENT = 0.6
 # - Issue slots a thread spends per 16-byte (or narrower) shared read of
 #   its operands, per staging copy (a cp.async and its address) and per
 #   global store of its outputs, beside its one slot per FMA.
-_ISSUE_PER_READ = 3.0
-_ISSUE_PER_COPY = 8.0
-_ISSUE_PER_STORE = 64.0
+_ISSUE_PER_READ = 4.0
+_ISSUE_PER_COPY = 96.0
+_ISSUE_PER_STORE = 128.0
 # - The rate at which an SM pulls a resident filter (TB11's whole filter,
-#   TB18's slice) from L2 before its first chunk: the card's 8e12 B/s over
-#   its SMs.
+#   TB18's slice) from L2 before its first chunk, over all SMs.
 L2_TO_SM_BW = 8e12
 _SMEM_PER_BLOCK_RESERVED = 1024  # the runtime's share per resident block
 _REGS_PER_SM = 65536             # H100 SXM datasheet: 32-bit registers
 
-# Assumption, not measured: the fixed cost of one reduction chunk of a
-# block (its barrier plus the staging latency the FMAs don't hide).
-STEP_OVERHEAD_S = 300e-9
+# Assumption, fitted with the constants above: the fixed cost of one
+# reduction chunk of a block (its barrier plus the staging latency the
+# FMAs don't hide), overlapped across the SM's resident blocks.
+STEP_OVERHEAD_S = 100e-9
 
 SMEM_BUDGET = H100_SMEM_PER_BLOCK
 
