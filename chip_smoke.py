@@ -44,12 +44,36 @@ Phases, each of which raises (non-zero exit) on failure:
                kernel, its plain version and ``F.conv2d``, device time,
                beside the kernel's bound; and a second row at the grain's
                served plan of the largest kernel time on the main path.
-  6. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
+  6. train    the full-width ResNet trunk (``cnn_chain_scenes("resnet",
+               8)``, a 10-class head) trained in f32 at a global batch of
+               16 in 2 microbatches of 8: its 30 fprop/dgrad/wgrad plans
+               built on a fresh registry (no reference plan), then, with
+               the launch counts set to 0, one warm-up step and five
+               inside a ``resolution_guard``; the loss must fall and each
+               grain's launches must equal what the plans route to it
+               (every direction but the first layer's dgrad, which the
+               images do not need).  Step ms (CUDA events), images/s,
+               peak memory; on each microbatch, the kernels' forward
+               against ``F.conv2d``'s on the same ReLU branches (within
+               2e-5 of max |z| per layer, at most 1e-6 of the
+               pre-activations flipping branch between the two forwards)
+               and every parameter's gradient against autograd of the
+               same network on ``F.conv2d`` (TF32 off) on those branches
+               within 2e-4 of max |g|, and the step's gradient norm
+               against the norm of the oracle's mean over the
+               microbatches within 2e-4; each (layer, direction) plan's kernel
+               against its plain version (the first layer's dgrad too),
+               then its device time beside the plan's, the bound and the
+               PyTorch call for the same function (``F.conv2d``,
+               ``conv2d_input``, ``conv2d_weight``); and the small-CNN
+               launcher ``python -m repro_torch.launch.train_cnn
+               --check-loss`` run in-process on the card.
+  7. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
                attention on tests/test_flash_kernel.py's (causal and not,
                plus D = 112), both also at the LM path's shapes, f32 and
                bf16, each held against its plain version: f32 within 1e-4
                (conv) / 2e-4 (attention), bf16 within 2e-2.
-  7. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
+  8. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
                heads, bf16, seeded random weights) on the card: the
                reference's cross-form oracle (prefill(255) + decode_step ==
                forward(256) at the last position, within a bf16 tolerance
@@ -62,23 +86,29 @@ Phases, each of which raises (non-zero exit) on failure:
                reduced config's prefill on the card must match the CPU's;
                one decode step and one prefill under ``torch.profiler``
                (device busy time, idle share, time by kernel class).
-  8. LM timing  per kernel at the LM path's shapes: the kernel, its plain
+  9. LM timing  per kernel at the LM path's shapes: the kernel, its plain
                version and one PyTorch call computing the same function
                (``F.conv1d``, ``F.scaled_dot_product_attention``; never
                called by the port), beside the kernel's bound.
+ 10. train profile  one more train step of phase 6 under
+               ``torch.profiler`` (device busy time and idle share), last
+               so that no timed phase runs after a profiler session.
 
 In the ``kernels`` line, ``ms`` and ``library_ms`` are device time (20
 calls replayed from a CUDA graph, the host's time per call left out);
-``plain_ms`` is CUDA-event time of 20 back-to-back calls, the host's
-time included.
+``plain_ms`` is CUDA-event time of 20 back-to-back calls (of the one
+checking call on the ``_train_path`` rows), the host's time included.
 
 The last three lines of output are the ``kernels`` JSON line (all five
-kernels; each conv grain has a second row, ``<name>_main_path``), the
-card's name and power limit, and ``{"ok": true, ...}``.
+kernels; each conv grain has a second row, ``<name>_main_path``, and each
+grain the train step launches a row ``<name>_train_path`` at its longest
+plan of the step), the card's name and power limit, and ``{"ok": true,
+...}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -550,6 +580,433 @@ def _grain_row(torch, sched, chain, plan, counts, errs, row_name, where):
 
 
 # --------------------------------------------------------------------------
+# Train path: the full-width ResNet trunk trained on the MG3M kernels
+# --------------------------------------------------------------------------
+TRAIN_NET = "resnet"
+TRAIN_MB = 8               # microbatch: the plans' batch
+TRAIN_N_MB = 2             # microbatches per step: a global batch of 16
+TRAIN_STEPS = 5            # steps inside the resolution guard, after one
+# Adam at 1e-3 or more throws this 10-layer plain trunk off in its first
+# steps; 1e-4 descends monotonically (probed with F.conv2d on a CPU).
+TRAIN_LR = 1e-4
+# max |g - g_oracle| / max |g_oracle| per parameter: tests/test_autodiff.py's
+# 2e-4 (the kernels and cuDNN sum in different orders)
+GRAD_TOL = 2e-4
+# max |z_kernel - z| / max |z| per layer of the forward, z the F.conv2d
+# pre-activation on the kernels' ReLU branches: f32 sums of K <= 4608 terms
+# in two orders differ by about sqrt(K) 2^-24 of the terms' scale (4e-6),
+# and each layer passes the earlier ones' differences on; five times one
+# layer's is allowed.  A flipped pre-activation lies within this of 0.
+FWD_TOL = 2e-5
+# ReLU branch flips between the two forwards, as a share of all
+# pre-activations of the microbatch
+FLIP_SHARE = 1e-6
+TRAIN_LIBRARY = {"fprop": "F.conv2d", "dgrad": "conv2d_input",
+                 "wgrad": "conv2d_weight"}
+
+
+def train_path(torch):
+    """The trunk's 30 plans on a fresh registry, then one warm-up step and
+    ``TRAIN_STEPS`` steps inside a ``resolution_guard``, with the launch
+    counts set to 0 just before and read just after.  Every step trains on
+    the stream's batch 0: i.i.d. class prototypes give nearly the same
+    pooled features at 224 x 224 after ten random-init layers, so fresh
+    batches show no learning within six steps, while a fixed batch's loss
+    falls (probed with F.conv2d on a CPU).  Returns the run's state."""
+    from repro_torch.core.autodiff import make_model_plans
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.models.cnn import cnn_chain_scenes, init_cnn_from_scenes
+    from repro_torch.plan import PlanRegistry
+    from repro_torch.train import cnn as tc
+    from repro_torch.train.optimizer import AdamWConfig
+
+    scenes = cnn_chain_scenes(TRAIN_NET, TRAIN_MB)
+    reg = PlanRegistry(device="cuda")
+    t0 = time.perf_counter()
+    plans = make_model_plans(scenes, registry=reg)
+    plan_s = time.perf_counter() - t0
+    walk = list(plans.plans())
+    distinct = {(p.scene, p.op) for _, _, p in walk}
+    if len(walk) != 3 * len(scenes) or len(reg) != len(distinct):
+        raise AssertionError(f"{len(walk)} plans walked, {len(reg)} in the "
+                             f"registry, for {len(scenes)} layers")
+    if plans.reference_ops:
+        raise AssertionError(f"trunk plans run the torch reference: "
+                             f"{plans.reference_ops}")
+    snap = reg.snapshot()
+    params = init_cnn_from_scenes(torch.Generator().manual_seed(0), scenes,
+                                  device="cuda")
+    cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                      total_steps=1 + TRAIN_STEPS)
+    pure_step = tc.build_cnn_train_step(
+        plans, cfg, n_microbatches=TRAIN_N_MB,
+        buckets=tc.make_grad_buckets(params), layer_order=plans.names())
+    step = tc.jit_train_step(pure_step)
+    state = tc.init_train_state(params)
+    data = SyntheticImages(TRAIN_MB * TRAIN_N_MB, scenes[
+        f"{TRAIN_NET}/L0"].inH, 3, 10, seed=0, noise=0.3)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+
+    losses, event_ms, wall_ms = [], [], []
+
+    def run():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        _, metrics = step(state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))   # waits for the step
+        wall_ms.append((time.perf_counter() - t) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run()                                       # warm-up
+    with tc.resolution_guard():
+        for _ in range(TRAIN_STEPS):
+            run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = reg.stats(since=snap)
+
+    if stats["misses"] or stats["builds"]:
+        raise AssertionError(f"plans built or missed during training: "
+                             f"{stats}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    # launches attributed by the plans' routing: each microbatch runs
+    # every plan once but the first layer's dgrad (images need no
+    # gradient); the wrappers' per-grain counts must equal the sums
+    first = plans.names()[0]
+    by_dir = {}
+    for name, op, plan in walk:
+        if (name, op) != (first, "dgrad"):
+            key = (op, plan.schedule)
+            by_dir[key] = by_dir.get(key, 0) + len(losses) * TRAIN_N_MB
+    want = {g: sum(n for (_, gg), n in by_dir.items() if gg == g)
+            for g in counts}
+    if counts != want:
+        raise AssertionError(f"launches {counts} differ from the plans' "
+                             f"routing {want} ({by_dir})")
+    for layer, triple in plans.items():
+        print(f"  {layer}: " + "; ".join(
+            f"{p.op.value} {p.schedule}{p.choice.tile} modeled "
+            f"{p.predicted_s * 1e3:.3f} ms" for p in
+            (triple.fprop, triple.dgrad, triple.wgrad)))
+    steady = sorted(event_ms[1:])
+    med = steady[len(steady) // 2]
+    print(f"train path: {len(scenes)} layers x 3 directions = {len(walk)} "
+          f"kernel plans ({len(reg)} distinct) built in {plan_s:.2f} s, "
+          f"zero resolutions over "
+          f"{TRAIN_STEPS} guarded steps; global batch "
+          f"{TRAIN_MB * TRAIN_N_MB} in {TRAIN_N_MB} microbatches; losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"  step ms (CUDA events): warm-up {event_ms[0]:.2f}, steady "
+          f"{[round(x, 2) for x in event_ms[1:]]} (median {med:.2f}, "
+          f"{TRAIN_MB * TRAIN_N_MB / med * 1e3:.1f} images/s); host wall "
+          f"per step with the loss read {[round(x, 2) for x in wall_ms]}; "
+          f"peak memory {peak_gb:.2f} GB")
+    print(f"  launches by grain {counts}; by (direction, grain) "
+          f"{ {f'{o}/{g}': n for (o, g), n in sorted(by_dir.items())} }")
+    return {"plans": plans, "walk": walk, "state": state, "batch": batch,
+            "step": step, "pure_step": pure_step, "scenes": scenes,
+            "counts": counts, "step_ms": med}
+
+
+def _forward_branches(torch, run, mb):
+    """The kernels' forward of one microbatch beside ``F.conv2d``'s on the
+    kernels' ReLU branches: the branches (NCHW masks), and per layer
+    max |dz| / max |z|, the branch flips and the largest flipped |z| /
+    max |z|.  Raises if a layer's forward differs by more than
+    ``FWD_TOL`` or the flips exceed ``FLIP_SHARE``."""
+    from repro_torch.models.cnn import nhwc_to_plan
+
+    F = torch.nn.functional
+    plans, scenes, params = run["plans"], run["scenes"], run["state"].params
+    masks, fwd, n_pre = {}, {}, 0
+    with torch.no_grad():
+        zk, zo = nhwc_to_plan(mb["images"]), mb["images"].permute(0, 3, 1, 2)
+        for name in plans.names():
+            sc = scenes[name]
+            pre = plans[name].fprop.execute(zk, params[name])
+            zk = torch.relu(pre)
+            pre = pre.permute(3, 2, 0, 1)
+            zo = F.conv2d(zo, params[name].permute(3, 2, 0, 1),
+                          stride=(sc.stdH, sc.stdW),
+                          padding=(sc.padH, sc.padW))
+            scale = zo.abs().max()
+            masks[name] = pre > 0
+            flip = masks[name] != (zo > 0)
+            n = int(flip.sum())
+            fwd[name] = (((zo - pre).abs().max() / scale).item(), n,
+                         (zo[flip].abs().max() / scale).item() if n else 0.0)
+            n_pre += zo.numel()
+            zo = zo * masks[name]
+    worst = max(fwd, key=lambda k: fwd[k][0])
+    flips = sum(v[1] for v in fwd.values())
+    if fwd[worst][0] > FWD_TOL or flips > FLIP_SHARE * n_pre:
+        raise AssertionError(
+            f"the kernels' forward differs from F.conv2d's: {worst} "
+            f"{fwd[worst][0]:.3e} of max |z| (tol {FWD_TOL}), {flips} ReLU "
+            f"branch flips of {n_pre} (at most {FLIP_SHARE:g} of them); "
+            f"(max |dz|, flips, max flipped |z|) by layer {fwd}")
+    return masks, fwd, flips, n_pre
+
+
+def train_grad_oracle(torch, run):
+    """Every parameter's gradient on each microbatch through the kernels
+    and through autograd of the same network on ``F.conv2d`` (TF32 off),
+    and the step's gradient norm against the oracle's mean over the
+    microbatches.
+
+    Two f32 forwards that sum in different orders differ in the last bits,
+    and a pre-activation within that of zero takes the other ReLU branch
+    in one of them: its whole term then enters one gradient sum and not
+    the other, so free-running forwards disagree by far more than
+    rounding.  The oracle therefore takes each ReLU's branch from the
+    kernels' forward, after ``_forward_branches`` has held that forward to
+    ``F.conv2d``'s and bounded the flips; the free-running comparison and
+    both sides against the branch-aligned oracle in f64 are printed for
+    the first microbatch."""
+    from repro_torch.train import cnn as tc
+    from repro_torch.train.optimizer import global_norm
+
+    F = torch.nn.functional
+    plans, scenes = run["plans"], run["scenes"]
+    params = run["state"].params
+
+    def grads(loss_of, dtype=torch.float32):
+        leaves = {k: p.detach().to(dtype).requires_grad_(True)
+                  for k, p in params.items()}
+        g = torch.autograd.grad(loss_of(leaves), list(leaves.values()))
+        return dict(zip(leaves, g))
+
+    def oracle_loss(p, mb, masks):
+        z = mb["images"].to(p["head"].dtype).permute(0, 3, 1, 2)
+        for name in plans.names():
+            sc = scenes[name]
+            z = F.conv2d(z, p[name].permute(3, 2, 0, 1),
+                         stride=(sc.stdH, sc.stdW), padding=(sc.padH, sc.padW))
+            z = torch.relu(z) if masks is None else z * masks[name]
+        return tc.softmax_cross_entropy(z.mean(dim=(2, 3)) @ p["head"],
+                                        mb["labels"])
+
+    def rel(a, b):
+        return {k: ((a[k].double() - b[k].double()).abs().max()
+                    / b[k].double().abs().max().clamp_min(1e-30)).item()
+                for k in a}
+
+    mean = {k: torch.zeros_like(p) for k, p in params.items()}
+    for i in range(TRAIN_N_MB):
+        mb = {k: v[i * TRAIN_MB:(i + 1) * TRAIN_MB]
+              for k, v in run["batch"].items()}
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            masks, fwd, flips, n_pre = _forward_branches(torch, run, mb)
+            got = grads(lambda p: tc.cnn_loss_fn(p, mb, plans,
+                                                 plans.names())[0])
+            want = grads(lambda p: oracle_loss(p, mb, masks))
+            if i == 0:
+                free = grads(lambda p: oracle_loss(p, mb, None))
+                f64 = grads(lambda p: oracle_loss(p, mb, masks),
+                            torch.float64)
+        for k in mean:
+            mean[k] += want[k] / TRAIN_N_MB
+        aligned = rel(got, want)
+        worst = max(aligned, key=aligned.get)
+        print(f"  microbatch {i}: gradients vs the F.conv2d oracle (the "
+              f"kernels' ReLU branches): max |dg| / max |g| worst {worst} "
+              f"{aligned[worst]:.3e} (tol {GRAD_TOL}); "
+              f"{ {k: float(f'{v:.2e}') for k, v in aligned.items()} }; "
+              f"forward max |dz| / max |z| worst "
+              f"{max(v[0] for v in fwd.values()):.3e} (tol {FWD_TOL}), "
+              f"{flips} ReLU branch flips of {n_pre} (largest flipped |z| / "
+              f"max |z| {max(v[2] for v in fwd.values()):.3e})")
+        if i == 0:
+            print(f"  against the same oracle in f64: kernels worst "
+                  f"{max(rel(got, f64).values()):.3e}, cuDNN f32 worst "
+                  f"{max(rel(want, f64).values()):.3e}; free-running f32 "
+                  f"oracle: worst {max(rel(got, free).values()):.3e}; "
+                  f"(max |dz|, flips, max flipped |z|) by layer {fwd}")
+            del free, f64
+        if aligned[worst] > GRAD_TOL:
+            raise AssertionError(f"microbatch {i}: gradient of {worst} "
+                                 f"differs from the F.conv2d oracle: "
+                                 f"{aligned[worst]:.3e} relative (all: "
+                                 f"{aligned})")
+    # the accumulated step: its (pre-clip) gradient norm is the norm of
+    # the microbatches' mean gradient
+    _, metrics = run["pure_step"](run["state"], run["batch"])
+    step_norm = float(metrics["grad_norm"])
+    want_norm = float(global_norm(mean))
+    err = abs(step_norm - want_norm) / want_norm
+    print(f"  step gradient norm {step_norm:.6e}, the oracle's over "
+          f"{TRAIN_N_MB} microbatches {want_norm:.6e}: relative "
+          f"{err:.3e} (tol {GRAD_TOL})")
+    if err > GRAD_TOL:
+        raise AssertionError(f"the step's gradient norm {step_norm} is not "
+                             f"the oracle's mean-gradient norm {want_norm}")
+
+
+def train_kernel_phase(torch, run):
+    """Each (layer, direction) plan's kernel held against its plain version
+    once on seeded operands (the first layer's dgrad too, though the step
+    skips it), then timed: the kernel's and the plan's device time, the
+    bound, and the PyTorch call computing the same function.  Returns the
+    ``<grain>_train_path`` rows: each launched grain at its longest plan."""
+    from repro_torch.kernels.mg3m_conv import conv_plain
+
+    F = torch.nn.functional
+    grad = torch.nn.grad
+    gen = torch.Generator().manual_seed(12)
+    errs, timed = {}, []
+    sums = {"fprop": [0.0, 0.0, 0.0], "dgrad": [0.0, 0.0, 0.0],
+            "wgrad": [0.0, 0.0, 0.0]}
+    first = run["plans"].names()[0]
+    t0 = time.perf_counter()
+    for name, op, plan in run["walk"]:
+        sc = plan.scene
+        a_shape, b_shape, _ = plan.io_shapes()
+        es = plan.exec_scene
+        scale = (es.fltH * es.fltW * es.K) ** -0.5   # outputs O(1)
+        a = torch.randn(a_shape, generator=gen).cuda()
+        b = (torch.randn(b_shape, generator=gen) * scale).cuda()
+        fn, inp, flt, blocks = plan.kernel_call(a, b)
+        got = fn(inp, flt, es, **blocks)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = conv_plain(inp, flt, es)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=TOL["float32"],
+                              atol=TOL["float32"]):
+            raise AssertionError(f"{name} {plan.describe()} disagrees with "
+                                 f"its plain version (max abs err {err})")
+        errs[plan.schedule] = max(errs.get(plan.schedule, 0.0), err)
+        del got, want
+        k_ms = device_ms(torch, lambda: fn(inp, flt, es, **blocks))
+        p_ms = device_ms(torch, lambda: plan.execute(a, b))
+        stride, pad = (sc.stdH, sc.stdW), (sc.padH, sc.padW)
+        nchw = lambda t: t.permute(3, 2, 0, 1).contiguous()   # noqa: E731
+        if op == "fprop":
+            xa, wb = nchw(a), nchw(b)
+            lib = lambda: F.conv2d(xa, wb, stride=stride,      # noqa: E731
+                                   padding=pad)
+        elif op == "dgrad":
+            ga, wb = nchw(a), nchw(b)
+            in_nchw = (sc.B, sc.IC, sc.inH, sc.inW)
+            lib = lambda: grad.conv2d_input(                  # noqa: E731
+                in_nchw, wb, ga, stride=stride, padding=pad)
+        else:
+            xa, gb = nchw(a), nchw(b)
+            w_oihw = (sc.OC, sc.IC, sc.fltH, sc.fltW)
+            lib = lambda: grad.conv2d_weight(                 # noqa: E731
+                xa, w_oihw, gb, stride=stride, padding=pad)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_ms = device_ms(torch, lib)
+        out_numel = 1
+        for d in plan.io_shapes()[2]:
+            out_numel *= d
+        nbytes = 4 * (a.numel() + b.numel() + out_numel)
+        ops_ms = sc.flops / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_HBM_BW * 1e3
+        bound = max(ops_ms, bytes_ms)
+        in_step = (name, op) != (first, "dgrad")
+        if in_step:
+            for i, v in enumerate((k_ms, p_ms, lib_ms)):
+                sums[op][i] += v
+        print(f"  {name} {op} {plan.schedule}{plan.choice.tile} "
+              f"{'' if in_step else '(not in the step) '}kernel "
+              f"{k_ms:.4f} ms, plan {p_ms:.4f} ms (device), modeled "
+              f"{plan.predicted_s * 1e3:.4f}, bound {bound:.4f} "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
+              f"{TRAIN_LIBRARY[op]} {lib_ms:.4f} ms, plain {plain_ms:.1f} "
+              f"ms, max abs err {err:.2e}")
+        timed.append({"name": name, "op": op, "plan": plan, "k_ms": k_ms,
+                      "plain_ms": plain_ms, "lib_ms": lib_ms,
+                      "bound": bound, "ops_ms": ops_ms,
+                      "bytes_ms": bytes_ms, "nbytes": nbytes,
+                      "in_step": in_step})
+        del a, b, inp, flt
+    print(f"  per microbatch, device ms summed over the step's plans "
+          f"(kernel / plan / library): "
+          + "; ".join(f"{op} {k:.3f} / {p:.3f} / {lb:.3f}"
+                      for op, (k, p, lb) in sums.items())
+          + f"; all {sum(v[0] for v in sums.values()):.3f} / "
+          f"{sum(v[1] for v in sums.values()):.3f} / "
+          f"{sum(v[2] for v in sums.values()):.3f}; checks and timing "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rows = []
+    for grain in ("TB11", "TB18", "TB88"):
+        if run["counts"][grain] == 0:
+            continue
+        mine = [t for t in timed if t["plan"].schedule == grain
+                and t["in_step"]]
+        t = max(mine, key=lambda r: r["k_ms"])
+        plan = t["plan"]
+        rows.append({
+            "name": f"mg3m_{grain.lower()}_train_path", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES[grain],
+            "launches": run["counts"][grain], "max_abs_err": errs[grain],
+            "ms": t["k_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"],
+            "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
+                         else "bytes"),
+            "library_ms": t["lib_ms"],
+            "library": TRAIN_LIBRARY[t["op"]],
+            "shape": f"{t['name']} {t['op']} (the longest of {len(mine)} "
+                     f"{grain} plans of the step) {plan.describe()}",
+            "gflop": plan.scene.flops / 1e9, "mbytes": t["nbytes"] / 1e6})
+    return rows
+
+
+def train_profile(torch, run):
+    """One more train step under ``torch.profiler``: its device busy and
+    idle share.  Run last, after every timed phase, since a profiler
+    session leaves the rest of its process's host work slower (the LM
+    path's host-bound decode step was measured slower after one)."""
+    return lm_profile(torch, lambda: run["step"](run["state"], run["batch"]),
+                      f"train step (global batch {TRAIN_MB * TRAIN_N_MB})")
+
+
+def train_phase(torch):
+    """Train the trunk, check its gradients and kernels, time them, run the
+    small-model launcher, then drop what the launcher left in the
+    process-wide defaults; returns the ``<grain>_train_path`` rows and the
+    trunk's run (for ``train_profile``)."""
+    import gc
+
+    from repro_torch import obs
+    from repro_torch.launch import train_cnn
+    from repro_torch.plan.registry import set_default_registry
+
+    t0 = time.perf_counter()
+    run = train_path(torch)
+    train_grad_oracle(torch, run)
+    rows = train_kernel_phase(torch, run)
+    losses = train_cnn.main(["--check-loss"])      # device: the card
+    print(f"  launcher (small CNN, defaults, on the card): {len(losses)} "
+          f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    set_default_registry(None)
+    obs.set_default_metrics(None)
+    obs.set_default_tracer(None)
+    obs.set_default_monitor(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train phase: {time.perf_counter() - t0:.1f} s; step "
+          f"{run['step_ms']:.2f} ms")
+    return rows, run
+
+
+# --------------------------------------------------------------------------
 # LM path: full-width zamba2-7b through ServeEngine (causal_conv1d, flash)
 # --------------------------------------------------------------------------
 LM_ARCH = "zamba2-7b"
@@ -692,6 +1149,8 @@ def _serve(torch, cfg, model, prompts, join: bool):
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
+    if "mg3m" in low:
+        return "mg3m_conv"
     if "flash_fwd" in low:
         return "flash_attention"
     if "causal_conv1d" in low:
@@ -705,11 +1164,12 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def lm_profile(torch, fn, label: str) -> None:
+def lm_profile(torch, fn, label: str):
     """One call of ``fn`` under ``torch.profiler``: wall time, the
     device's busy time (the sum of kernel times; one stream) and idle
     share, and device time by kernel class.  Profiling adds host time, so
-    the idle share is an upper bound."""
+    the idle share is an upper bound.  Returns ``{"wall_ms", "busy_ms",
+    "idle"}``, or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -726,7 +1186,7 @@ def lm_profile(torch, fn, label: str) -> None:
     if busy_ms == 0:
         print(f"  profile {label}: wall {wall_ms:.1f} ms; the profiler saw "
               f"no device time (device busy time not measured)")
-        return
+        return None
     by_class = {}
     for e in kernels:
         c = _kernel_class(e.key)
@@ -741,13 +1201,17 @@ def lm_profile(torch, fn, label: str) -> None:
           f"top kernels: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
               f"x{e.count}" for e in top))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle": 1 - busy_ms / wall_ms}
 
 
 def lm_path(torch, np):
     """Full-width zamba2-7b on the card: the cross-form oracle, then the
     main path (prefill 2 x 2048, ServeEngine) with launch counts read
     around it, the isolation check and the card-vs-CPU check on the
-    reduced config.  Returns the main path's launch counts."""
+    reduced config.  Returns the main path's launch counts and its times
+    (prefill s, decode step ms, request latency p50/max ms, the two
+    profiles)."""
     import copy
 
     from repro_torch.configs.registry import get_config, reduced
@@ -842,11 +1306,12 @@ def lm_path(torch, np):
         dec_ms = time_ms(torch, lambda: model.decode_step(cache, pos,
                                                           tokens=tok),
                          iters=10)
-        lm_profile(torch, lambda: model.decode_step(cache, pos, tokens=tok),
-                   "decode step, 2 slots")
+        dec_prof = lm_profile(
+            torch, lambda: model.decode_step(cache, pos, tokens=tok),
+            "decode step, 2 slots")
         del cache
-        lm_profile(torch, lambda: model.prefill(tokens=ptoks),
-                   f"prefill {PREFILL_B}x{PREFILL_S}")
+        pre_prof = lm_profile(torch, lambda: model.prefill(tokens=ptoks),
+                              f"prefill {PREFILL_B}x{PREFILL_S}")
 
         # the card against the CPU on the reduced config (f32)
         small = reduced(cfg)
@@ -875,7 +1340,10 @@ def lm_path(torch, np):
     print(f"  launches on the LM path: {counts}")
     del model
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"prefill_s": prefill_s, "decode_ms": dec_ms,
+                    "p50_ms": float(np.percentile(ms, 50)),
+                    "max_ms": float(ms.max()), "decode_profile": dec_prof,
+                    "prefill_profile": pre_prof}
 
 
 def lm_timing_phase(torch, counts, errs):
@@ -991,10 +1459,13 @@ def main() -> int:
     for bucket in (1, 2, 4, 8):
         layer_breakdown(torch, sched, chain, bucket)
     rows = timing_phase(torch, sched, chain, counts, errs)
+    train_rows, train_run = train_phase(torch)
+    rows += train_rows
 
     lm_errs = lm_kernel_phase(torch)
-    lm_counts = lm_path(torch, np)
+    lm_counts, _ = lm_path(torch, np)
     rows += lm_timing_phase(torch, lm_counts, lm_errs)
+    train_profile(torch, train_run)
 
     print(json.dumps({"kernels": rows}))
     print(card)

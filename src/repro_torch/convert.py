@@ -3,7 +3,8 @@
 CNNs: the JAX package keeps one FLT array per layer in the paper layout
 ``[fltH, fltW, IC, OC]``; ``flt_from_numpy`` / ``net_weights_from_numpy``
 turn such arrays (as numpy, e.g. ``np.asarray(jax_array)``) into the port's
-tensors, checking each shape against its scene.
+tensors, checking each shape against its scene; ``cnn_params_from_numpy``
+carries a trainable CNN's whole parameter dict (convs and head).
 
 LMs: ``lm_params_from_numpy`` turns the reference's parameter pytree of
 ``transformer.init_params`` (as numpy) into the port's ``HybridLM``.
@@ -52,6 +53,16 @@ def net_weights_from_numpy(scenes: Mapping[str, ConvScene],
         raise KeyError(f"no weight array for layers {missing}")
     return {name: flt_from_numpy(arrays[name], sc, dev)
             for name, sc in scenes.items()}
+
+
+def cnn_params_from_numpy(params: Mapping[str, Any],
+                          device: DeviceSpec = None) -> Dict[str, torch.Tensor]:
+    """A trainable CNN's parameter dict of the reference (``models/cnn.py``:
+    ``init_small_cnn`` / ``init_cnn_from_scenes``, as numpy, e.g.
+    ``jax.tree.map(np.asarray, params)``) -> the port's ``{name: tensor}``
+    on ``device`` (default the card), each leaf in its own dtype."""
+    dev = resolve_device(device)
+    return {name: _leaf(arr, dev) for name, arr in params.items()}
 
 
 def _leaf(arr, dev: torch.device) -> torch.Tensor:

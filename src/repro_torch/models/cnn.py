@@ -1,17 +1,32 @@
 """CNN zoo for the paper's own evaluation (Fig. 13) as lists of convolution
-*scenes* — port of the scene side of ``repro.models.cnn``.  The trainable
-CNNs wait for the training slice.
+*scenes*, plus the runnable trainable classifiers (the small 3-conv CNN and
+scenes-backed nets such as the VGG-style one or a ``cnn_chain_scenes``
+trunk) whose every convolution dispatches through prewarmed ``ConvPlan``
+triples — port of ``repro.models.cnn``.
 
 Layout: the plan layout is the paper's ``[H, W, C, B]``; ``nhwc_to_plan``
-and ``plan_to_nhwc`` are the one entry and exit transposes.
+and ``plan_to_nhwc`` are the one entry and exit transposes.  The trainable
+forward converts once at entry and never back: relu, the global average
+pool and the head all speak plan layout.
+
+Parameters are a flat ``{name: tensor}`` dict (one FLT ``[h, w, IC, OC]``
+per conv, ``head`` ``[C, n_classes]``).  Initialisation draws from an
+explicit CPU ``torch.Generator`` (a truncated normal at the reference's
+std) and moves the result to ``device``, so one seed gives the same
+weights on the CPU and on the card; they differ from JAX's for the same
+seed (the tests carry the reference's with ``convert.cnn_params_from_numpy``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.scene import ConvScene, ceil_div
+from repro_torch.core.scene import ConvScene, ceil_div, dtype_name
+from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.models.layers import trunc_normal
+
+Params = Dict[str, torch.Tensor]
 
 
 def nhwc_to_plan(x: torch.Tensor) -> torch.Tensor:
@@ -167,3 +182,149 @@ def validate_scene_chain(scenes: Mapping[str, ConvScene]) -> None:
         if a.B != b.B:
             raise ValueError(f"scene chain breaks at {na} -> {nb}: "
                              f"batch {a.B} vs {b.B}")
+
+
+# ---------------------------------------------------------------------------
+# Small runnable classifier on MG3MConv (end-to-end example / tests)
+# ---------------------------------------------------------------------------
+def _draw(gen: torch.Generator, shape, std: float, dtype,
+          dev: torch.device) -> torch.Tensor:
+    return trunc_normal(gen, shape, std, dtype).to(dev)
+
+
+def init_small_cnn(gen: torch.Generator, *, in_ch: int = 3,
+                   n_classes: int = 10, width: int = 16,
+                   dtype=torch.float32, device: DeviceSpec = None) -> Params:
+    """The small CNN's parameters, drawn from the CPU generator ``gen`` and
+    placed on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    return {
+        "c1": _draw(gen, (3, 3, in_ch, width), 0.1, dtype, dev),
+        "c2": _draw(gen, (3, 3, width, width * 2), 0.05, dtype, dev),
+        "c3": _draw(gen, (3, 3, width * 2, width * 4), 0.05, dtype, dev),
+        "head": _draw(gen, (width * 4, n_classes), 0.05, dtype, dev),
+    }
+
+
+_LAYER_STRIDES = {"c1": 1, "c2": 2, "c3": 2}
+
+
+def small_cnn_scenes(p: Params, batch: int, res: int,
+                     dtype: str = "float32") -> Dict[str, ConvScene]:
+    """Per-layer ConvScenes of the small CNN for a given input geometry."""
+    scenes = {}
+    hw = res
+    for name, stride in _LAYER_STRIDES.items():
+        w = p[name]
+        scenes[name] = ConvScene(B=batch, IC=w.shape[2], OC=w.shape[3],
+                                 inH=hw, inW=hw, fltH=w.shape[0],
+                                 fltW=w.shape[1], padH=1, padW=1,
+                                 stdH=stride, stdW=stride, dtype=dtype)
+        hw = scenes[name].outH
+    return scenes
+
+
+def small_cnn_plans(p: Params, batch: int, res: int, *,
+                    dtype: str = "float32", policy=None,
+                    device: DeviceSpec = None, registry=None,
+                    devices=None) -> "ModelPlans":
+    """Pre-build the (fprop, dgrad, wgrad) plan triple of every layer into
+    one ``ModelPlans`` (one ``PlanRegistry.warm`` pass per policy) on
+    ``registry`` or the default registry of ``device``; then every
+    forward/backward step is pure dispatch.  ``devices`` raises until
+    ``shard/`` is ported."""
+    from repro_torch.core.autodiff import make_model_plans
+    return make_model_plans(small_cnn_scenes(p, batch, res, dtype),
+                            policy=policy, device=device, registry=registry,
+                            devices=devices)
+
+
+def small_cnn_forward(p: Params, x: torch.Tensor, *,
+                      use_kernels: bool = False, schedule=None,
+                      plans=None) -> torch.Tensor:
+    """x ``[B, H, W, C]`` -> logits ``[B, n_classes]``; all convs MG3MConv,
+    on ``x``'s device.
+
+    ``use_kernels=False`` runs each conv through the torch reference
+    (``mg3m_conv_nhwc(..., use_kernels=False)``, differentiable by
+    autograd).  ``use_kernels=True`` routes through the differentiable
+    plan path (``core/autodiff.apply_conv``) with the activation in plan
+    layout across c1 -> c2 -> c3 -> pool -> head; pass ``plans`` (from
+    ``small_cnn_plans``) or they come from the default registry of ``x``'s
+    device."""
+    from repro_torch.core.conv import mg3m_conv_nhwc
+    if not use_kernels:
+        z = x
+        for name, stride in _LAYER_STRIDES.items():
+            z = torch.relu(mg3m_conv_nhwc(z, p[name],
+                                          stride=(stride, stride),
+                                          padding=(1, 1), schedule=schedule,
+                                          device=x.device,
+                                          use_kernels=False))
+        return z.mean(dim=(1, 2)) @ p["head"]
+    if plans is None:
+        plans = small_cnn_plans(p, x.shape[0], x.shape[1],
+                                dtype=dtype_name(x.dtype),
+                                policy=schedule, device=x.device)
+    return cnn_forward_planned(p, x, plans, layer_order=tuple(_LAYER_STRIDES))
+
+
+def cnn_forward_planned(p: Params, x: torch.Tensor, plans,
+                        layer_order: Sequence[str] = ()) -> torch.Tensor:
+    """Plan-layout forward shared by every trainable CNN here: one NHWC ->
+    ``[H, W, C, B]`` permute at entry, per-layer ``apply_conv`` + relu with
+    the activation in plan layout across the whole stack, global average
+    pool over the leading spatial dims, then the linear head.
+
+    ``plans`` is a ``ModelPlans`` (or any name -> triple mapping);
+    ``layer_order`` defaults to the plans' own layer order."""
+    from repro_torch.core.autodiff import apply_conv
+    names = tuple(layer_order) or tuple(plans)
+    z = nhwc_to_plan(x)
+    for name in names:
+        z = torch.relu(apply_conv(z, p[name], plans[name]))
+    pooled = z.mean(dim=(0, 1))                  # [C, B] — still plan layout
+    return pooled.T @ p["head"]
+
+
+# ---------------------------------------------------------------------------
+# Scenes-backed trainable CNN (VGG-style): the scene chain IS the model
+# ---------------------------------------------------------------------------
+def vgg_style_scenes(batch: int, res: int = 16, in_ch: int = 3,
+                     stages: Sequence[Tuple[int, int]] = ((16, 1), (32, 2),
+                                                          (64, 2)),
+                     dtype: str = "float32") -> Dict[str, ConvScene]:
+    """A chained VGG-style scene list: 3x3 pad-1 convs, widths and strides
+    from ``stages`` (stride-2 convs in place of pooling).  The returned
+    dict is a valid ``init_cnn_from_scenes``/``make_model_plans`` input."""
+    scenes: Dict[str, ConvScene] = {}
+    hw, ic = res, in_ch
+    for i, (width, stride) in enumerate(stages):
+        sc = ConvScene(B=batch, IC=ic, OC=width, inH=hw, inW=hw,
+                       fltH=3, fltW=3, padH=1, padW=1,
+                       stdH=stride, stdW=stride, dtype=dtype)
+        scenes[f"v{i}"] = sc
+        hw, ic = sc.outH, width
+    return scenes
+
+
+def init_cnn_from_scenes(gen: torch.Generator,
+                         scenes: Mapping[str, ConvScene],
+                         n_classes: int = 10, dtype=torch.float32,
+                         device: DeviceSpec = None) -> Params:
+    """Parameters of the scenes-backed CNN: one FLT ``[h, w, IC, OC]`` per
+    scene (paper layout — no transpose between init and plan execution)
+    plus the linear head off the global average pool; He-scaled std (0.1
+    where IC <= 4), drawn from the CPU generator ``gen`` and placed on
+    ``device`` (default the card)."""
+    validate_scene_chain(scenes)
+    dev = resolve_device(device)
+    items = list(scenes.items())
+    p: Params = {}
+    for name, sc in items:
+        std = 0.1 if sc.IC <= 4 else (2.0 / (sc.fltH * sc.fltW
+                                             * sc.IC)) ** 0.5
+        p[name] = _draw(gen, (sc.fltH, sc.fltW, sc.IC, sc.OC), std, dtype,
+                        dev)
+    p["head"] = _draw(gen, (items[-1][1].OC, n_classes), 0.05, dtype, dev)
+    return p

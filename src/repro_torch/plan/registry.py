@@ -373,28 +373,35 @@ class PlanRegistry:
         return loaded
 
 
-# -- process-wide default registry ------------------------------------------
-_default: Optional[PlanRegistry] = None
+# -- process-wide default registries ----------------------------------------
+_defaults: Dict[str, PlanRegistry] = {}
 
 
-def default_registry() -> PlanRegistry:
-    """The process-wide registry (built for the card on first use)."""
-    global _default
-    if _default is None:
-        _default = PlanRegistry()
-    return _default
+def default_registry(device: DeviceSpec = None) -> PlanRegistry:
+    """The process-wide registry of ``device``'s backend (default the card;
+    one registry per backend, built on first use)."""
+    dev = resolve_device(device)
+    reg = _defaults.get(dev.type)
+    if reg is None:
+        reg = _defaults[dev.type] = PlanRegistry(device=dev)
+    return reg
 
 
 def set_default_registry(registry: Optional[PlanRegistry]) -> None:
-    """Install (or with None, reset) the process-wide registry."""
-    global _default
-    _default = registry
+    """Install ``registry`` as its backend's process-wide registry, or with
+    None reset every backend's."""
+    if registry is None:
+        _defaults.clear()
+    else:
+        _defaults[registry.backend] = registry
 
 
 def get_plan(scene: ConvScene, op: Union[ConvOp, str] = ConvOp.FPROP, *,
              policy: PolicySpec = "analytic", use_kernels: bool = True,
-             registry: Optional[PlanRegistry] = None) -> ConvPlan:
-    """Plan-once convenience on the default (or given) registry."""
-    reg = registry if registry is not None else default_registry()
+             registry: Optional[PlanRegistry] = None,
+             device: DeviceSpec = None) -> ConvPlan:
+    """Plan-once convenience on the given registry, else the default one
+    of ``device``'s backend."""
+    reg = registry if registry is not None else default_registry(device)
     return reg.get_or_build(scene, op, policy=policy,
                             use_kernels=use_kernels)

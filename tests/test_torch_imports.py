@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_trunk_ab.py",
-                             "chip_tile_sweep.py")]
+                             "chip_tile_sweep.py", "chip_phase_ab.py")]
 _BANNED_ROOTS = {"jax", "jaxlib", "repro"}
 _LOADERS = {("ctypes", "CDLL"), ("ctypes", "cdll"), ("cuda_build", "load"),
             ("cpp_extension", "load")}
@@ -89,3 +89,20 @@ def test_every_module_imports_without_jax_or_a_gpu():
 
 def test_package_imports_here():
     assert importlib.import_module("repro_torch.serve.sched")
+
+
+# the training slice's modules, each a port of the reference file of the
+# same path under src/repro
+TRAINING_MODULES = ("core.autodiff", "core.conv", "kernels.ops",
+                    "models.cnn", "train.optimizer", "train.cnn",
+                    "train.checkpoint", "data.pipeline", "launch.train_cnn")
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_modules_are_covered(name):
+    """Each module is one of the files the guards above walk, mirrors a
+    reference file, and imports here without a GPU toolchain."""
+    rel = Path(*name.split(".")).with_suffix(".py")
+    assert PORT / rel in FILES
+    assert (ROOT / "src" / "repro" / rel).is_file()
+    assert importlib.import_module(f"repro_torch.{name}")
