@@ -68,12 +68,36 @@ Phases, each of which raises (non-zero exit) on failure:
                ``conv2d_input``, ``conv2d_weight``); and the small-CNN
                launcher ``python -m repro_torch.launch.train_cnn
                --check-loss`` run in-process on the card.
-  7. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
+  7. tune     ``repro_torch.tune`` on the card: the trunk's 10 fprop
+               scenes at buckets 1, 2, 4 and 8 and the train step's 19
+               dgrad/wgrad exec scenes (batch 8; the first layer's dgrad,
+               never launched, left out), each exact (no proxy caps) through
+               ``autotune_scene`` (top 4 of the analytic ranking, device
+               time of 5 replays of a 3-execute CUDA graph) into a fresh
+               ``ScheduleCache``, no measurement allowed to fail; a
+               calibration fitted to the cache, saved and reloaded (median
+               relative error per class before -> after).  Then a second
+               ``ConvScheduler`` over the same trunk and weights under
+               ``policy="tuned"``: every plan a tune-cache hit, the same
+               requests at each bucket bitwise equal to the analytic
+               session's, no measurement, plan build or resolution while
+               serving, trunk kernel device time per bucket beside the
+               analytic plans'; and phase 6's trainer under
+               ``policy="tuned"``: its losses bitwise equal to phase 6's,
+               step ms of both (interleaved), wgrad kernel ms per layer of
+               both.  The tune cache and the calibration live in a
+               temporary directory (``REPRO_TORCH_TUNE_CACHE``,
+               ``REPRO_TORCH_CALIBRATION``, set before the port is
+               imported and removed at exit), so no artifact of an earlier
+               run changes this run's picks; phases 3-6 run under the
+               analytic model.
+  8. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
                attention on tests/test_flash_kernel.py's (causal and not,
-               plus D = 112), both also at the LM path's shapes, f32 and
-               bf16, each held against its plain version: f32 within 1e-4
-               (conv) / 2e-4 (attention), bf16 within 2e-2.
-  8. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
+               plus D = 112, and all of them again at D = 128), both also
+               at the LM path's shapes, f32 and bf16, each held against its
+               plain version: f32 within 1e-4 (conv) / 2e-4 (attention),
+               bf16 within 2e-2.
+  9. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
                heads, bf16, seeded random weights) on the card: the
                reference's cross-form oracle (prefill(255) + decode_step ==
                forward(256) at the last position, within a bf16 tolerance
@@ -86,11 +110,15 @@ Phases, each of which raises (non-zero exit) on failure:
                reduced config's prefill on the card must match the CPU's;
                one decode step and one prefill under ``torch.profiler``
                (device busy time, idle share, time by kernel class).
-  9. LM timing  per kernel at the LM path's shapes: the kernel, its plain
+ 10. LM timing  per kernel at the LM path's shapes: the kernel, its plain
                version and one PyTorch call computing the same function
                (``F.conv1d``, ``F.scaled_dot_product_attention``; never
-               called by the port), beside the kernel's bound.
- 10. train profile  one more train step of phase 6 under
+               called by the port), beside the kernel's bound; and the
+               flash kernels' D = 128 instance at q (64, 2048, 128) bf16
+               causal, reported as the ``d128`` entry of the
+               ``flash_attention_fwd`` row (zamba2-7b's head dim is 112:
+               that instance is not on the LM path).
+ 11. train profile  one more train step of phase 6 under
                ``torch.profiler`` (device busy time and idle share), last
                so that no timed phase runs after a profiler session.
 
@@ -109,9 +137,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -605,10 +636,11 @@ TRAIN_LIBRARY = {"fprop": "F.conv2d", "dgrad": "conv2d_input",
                  "wgrad": "conv2d_weight"}
 
 
-def train_path(torch):
-    """The trunk's 30 plans on a fresh registry, then one warm-up step and
-    ``TRAIN_STEPS`` steps inside a ``resolution_guard``, with the launch
-    counts set to 0 just before and read just after.  Every step trains on
+def train_path(torch, policy: str = "analytic"):
+    """The trunk's 30 plans (under ``policy``) on a fresh registry, then
+    one warm-up step and ``TRAIN_STEPS`` steps inside a
+    ``resolution_guard``, with the launch counts set to 0 just before and
+    read just after.  Every step trains on
     the stream's batch 0: i.i.d. class prototypes give nearly the same
     pooled features at 224 x 224 after ten random-init layers, so fresh
     batches show no learning within six steps, while a fixed batch's loss
@@ -624,7 +656,7 @@ def train_path(torch):
     scenes = cnn_chain_scenes(TRAIN_NET, TRAIN_MB)
     reg = PlanRegistry(device="cuda")
     t0 = time.perf_counter()
-    plans = make_model_plans(scenes, registry=reg)
+    plans = make_model_plans(scenes, registry=reg, policy=policy)
     plan_s = time.perf_counter() - t0
     walk = list(plans.plans())
     distinct = {(p.scene, p.op) for _, _, p in walk}
@@ -700,7 +732,8 @@ def train_path(torch):
             (triple.fprop, triple.dgrad, triple.wgrad)))
     steady = sorted(event_ms[1:])
     med = steady[len(steady) // 2]
-    print(f"train path: {len(scenes)} layers x 3 directions = {len(walk)} "
+    print(f"train path ({policy}): {len(scenes)} layers x 3 directions = "
+          f"{len(walk)} "
           f"kernel plans ({len(reg)} distinct) built in {plan_s:.2f} s, "
           f"zero resolutions over "
           f"{TRAIN_STEPS} guarded steps; global batch "
@@ -715,7 +748,7 @@ def train_path(torch):
           f"{ {f'{o}/{g}': n for (o, g), n in sorted(by_dir.items())} }")
     return {"plans": plans, "walk": walk, "state": state, "batch": batch,
             "step": step, "pure_step": pure_step, "scenes": scenes,
-            "counts": counts, "step_ms": med}
+            "counts": counts, "step_ms": med, "losses": losses}
 
 
 def _forward_branches(torch, run, mb):
@@ -1007,6 +1040,249 @@ def train_phase(torch):
 
 
 # --------------------------------------------------------------------------
+# Tune phase: repro_torch.tune on the trunk's exact scenes, a calibration
+# fitted to them, then policy="tuned" served and trained beside the
+# analytic runs
+# --------------------------------------------------------------------------
+TUNE_BUCKETS = (1, 2, 4, 8)
+TUNE_TOP_K = 4
+TUNE_ITERS = 5
+
+
+def tune_scenes(chain, run):
+    """``{label: scene}``: the trunk's fprop scenes at every bucket of
+    ``TUNE_BUCKETS`` and the train step's dgrad and wgrad exec scenes (the
+    first layer's dgrad, never launched, left out)."""
+    scenes = {f"{name} fprop B={b}": sc.with_batch(b)
+              for name, sc in chain.items() for b in TUNE_BUCKETS}
+    first = run["plans"].names()[0]
+    for name, op, plan in run["walk"]:
+        if op != "fprop" and (name, op) != (first, "dgrad"):
+            scenes[f"{name} {op} B={TRAIN_MB}"] = plan.exec_scene
+    return scenes
+
+
+def tune_and_calibrate(torch, chain, run):
+    """Tune every scene of ``tune_scenes`` on the card into a fresh
+    ``ScheduleCache`` (at ``$REPRO_TORCH_TUNE_CACHE``, the smoke's
+    temporary directory), with no measurement allowed to fail or to run
+    out of time; then fit, save and reload a calibration from it.  Returns
+    the cache."""
+    from repro_torch import tune
+    from repro_torch.core.mapping import select_schedule, smem_budget
+    from repro_torch.obs.metrics import default_metrics
+
+    m = default_metrics()
+    n0 = m.value("repro.tune.measurements")
+    f0 = m.value("repro.tune.measure_failures")
+    o0 = m.value("repro.tune.measure_timeouts")
+    cache = tune.ScheduleCache()
+    tune.set_default_cache(cache)
+    backend = tune.default_backend("cuda")
+    budget = smem_budget("cuda")
+    scenes = tune_scenes(chain, run)
+    t0 = time.perf_counter()
+    agree = 0
+    for label, sc in scenes.items():
+        a = select_schedule(sc, budget=budget)
+        t = tune.autotune_scene(sc, cache=cache, top_k=TUNE_TOP_K,
+                                iters=TUNE_ITERS, device="cuda")
+        agree += (t.choice.schedule, t.choice.tile) == (a.schedule, a.tile)
+        print(f"  {label}: analytic {a.schedule}{a.tile} modeled "
+              f"{a.predicted_s * 1e3:.4f} ms, measured "
+              f"{t.analytic_measured_us * 1e-3:.4f} ms; tuned "
+              f"{t.choice.schedule}{t.choice.tile} "
+              f"{t.measured_us * 1e-3:.4f} ms ({t.n_candidates} timed)")
+    tune_s = time.perf_counter() - t0
+    measured = m.value("repro.tune.measurements") - n0
+    failures = m.value("repro.tune.measure_failures") - f0
+    timeouts = m.value("repro.tune.measure_timeouts") - o0
+    path = cache.save()
+    distinct = len(set(scenes.values()))   # a dgrad scene may be an fprop's
+    print(f"tune: {len(scenes)} exact scenes ({distinct} distinct), "
+          f"{int(measured)} candidates "
+          f"measured, {int(failures)} failures, {int(timeouts)} timeouts, "
+          f"tuned pick = analytic pick "
+          f"on {agree}; {tune_s:.1f} s; backend {backend!r}, "
+          f"{tune.CODE_VERSION}, cache {path}")
+    if failures or timeouts or len(cache) != distinct:
+        raise AssertionError(f"{int(failures)} measurements failed, "
+                             f"{int(timeouts)} timed out; "
+                             f"{len(cache)} of {distinct} scenes cached")
+
+    report = tune.fit_calibration(cache, backend=backend)
+    calib = tune.save_calibration(report)
+    if tune.load_calibration(calib, backend=backend).corrections != \
+            report.cost_model().corrections:
+        raise AssertionError("calibration artifact round trip differs")
+    for f in report.classes:
+        print(f"  class {f.cls}: {f.n_samples} samples, {f.method}, median "
+              f"|pred - meas| / meas {f.median_err_before:.3f} -> "
+              f"{f.median_err_after:.3f}")
+    print(f"calibrate: {report.n_records} samples ({report.n_skipped} "
+          f"skipped); median |pred - meas| / meas "
+          f"{report.median_err_before:.3f} -> {report.median_err_after:.3f};"
+          f" artifact {calib}")
+    if not report.n_records:
+        raise AssertionError("no calibration samples")
+    return cache
+
+
+def _trunk_kernel_ms(torch, sched, chain, bucket: int) -> float:
+    """Device time of the trunk's kernels at ``bucket`` under ``sched``'s
+    plans (one seeded input per layer)."""
+    from repro_torch.plan import ConvOp
+
+    gen = torch.Generator().manual_seed(21)
+    total = 0.0
+    for name, sc in chain.items():
+        plan = sched.registry.get(sc.with_batch(bucket), ConvOp.FPROP,
+                                  policy=sched.policy)
+        x = torch.randn(plan.scene.in_shape(), generator=gen).cuda()
+        fn, inp, flt, blocks = plan.kernel_call(x, sched._layers[name].flt)
+        total += device_ms(torch, lambda: fn(inp, flt, plan.exec_scene,
+                                             **blocks))
+    return total
+
+
+def tuned_serve(torch, sched, chain, cache):
+    """A second scheduler over the same trunk and weights under
+    ``policy="tuned"``: every plan from the tune cache, then the same
+    requests at each bucket served by both sessions, bitwise equal, with
+    no measurement, plan build or resolution while serving."""
+    from repro_torch.obs.metrics import default_metrics
+    from repro_torch.plan import ConvOp
+    from repro_torch.serve.sched import ConvScheduler, SchedConfig
+
+    m = default_metrics()
+    tsched = ConvScheduler(max_batch=8, strict=True, policy="tuned",
+                           device="cuda",
+                           config=SchedConfig(max_gather_s=0.005,
+                                              flush_margin_s=0.002))
+    tsched.register_net("resnet", chain,
+                        {n: sched._layers[n].flt for n in chain},
+                        activation=torch.relu)
+    h0, miss0 = cache.hits, cache.misses
+    tsched.prewarm(compile=True)
+    n_plans = len(tsched.registry)
+    if cache.hits - h0 != n_plans or cache.misses != miss0:
+        raise AssertionError(f"{n_plans} tuned plans built with "
+                             f"{cache.hits - h0} tune-cache hits and "
+                             f"{cache.misses - miss0} misses")
+    asess, tsess = sched.session("resnet"), tsched.session("resnet")
+    sc0 = chain["resnet/L0"]
+    gen = torch.Generator().manual_seed(20)
+    snap = tsched.snapshot()
+    meas0 = m.value("repro.tune.measurements")
+    res0 = m.value("repro.plan.resolutions")
+    n_out = 0
+    for b in TUNE_BUCKETS:
+        xs = [torch.randn(sc0.in_shape()[:3] + (1,), generator=gen)
+              for _ in range(b)]
+        want, got = asess.serve(xs), tsess.serve(xs)
+        for w, g in zip(want, got):
+            if not torch.equal(w, g):
+                raise AssertionError(
+                    f"bucket {b}: the tuned session's output differs from "
+                    f"the analytic session's (max abs diff "
+                    f"{(w - g).abs().max().item()})")
+            n_out += 1
+    stats = tsched.stats(since=snap)
+    resolutions = m.value("repro.plan.resolutions") - res0
+    measured = m.value("repro.tune.measurements") - meas0
+    if resolutions or measured or stats["plan_builds"] or \
+            stats["plan_misses"]:
+        raise AssertionError(f"tuned serving resolved {resolutions}, "
+                             f"measured {measured}: {stats}")
+    grains = {name: {b: tsched.registry.get(sc.with_batch(b), ConvOp.FPROP,
+                                            policy="tuned").schedule
+                     for b in TUNE_BUCKETS} for name, sc in chain.items()}
+    print(f"tuned serve: {n_plans} plans, all {cache.hits - h0} from the "
+          f"tune cache; {n_out} outputs at buckets {TUNE_BUCKETS} bitwise "
+          f"equal to the analytic session's; 0 resolutions, 0 measurements "
+          f"while serving; grains {grains}")
+    for b in TUNE_BUCKETS:
+        a_ms = _trunk_kernel_ms(torch, sched, chain, b)
+        t_ms = _trunk_kernel_ms(torch, tsched, chain, b)
+        print(f"  trunk kernels per forward, B={b}: analytic {a_ms:.4f} ms, "
+              f"tuned {t_ms:.4f} ms (device)")
+
+
+def _wgrad_kernel_ms(torch, run) -> dict:
+    """Device ms of each layer's wgrad kernel in ``run`` (seeded
+    operands)."""
+    gen = torch.Generator().manual_seed(22)
+    out = {}
+    for name, op, plan in run["walk"]:
+        if op != "wgrad":
+            continue
+        a_shape, b_shape, _ = plan.io_shapes()
+        a = torch.randn(a_shape, generator=gen).cuda()
+        b = torch.randn(b_shape, generator=gen).cuda()
+        fn, inp, flt, blocks = plan.kernel_call(a, b)
+        out[name] = (device_ms(torch, lambda: fn(inp, flt, plan.exec_scene,
+                                                 **blocks)),
+                     f"{plan.schedule}{plan.choice.tile}")
+    return out
+
+
+def _step_ms(torch, run) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run["step"](run["state"], run["batch"])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def tuned_train(torch, run):
+    """The trainer of ``train_path`` again, its plans under
+    ``policy="tuned"``: its losses must equal the analytic run's bitwise,
+    with no measurement; then step ms of both runs, interleaved, and each
+    layer's wgrad kernel ms beside the analytic run's."""
+    from repro_torch.obs.metrics import default_metrics
+
+    m = default_metrics()
+    meas0 = m.value("repro.tune.measurements")
+    tuned = train_path(torch, policy="tuned")
+    if m.value("repro.tune.measurements") != meas0:
+        raise AssertionError("the tuned trainer measured")
+    if tuned["losses"] != run["losses"]:
+        raise AssertionError(f"tuned losses {tuned['losses']} differ from "
+                             f"the analytic run's {run['losses']}")
+    times = {"analytic": [], "tuned": []}
+    for _ in range(5):
+        for key, r in (("analytic", run), ("tuned", tuned)):
+            times[key].append(_step_ms(torch, r))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    wa, wt = _wgrad_kernel_ms(torch, run), _wgrad_kernel_ms(torch, tuned)
+    print(f"tuned train: {len(tuned['losses'])} losses bitwise equal to the "
+          f"analytic run's; step ms (CUDA events, median of 5, "
+          f"interleaved): analytic {med['analytic']:.2f}, tuned "
+          f"{med['tuned']:.2f}; wgrad kernels per microbatch: analytic "
+          f"{sum(v[0] for v in wa.values()):.3f} ms, tuned "
+          f"{sum(v[0] for v in wt.values()):.3f} ms (device)")
+    for name in wa:
+        print(f"  {name} wgrad: analytic {wa[name][1]} {wa[name][0]:.4f} "
+              f"ms, tuned {wt[name][1]} {wt[name][0]:.4f} ms")
+    del tuned
+
+
+def tune_phase(torch, sched, chain, run):
+    """Tune, calibrate, then serve and train under ``policy="tuned"``."""
+    import gc
+
+    t0 = time.perf_counter()
+    cache = tune_and_calibrate(torch, chain, run)
+    tuned_serve(torch, sched, chain, cache)
+    tuned_train(torch, run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tune phase: {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
 # LM path: full-width zamba2-7b through ServeEngine (causal_conv1d, flash)
 # --------------------------------------------------------------------------
 LM_ARCH = "zamba2-7b"
@@ -1023,10 +1299,14 @@ LM_TOL = {("causal_conv1d", "float32"): 1e-4,
 # (B, L, D, K): tests/test_kernels.py:88-90
 CONV1D_SHAPES = [(2, 32, 16, 4), (1, 7, 5, 3), (3, 100, 64, 4),
                  (2, 16, 16, 2), (1, 64, 128, 4)]
-# (B, S, T, Hq, Hkv, D): tests/test_flash_kernel.py:27-32, then D = 112
+# (B, S, T, Hq, Hkv, D): tests/test_flash_kernel.py:27-32, then D = 112,
+# then those shapes at D = 128 (the dense configs' head dim) and a ragged one
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32), (2, 64, 64, 8, 2, 32),
                 (1, 128, 128, 4, 1, 64), (2, 96, 96, 2, 2, 16),
                 (2, 255, 255, 8, 4, 112)]
+FLASH_SHAPES += [shape[:5] + (128,) for shape in FLASH_SHAPES]
+# the D = 128 timing: q (B*H = 64, 2048, 128), 4 query heads per kv head
+FLASH128_B, FLASH128_H, FLASH128_HKV = 2, 32, 8
 PREFILL_B, PREFILL_S = 2, 2048
 ORACLE_S = 256            # lengths over the SSD chunk (256) must be multiples
 # max |decode - forward| / max |logit| in bf16: each layer rounds some ten
@@ -1050,14 +1330,17 @@ def lm_shapes(cfg):
             (PREFILL_B * cfg.n_kv_heads, PREFILL_S, cfg.d_head))
 
 
-def _hold(torch, name, dtype, got, want, errs, what):
+def _hold(torch, name, dtype, got, want, errs, what, key=None):
+    """Hold ``got`` to the plain version's ``want`` at ``LM_TOL``; the
+    error is kept under ``(key or name, dtype)``."""
     tol = LM_TOL[(name, dtype)]
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=tol, atol=tol):
         raise AssertionError(f"{name} {dtype} disagrees with its plain "
                              f"version (max abs err {err}) on {what}")
-    errs[(name, dtype)] = max(errs.get((name, dtype), 0.0), err)
+    k = (key or name, dtype)
+    errs[k] = max(errs.get(k, 0.0), err)
 
 
 def lm_kernel_phase(torch):
@@ -1093,11 +1376,15 @@ def lm_kernel_phase(torch):
             q, k, v = rand(b * hq, s, d), rand(b * hkv, t, d), \
                 rand(b * hkv, t, d)
             for causal in (True, False):
-                _hold(torch, "flash_attention_fwd", dtype,
-                      flash_attention_fwd(q, k, v, causal=causal),
-                      flash_attention_plain(q, k, v, causal=causal), errs,
-                      f"q {tuple(q.shape)} k {tuple(k.shape)} "
-                      f"causal={causal}")
+                got = flash_attention_fwd(q, k, v, causal=causal)
+                want = flash_attention_plain(q, k, v, causal=causal)
+                what = (f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                        f"causal={causal}")
+                _hold(torch, "flash_attention_fwd", dtype, got, want, errs,
+                      what)
+                if d == 128:
+                    _hold(torch, "flash_attention_fwd", dtype, got, want,
+                          errs, what, key="flash_d128")
                 checks += 1
     torch.cuda.synchronize()
     print(f"LM kernels: {checks} launches held against their plain "
@@ -1409,7 +1696,53 @@ def lm_timing_phase(torch, counts, errs):
         lambda o: o.reshape(bh, s, d), 4 * bh * s * s * d // 2,
         (q.numel() + kk.numel() + v.numel()) * 2,
         f"q ({bh}, {s}, {d}) bf16 causal, {h} heads x {PREFILL_B}"))
+    del q, kk, v, q4, k4, v4
+    rows[-1]["d128"] = flash128_row(torch, row, rand, errs)
     return rows
+
+
+def flash128_row(torch, row, rand, errs):
+    """The flash kernels' D = 128 instance (bf16) at q (64, 2048, 128),
+    causal, 4 query heads per kv head: kernel, plain version and
+    ``scaled_dot_product_attention``, beside the bound; returned as the
+    ``d128`` entry of the ``flash_attention_fwd`` row (off the LM path:
+    zamba2-7b's head dim is 112)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+
+    F = torch.nn.functional
+    b, h, hkv, s, d = (FLASH128_B, FLASH128_H, FLASH128_HKV, PREFILL_S,
+                       128)
+    q, kk, v = rand(b * h, s, d), rand(b * hkv, s, d), rand(b * hkv, s, d)
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, kk, v))
+    k4, v4 = (t.repeat_interleave(h // hkv, 1) for t in (k4, v4))
+    got = row("flash_attention_fwd",
+              lambda: flash_attention_fwd(q, kk, v, causal=True),
+              lambda: flash_attention_plain(q, kk, v, causal=True),
+              lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                     is_causal=True),
+              lambda o: o.reshape(b * h, s, d), 4 * b * h * s * s * d // 2,
+              (q.numel() + kk.numel() + v.numel()) * 2,
+              f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads x {b}, "
+              f"{hkv} kv heads")
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape", "gflop", "mbytes")
+    out = {k: got[k] for k in keep}
+    out["max_abs_err"] = errs[("flash_d128", "float32")]
+    out["max_abs_err_bf16"] = errs[("flash_d128", "bfloat16")]
+    return out
+
+
+def isolate_tune_artifacts() -> str:
+    """Point the tune cache and the calibration artifact at a fresh
+    temporary directory before anything imports the port, so that no
+    earlier tuning run changes this run's picks; returns the directory."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tmp,
+                                                        "tune_cache.json")
+    os.environ["REPRO_TORCH_CALIBRATION"] = os.path.join(tmp,
+                                                         "calibration.json")
+    return tmp
 
 
 def main() -> int:
@@ -1421,12 +1754,21 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run this "
               f"script from a checkout of the repository", file=sys.stderr)
         return 2
+    tmp = isolate_tune_artifacts()
+    try:
+        return smoke(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def smoke(torch, tmp: str) -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; tune "
+          f"artifacts in {tmp}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1461,6 +1803,7 @@ def main() -> int:
     rows = timing_phase(torch, sched, chain, counts, errs)
     train_rows, train_run = train_phase(torch)
     rows += train_rows
+    tune_phase(torch, sched, chain, train_run)
 
     lm_errs = lm_kernel_phase(torch)
     lm_counts, _ = lm_path(torch, np)

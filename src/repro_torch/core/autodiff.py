@@ -93,8 +93,9 @@ def make_training_plans(scene: ConvScene, *,
     """Plan all three directions of one layer, each through the selector,
     on ``registry`` (its device) or else built afresh for ``device``
     (default the card).  ``policy`` applies to fprop; the backward plans
-    resolve under ``backward_policy(policy)``.  "tuned"/"auto" raise, as
-    ``plan.build.resolve_policy`` does, until ``tune/`` is ported."""
+    resolve under ``backward_policy(policy)``: under "tuned"/"auto" the
+    dgrad and wgrad plans resolve their exec scenes from the tune cache
+    too."""
     bwd_policy = backward_policy(policy)
     if registry is not None:
         _check_device(registry, device)

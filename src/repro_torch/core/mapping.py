@@ -24,8 +24,8 @@ traffic term (the bytes each residency pattern streams over the HBM
 rate), plus per-chunk overhead and the load of a resident filter.  The
 machine constants are the H100 SXM datasheet's; the others are
 assumptions fitted to chip times, labelled below.  ``CostModel`` /
-``ClassCorrection`` keep the reference's shape so a calibration port can
-fit corrections later.
+``ClassCorrection`` keep the reference's shape; ``tune/calibrate.py`` fits
+the corrections to measured times on the raw terms of ``cost_terms``.
 
 The port may choose a different grain than the reference for the same
 scene: the two machines differ.  Parity between the packages covers
@@ -138,7 +138,7 @@ def class_key(schedule: str, bound: str, band: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ClassCorrection:
-    """Measured correction for one scene class (a calibration port fills
+    """Measured correction for one scene class (``tune/calibrate.py`` fits
     these): ``compute_scale``/``bw_scale`` scale the datasheet rates into
     effective ones (<1 = slower); ``overhead_s`` replaces the per-step
     overhead (None = keep the model's)."""
@@ -372,10 +372,31 @@ def _traffic_bytes(scene: ConvScene, schedule: str, bm: int, slots: int,
     return flt * n_ct + n_m * in_win + out
 
 
-def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
-           model: Optional[CostModel] = None,
-           budget: int = SMEM_BUDGET,
-           tile: Tuple[int, ...] = ()) -> Optional[ScheduleChoice]:
+@dataclasses.dataclass(frozen=True)
+class CostTerms:
+    """The raw terms ``_score`` composes for one point, before any class
+    correction: ``predicted = max(compute_s / compute_scale, hbm_s /
+    bw_scale) + steps * per_step_overhead + fixed_s``.  Calibration fits
+    the corrections on exactly these terms (``tune/calibrate.py``)."""
+
+    compute_s: float       # busiest SM's issue time at the datasheet rate
+    hbm_s: float           # streamed bytes over the datasheet HBM rate
+    steps: float           # chunk steps the per-step overhead is charged on
+    fixed_s: float         # resident filter loads (no class correction)
+    smem: int              # the block's shared-memory footprint
+
+    @property
+    def bound(self) -> str:
+        return "compute" if self.compute_s >= self.hbm_s else "memory"
+
+
+def cost_terms(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
+               model: Optional[CostModel] = None,
+               budget: int = SMEM_BUDGET,
+               tile: Tuple[int, ...] = ()) -> Optional[CostTerms]:
+    """The uncorrected terms of one (schedule, blocks, tile) point, or None
+    when its shared memory exceeds ``budget``; ``model`` supplies the base
+    rates."""
     model = model if model is not None else DEFAULT_COST_MODEL
     smem = _vmem_bytes(scene, schedule, bm, bn, bk, tile)
     if smem > budget:
@@ -394,27 +415,36 @@ def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
                 / _FULL_RATE_WARPS) ** _ISSUE_EXPONENT
     macs = _quantized_macs(scene, schedule, bm, bk, tile)
     sm_rate = model.mxu_rate(scene.dtype) / H100_SMS
-    raw_compute_s = (busiest * 2 * macs / units / sm_rate / issue
-                     / _fma_share(scene, schedule, bm, bk, tile))
-    raw_hbm_s = _traffic_bytes(scene, schedule, bm, slots,
-                               tile) / model.hbm_bw
-    # class decided on the raw terms, as calibration buckets them
-    bound = "compute" if raw_compute_s >= raw_hbm_s else "memory"
-    corr = model.correction_for(schedule, bound,
-                                ai_band(scene.arithmetic_intensity))
-    compute_s = raw_compute_s / max(corr.compute_scale, 1e-30)
-    hbm_s = raw_hbm_s / max(corr.bw_scale, 1e-30)
-    per_step = (corr.overhead_s if corr.overhead_s is not None
-                else model.step_overhead_s)
+    compute_s = (busiest * 2 * macs / units / sm_rate / issue
+                 / _fma_share(scene, schedule, bm, bk, tile))
+    hbm_s = _traffic_bytes(scene, schedule, bm, slots, tile) / model.hbm_bw
     # the busiest SM's chunk steps, overlapped across its resident blocks,
     # and its resident blocks' filter loads
-    overhead_s = (grid_steps(scene, schedule, bm, bk, tile) / units
-                  * busiest / resident * per_step
-                  + resident * _resident_bytes(scene, schedule, tile)
-                  / (L2_TO_SM_BW / H100_SMS))
-    total = max(compute_s, hbm_s) + overhead_s
+    steps = grid_steps(scene, schedule, bm, bk, tile) / units * busiest \
+        / resident
+    fixed_s = (resident * _resident_bytes(scene, schedule, tile)
+               / (L2_TO_SM_BW / H100_SMS))
+    return CostTerms(compute_s, hbm_s, steps, fixed_s, smem)
+
+
+def _score(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
+           model: Optional[CostModel] = None,
+           budget: int = SMEM_BUDGET,
+           tile: Tuple[int, ...] = ()) -> Optional[ScheduleChoice]:
+    model = model if model is not None else DEFAULT_COST_MODEL
+    terms = cost_terms(scene, schedule, bm, bn, bk, model, budget, tile)
+    if terms is None:
+        return None
+    # class decided on the raw terms, as calibration buckets them
+    corr = model.correction_for(schedule, terms.bound,
+                                ai_band(scene.arithmetic_intensity))
+    compute_s = terms.compute_s / max(corr.compute_scale, 1e-30)
+    hbm_s = terms.hbm_s / max(corr.bw_scale, 1e-30)
+    per_step = (corr.overhead_s if corr.overhead_s is not None
+                else model.step_overhead_s)
+    total = max(compute_s, hbm_s) + (terms.steps * per_step + terms.fixed_s)
     return ScheduleChoice(schedule, bm, bn, bk, total, compute_s, hbm_s,
-                          smem, tile=tuple(tile))
+                          terms.smem, tile=tuple(tile))
 
 
 def candidate_blocks(scene: ConvScene, schedule: str

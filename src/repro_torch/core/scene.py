@@ -245,6 +245,9 @@ _DTYPE_ALIASES = {
     "float16": "float16", "f2": "float16", "half": "float16",
     "bfloat16": "bfloat16",
 }
+# numpy's byte-order spellings of the same (little-endian or native)
+_DTYPE_ALIASES.update({f"{o}f{n}": _DTYPE_ALIASES[f"f{n}"]
+                       for o in "<=" for n in (2, 4, 8)})
 _ITEMSIZE = {"float32": 4, "float64": 8, "float16": 2, "bfloat16": 2}
 
 

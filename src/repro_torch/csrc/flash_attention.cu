@@ -60,8 +60,12 @@
 // every operand from shared memory.  Q and K tiles use a row stride of D+1
 // and the P tile 65, which keeps a warp's shared reads on distinct banks.
 //
-// D is a template parameter (16, 32, 64, 112: the reference's tests and
-// zamba2-7b); the C entry point refuses any other.
+// D is a template parameter (16, 32, 64, 112, 128: the reference's tests,
+// zamba2-7b and the dense configs' d_head); the C entry point refuses any
+// other.  At D = 128 the f32 kernel's thread owns 4 rows x 16 output
+// columns and takes 113 KB of shared memory (the launch opts in above
+// 48 KB); the bf16 kernel's P V is wgmma m64n128k16 (64 accumulator
+// registers per thread), its K and V rows two whole swizzle atoms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -257,6 +261,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
     case 64: return launch<T, 64>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
     case 112: return launch<T, 112>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -287,7 +292,7 @@ struct Cfg {
   static constexpr int NT = D / 8;       // n8 tiles of the output
   static constexpr int ATOM = BK * 64;   // elements of one swizzle atom
   static constexpr int TILE = (D + 63) / 64 * ATOM;  // one K or V tile
-  // Q's rows (BQ * LD * 2 bytes: 3, 5, 9 or 15 KB) keep the tiles on
+  // Q's rows (BQ * LD * 2 bytes: 3, 5, 9, 15 or 17 KB) keep the tiles on
   // 1024-byte boundaries; 1024 more bytes align the base
   static constexpr size_t SMEM =
       sizeof(bf16) * ((size_t)BQ * LD + 4 * TILE) + 1024;
@@ -430,6 +435,38 @@ __device__ __forceinline__ void wgmma(float (&d)[14][4],
         "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
         "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TB),
+        "r"(1));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma(float (&d)[16][4],
+                                      const uint32_t (&a)[4],
+                                      uint64_t desc, int_<128>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, %69;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TB),
         "r"(1));
 }
@@ -668,6 +705,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
     case 32: return launch<32>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
     case 64: return launch<64>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
     case 112: return launch<112>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return launch<128>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }

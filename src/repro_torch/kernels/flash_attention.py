@@ -45,7 +45,7 @@ import torch
 from repro_torch.kernels import cuda_build
 
 SOURCE = "flash_attention.cu"
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 112)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128)
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

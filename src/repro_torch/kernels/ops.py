@@ -18,7 +18,7 @@ from typing import Union
 
 import torch
 
-from repro_torch.core.mapping import ScheduleChoice, smem_budget
+from repro_torch.core.mapping import ScheduleChoice
 from repro_torch.core.scene import ConvScene
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.kernels.causal_conv1d import causal_conv1d
@@ -32,16 +32,19 @@ def resolve_choice(scene: ConvScene, schedule: ScheduleSpec,
     """Schedule-spec resolution shared by every conv entry point, against
     the shared-memory budget of ``device`` (default the card):
 
-      None          multi-grained selection under the analytic cost model;
+      None          multi-grained selection under the active cost model
+                    (calibrated when an artifact exists);
+      "auto"        tuned-cache resolution for the device's backend, the
+                    active model on a miss — never measures (see
+                    ``repro_torch.tune``);
       "TB11"/...    forced schedule, model-chosen blocks; raises if the
                     forced grain cannot fit shared memory;
-      ScheduleChoice  used exactly as given;
-      "auto"        raises until ``tune/`` is ported.
+      ScheduleChoice  used exactly as given.
 
     Delegates to ``plan.build.resolve_policy`` — the resolution a
     ``ConvPlan`` runs once at build time."""
     return plan_build.resolve_policy(scene, schedule,
-                                     smem_budget(resolve_device(device)))
+                                     device=resolve_device(device))
 
 
 def mg3m_conv_op(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
@@ -52,7 +55,7 @@ def mg3m_conv_op(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
     ``inp`` ``[inH, inW, IC, B]``, ``flt`` ``[fltH, fltW, IC, OC]`` on
     ``device`` (default the card); returns ``[outH, outW, OC, B]``.
     ``schedule`` forces "TB11"/"TB18"/"TB88" or pins a ``ScheduleChoice``;
-    None selects analytically.  ``use_kernels=False`` runs the torch
+    None selects analytically; "auto" resolves from the tune cache.  ``use_kernels=False`` runs the torch
     reference.  Resolution runs on every call (the reference's contract)."""
     if tuple(inp.shape) != scene.in_shape():
         raise ValueError(

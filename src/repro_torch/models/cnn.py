@@ -18,11 +18,11 @@ seed (the tests carry the reference's with ``convert.cnn_params_from_numpy``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.scene import ConvScene, ceil_div, dtype_name
+from repro_torch.core.scene import ConvScene, dtype_name
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models.layers import trunc_normal
 
@@ -89,28 +89,6 @@ def cnn_scenes(batch: int = 128) -> Dict[str, List[ConvScene]]:
     }
 
 
-def proxy_scene(scene: ConvScene, *, measure_batch: Optional[int] = None,
-                measure_max_ch: Optional[int] = None,
-                measure_max_hw: Optional[int] = None) -> ConvScene:
-    """Channel/batch/spatial-capped stand-in for a scene — a local copy of
-    ``repro.tune.measure.proxy_scene`` (the tune slice is not ported).  The
-    cap keeps the filter window valid and never grows a dim."""
-    d = dict(scene.__dict__)
-    if measure_batch:
-        d["B"] = min(scene.B, measure_batch)
-    if measure_max_ch:
-        d["IC"] = min(scene.IC, measure_max_ch)
-        d["OC"] = min(scene.OC, measure_max_ch)
-    if measure_max_hw:
-        need_h = scene.dilated_fltH - 2 * scene.padH - scene.apadH
-        need_w = scene.dilated_fltW - 2 * scene.padW - scene.apadW
-        min_h = 1 + max(ceil_div(need_h - 1, scene.dilH), 0)
-        min_w = 1 + max(ceil_div(need_w - 1, scene.dilW), 0)
-        d["inH"] = min(scene.inH, max(measure_max_hw, min_h))
-        d["inW"] = min(scene.inW, max(measure_max_hw, min_w))
-    return ConvScene(**d)
-
-
 def cnn_layer_scenes(nets=None, batch: int = 1, *,
                      max_hw: int = 0, max_ch: int = 0,
                      layers_per_net: int = 0) -> Dict[str, ConvScene]:
@@ -128,6 +106,10 @@ def cnn_layer_scenes(nets=None, batch: int = 1, *,
             layers = layers[:layers_per_net]
         for i, sc in enumerate(layers):
             if max_hw or max_ch:
+                # the tune proxy shrinks a scene keeping its filter window
+                # valid; imported lazily, as in the reference, so the
+                # uncapped path never touches the tune package
+                from repro_torch.tune.measure import proxy_scene
                 sc = proxy_scene(sc, measure_max_ch=max_ch or None,
                                  measure_max_hw=max_hw or None)
             out[f"{net}/L{i}"] = sc

@@ -15,7 +15,7 @@ reference's entry points are methods of ``HybridLM``:
 
 and ``init_params`` builds a seeded model (a ``torch.Generator`` on the
 target device).  The other families (dense, moe, ssm, vlm, audio) raise
-``NotImplementedError``: they are ROADMAP §1 item 1.
+``NotImplementedError``: they are ROADMAP §1 items 2 and 3.
 
 The serving cache has the reference's layout, batch at the same axis of
 every leaf:
@@ -59,7 +59,7 @@ def require_hybrid(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
             f"serves the hybrid family (zamba2). The other LM families are "
-            f"ROADMAP §1 item 1.")
+            f"ROADMAP §1 items 2 and 3.")
 
 
 def layer_counts(cfg: ArchConfig) -> Tuple[int, int]:

@@ -30,9 +30,10 @@ Backward ops as scenes (as in the reference):
   that dgrad records ``uses_reference=True`` and runs the exact autograd
   adjoint of the PyTorch oracle.
 
-``policy="tuned"`` needs the tune cache and autotuner, which this package
-does not have yet: it raises ``ValueError`` naming that slice.  Selection
-uses the analytic cost model until calibration is ported.
+``policy="tuned"`` (alias ``"auto"``) resolves through the tune cache
+(``tune.autotune.resolve_schedule``, keyed by the plan's device) and never
+measures; a cache miss, like ``"analytic"``, selects under the active cost
+model — calibrated when a ``tune/calibrate.py`` artifact exists.
 """
 from __future__ import annotations
 
@@ -67,10 +68,12 @@ class ConvOp(enum.Enum):
 # --------------------------------------------------------------------------
 # policy resolution (once per plan)
 # --------------------------------------------------------------------------
-def _active_cost_model():
-    """The cost model selection runs under: the analytic default (None)
-    until ``tune/calibrate.py`` is ported."""
-    return None
+def _active_cost_model(device: DeviceSpec = None):
+    """The cost model selection on ``device`` runs under: the installed
+    model, else the calibrated model when an artifact of the device's
+    backend exists, else the analytic default."""
+    from repro_torch.tune.calibrate import active_cost_model  # avoids a cycle
+    return active_cost_model(device)
 
 
 def policy_tag(policy: PolicySpec) -> str:
@@ -88,32 +91,36 @@ def policy_tag(policy: PolicySpec) -> str:
 
 
 def resolve_policy(scene: ConvScene, policy: PolicySpec,
-                   budget: Optional[int] = None) -> ScheduleChoice:
-    """One-time schedule resolution for a plan.
+                   device: DeviceSpec = None) -> ScheduleChoice:
+    """One-time schedule resolution for a plan on ``device`` (default the
+    card), within the device's shared memory per block.
 
-      None / "analytic"     multi-grained selection under the cost model;
+      None / "analytic"     multi-grained selection under the device's
+                            active cost model (calibrated when an artifact
+                            of its backend exists);
+      "auto" / "tuned"      the tune cache for the device's backend first,
+                            selection under the active model on a miss —
+                            never measures (see ``repro_torch.tune``);
       "TB11"/"TB18"/"TB88"  forced schedule, model-chosen blocks; raises if
                             the forced grain cannot fit shared memory;
-      ScheduleChoice        used exactly as given;
-      "auto" / "tuned"      raises: the tune slice is not ported yet.
+      ScheduleChoice        used exactly as given.
     """
     if isinstance(policy, ScheduleChoice):
         return policy
-    if policy in ("auto", "tuned"):
-        raise ValueError(
-            "policy 'tuned' needs repro_torch.tune.autotune (tune cache, "
-            "measurement, calibration), a slice not ported yet; use "
-            "'analytic' or a forced grain")
-    budget = smem_budget() if budget is None else budget
+    budget = smem_budget(device)
     m = default_metrics()
     m.counter("repro.plan.resolutions").inc()
     t0 = time.perf_counter()
     try:
+        if policy in ("auto", "tuned"):
+            from repro_torch.tune.autotune import resolve_schedule
+            return resolve_schedule(scene, device=device)
         if policy in (None, "analytic"):
-            return select_schedule(scene, model=_active_cost_model(),
+            return select_schedule(scene, model=_active_cost_model(device),
                                    budget=budget)
         return select_schedule(scene, allowed=(policy,),
-                               model=_active_cost_model(), budget=budget)
+                               model=_active_cost_model(device),
+                               budget=budget)
     finally:
         m.histogram("repro.plan.resolve_s").observe(time.perf_counter() - t0)
 
@@ -436,7 +443,8 @@ def make_plan(scene: ConvScene, op: Union[ConvOp, str] = ConvOp.FPROP, *,
     backward scene (DGRAD/WGRAD), precompute every padded/aligned shape.
 
     ``device`` picks the backend (default: the card; raises without one
-    unless ``device="cpu"``).  ``policy``: "analytic", a forced
+    unless ``device="cpu"``).  ``policy``: "analytic", "tuned" (alias
+    "auto": the tune cache of the device's backend), a forced
     "TB11"/"TB18"/"TB88", or an exact ``ScheduleChoice``; ``None`` aliases
     "analytic".  A forced policy on an op that cannot dispatch to the
     kernels raises ``ValueError`` naming that op."""
@@ -489,7 +497,7 @@ def _make_plan_inner(scene: ConvScene, op: ConvOp, policy: PolicySpec,
 
     choice = spec = None
     if not uses_reference:
-        choice = resolve_policy(exec_scene, policy, smem_budget(dev))
+        choice = resolve_policy(exec_scene, policy, device=dev)
         spec = derive_exec_spec(exec_scene, choice, out_hw)
     m = default_metrics()
     m.counter("repro.plan.builds").inc()

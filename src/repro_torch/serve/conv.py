@@ -80,8 +80,8 @@ from repro_torch.plan.build import PolicySpec, _active_cost_model
 # bucket ladder — batch buckets per scene family, chosen by the cost model
 # --------------------------------------------------------------------------
 def bucket_ladder(scene: ConvScene, max_batch: int, *, min_bucket: int = 1,
-                  slack: float = 1.15,
-                  model: Optional[CostModel] = None) -> Tuple[int, ...]:
+                  slack: float = 1.15, model: Optional[CostModel] = None,
+                  device: DeviceSpec = None) -> Tuple[int, ...]:
     """Batch buckets for one scene family: power-of-two rungs from
     ``min_bucket`` up, capped by ``max_batch`` (always the top rung), pruned
     bottom-up by the cost model.
@@ -98,15 +98,15 @@ def bucket_ladder(scene: ConvScene, max_batch: int, *, min_bucket: int = 1,
     sub-``slack`` ratios compound (seven 1.12x steps ≈ 2.2x) and collapse
     ladders whose cumulative padding cost is far from free.  Memory-bound
     families, whose time scales with B, keep the full ladder.
-    ``model=None`` uses the active (calibrated when an artifact exists)
-    cost model, like plan building does.
+    ``model=None`` uses ``device``'s active cost model (calibrated when an
+    artifact of its backend exists), like plan building does.
     """
     if max_batch < 1 or min_bucket < 1:
         raise ValueError("max_batch and min_bucket must be positive")
     if min_bucket > max_batch:
         raise ValueError(f"min_bucket {min_bucket} exceeds max_batch "
                          f"{max_batch}")
-    model = model if model is not None else _active_cost_model()
+    model = model if model is not None else _active_cost_model(device)
     rungs = []
     b = min_bucket
     while b < max_batch:
@@ -306,7 +306,8 @@ class ConvServer:
         base = scene.with_batch(1)
         ladder = bucket_ladder(base, self.max_batch,
                                min_bucket=self.min_bucket,
-                               slack=self.ladder_slack, model=self.cost_model)
+                               slack=self.ladder_slack, model=self.cost_model,
+                               device=self.device)
         fam = _Family(layer=layer, base=base, flt=flt, ops=ops, ladder=ladder)
         with self._lock:
             if layer in self._layers:
@@ -668,7 +669,7 @@ class ConvServer:
     def describe(self) -> str:
         """One line per family: ladder and per-rung predicted efficiency."""
         model = (self.cost_model if self.cost_model is not None
-                 else _active_cost_model())
+                 else _active_cost_model(self.device))
         lines = []
         with self._lock:
             families = sorted(self._layers.items())

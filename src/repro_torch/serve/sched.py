@@ -273,7 +273,8 @@ class ConvScheduler(ConvServer):
             families = list(self._layers.values())
         for fam in families:
             rungs = bucket_ladder(fam.base, self.max_batch,
-                                  min_bucket=self.min_bucket, slack=0.0)
+                                  min_bucket=self.min_bucket, slack=0.0,
+                                  device=self.device)
             built += self.registry.warm(
                 [fam.base], ops=fam.ops, buckets=rungs,
                 policy=self.policy, use_kernels=self.use_kernels)

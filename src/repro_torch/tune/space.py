@@ -1,5 +1,6 @@
-"""Search-space enumeration (port of ``repro.tune.space``, the part the
-selector needs: ``block_candidates`` and ``enumerate_space``).
+"""Search-space enumeration for the selector and the autotuner (port of
+``repro.tune.space``): ``block_candidates``, ``enumerate_space`` and the
+autotuner's pruning stage ``ranked_space``.
 
 The candidates are the tile shapes the port's CUDA kernels are compiled
 for, not the reference's 128/256/512 TPU ladders (those do not fit
@@ -24,11 +25,12 @@ MM_unit dims (M, N, K), which dilation never changes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.analysis.footprint import (KERNEL_BM, TB88_SHAPES, tiles,
                                             vmem_bytes)
-from repro_torch.core.mapping import SCHEDULES, SMEM_BUDGET
+from repro_torch.core import mapping
+from repro_torch.core.mapping import SCHEDULES, SMEM_BUDGET, ScheduleChoice
 from repro_torch.core.scene import ConvScene, round_up
 
 _TB88_BM = tuple(sorted({t[0] for t in TB88_SHAPES}))
@@ -88,3 +90,31 @@ def enumerate_space(scene: ConvScene,
                     points.append(CandidatePoint(schedule, bm, bn, bk,
                                                  tile))
     return tuple(points)
+
+
+def ranked_space(scene: ConvScene,
+                 schedules: Sequence[str] = SCHEDULES,
+                 top_k: Optional[int] = None,
+                 model: Optional[mapping.CostModel] = None,
+                 budget: int = SMEM_BUDGET) -> List[ScheduleChoice]:
+    """Feasible points scored by the cost model, best-predicted first (ties
+    in enumeration order, so the head is ``select_schedule``'s pick).
+
+    The autotuner's pruning stage: the model (or a calibrated ``model``)
+    orders the space, measurement decides among the ``top_k`` survivors.
+    Where no point fits ``budget`` it raises ``ValueError``, as
+    ``select_schedule`` does: a restricted space never substitutes another
+    grain, and the port's kernels have no smaller tiles to fall back to.
+    """
+    scored = []
+    for pt in enumerate_space(scene, schedules, budget):
+        choice = mapping._score(scene, pt.schedule, pt.bm, pt.bn, pt.bk,
+                                model, budget, pt.tile)
+        if choice is not None:
+            scored.append(choice)
+    if not scored:
+        raise ValueError(
+            f"schedule(s) {tuple(schedules)} have no feasible blocking "
+            f"within {budget} B of shared memory for {scene.describe()}")
+    scored.sort(key=lambda c: c.predicted_s)
+    return scored[:top_k] if top_k else scored

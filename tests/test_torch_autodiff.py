@@ -197,13 +197,30 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="TrainingPlans"):
         ad.apply_conv(torch.zeros(4, 4, 3, 2), torch.zeros(3, 3, 3, 4),
                       {"not": "plans"})
-    with pytest.raises(ValueError, match="tune"):
-        ad.make_training_plans(sc, policy="tuned", device="cpu")
     with pytest.raises(ValueError, match="registry serves"):
         ad.make_model_plans({"a": sc}, registry=PlanRegistry(device="cpu"),
                             device="cuda")
     assert ad.backward_policy("TB11") == "analytic"
     assert ad.backward_policy("auto") == "tuned"
+
+
+def test_tuned_training_plans_resolve_on_a_cache_miss(tmp_path, monkeypatch):
+    """On an empty tune cache every direction of a "tuned" triple resolves
+    under the (uncalibrated) active model: the analytic choices."""
+    from repro_torch import tune
+    sc = ConvScene(**_kw(2, 3, 4, 8, 3, 1, 1))
+    monkeypatch.setenv(tune.cache.ENV_VAR, str(tmp_path / "cache.json"))
+    monkeypatch.setenv(tune.calibrate.ENV_VAR, str(tmp_path / "cal.json"))
+    tune.set_default_cache(None)
+    try:
+        tuned = ad.make_training_plans(sc, policy="tuned", device="cpu")
+        analytic = ad.make_training_plans(sc, device="cpu")
+        for t, a in zip((tuned.fprop, tuned.dgrad, tuned.wgrad),
+                        (analytic.fprop, analytic.dgrad, analytic.wgrad)):
+            assert t.policy == "tuned" and t.choice == a.choice
+        assert tune.default_cache().misses == 3
+    finally:
+        tune.set_default_cache(None)
 
 
 def test_entry_points_default_to_the_card():

@@ -106,3 +106,24 @@ def test_training_modules_are_covered(name):
     assert PORT / rel in FILES
     assert (ROOT / "src" / "repro" / rel).is_file()
     assert importlib.import_module(f"repro_torch.{name}")
+
+
+# the tune slice's modules: each a port of the reference file of the same
+# path under src/repro, and its two launchers ports of scripts/
+TUNE_MODULES = {"tune.measure": "src/repro/tune/measure.py",
+                "tune.space": "src/repro/tune/space.py",
+                "tune.cache": "src/repro/tune/cache.py",
+                "tune.autotune": "src/repro/tune/autotune.py",
+                "tune.calibrate": "src/repro/tune/calibrate.py",
+                "launch.tune": "scripts/tune.py",
+                "launch.calibrate": "scripts/calibrate.py"}
+
+
+@pytest.mark.parametrize("name", sorted(TUNE_MODULES))
+def test_tune_modules_are_covered(name):
+    """Each module is one of the files the guards above walk, mirrors its
+    reference file, and imports here without a GPU toolchain."""
+    rel = Path(*name.split(".")).with_suffix(".py")
+    assert PORT / rel in FILES
+    assert (ROOT / TUNE_MODULES[name]).is_file()
+    assert importlib.import_module(f"repro_torch.{name}")

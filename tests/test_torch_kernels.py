@@ -193,10 +193,22 @@ def test_forced_infeasible_grain_raises():
     assert make_plan(last, policy="TB18", device="cpu").schedule == "TB18"
 
 
-def test_tuned_policy_names_the_missing_slice():
+def test_tuned_policy_names_the_missing_slice(tmp_path, monkeypatch):
+    """"tuned" resolves through the tune cache (a miss here: the analytic
+    choice).  Before ``repro_torch.tune`` existed this test held the raise
+    that named the missing slice; it keeps its name."""
+    from repro_torch import tune
     sc = ConvScene(**_kw(1, 4, 4, 6, 3, 1, 1))
-    with pytest.raises(ValueError, match="tune.autotune"):
-        make_plan(sc, policy="tuned", device="cpu")
+    monkeypatch.setenv(tune.cache.ENV_VAR, str(tmp_path / "cache.json"))
+    monkeypatch.setenv(tune.calibrate.ENV_VAR, str(tmp_path / "cal.json"))
+    tune.set_default_cache(None)
+    try:
+        plan = make_plan(sc, policy="tuned", device="cpu")
+        assert plan.policy == "tuned"
+        assert plan.choice == make_plan(sc, device="cpu").choice
+        assert tune.default_cache().misses == 1
+    finally:
+        tune.set_default_cache(None)
 
 
 def test_search_space_is_kernel_tiles():

@@ -186,7 +186,7 @@ def test_flash_fwd_checks_shapes():
     assert 112 in SUPPORTED_HEAD_DIMS
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 112])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
 def test_flash_plain_gqa_matches_naive(d):
     """Every head dim the kernel is built for, GQA 2:1, causal."""
     q = _np((2, 40, 4, d), d)
