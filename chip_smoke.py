@@ -94,7 +94,9 @@ Phases, each of which raises (non-zero exit) on failure:
   8. LM kernels  causal_conv1d on tests/test_kernels.py's shapes and flash
                attention on tests/test_flash_kernel.py's (causal and not,
                plus D = 112, and all of them again at D = 128), both also
-               at the LM path's shapes, f32 and bf16, each held against its
+               at the LM path's shapes, and flash at the dense path's
+               (q (32, 2048, 128), k/v (4, 2048, 128), causal), f32 and
+               bf16, each held against its
                plain version: f32 within 1e-4 (conv) / 2e-4 (attention),
                bf16 within 2e-2.
   9. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
@@ -110,15 +112,37 @@ Phases, each of which raises (non-zero exit) on failure:
                reduced config's prefill on the card must match the CPU's;
                one decode step and one prefill under ``torch.profiler``
                (device busy time, idle share, time by kernel class).
- 10. LM timing  per kernel at the LM path's shapes: the kernel, its plain
+ 10. attention LM path  the attention-block families on the card.
+               Full-width qwen2.5-3b (36 layers, d_model 2048, 16x128
+               heads over 2 kv heads, vocab 151936, tied head, QKV bias,
+               bf16, seeded weights): the cross-form oracle; then, with
+               the launch counts set to 0, a 2 x 2048 prefill and a
+               2-slot ``ServeEngine`` on 4 greedy requests of phase 9's
+               lengths (17, 64, 255 and 600 tokens: 512 of the 600
+               prefilled, the rest decoded; 16 new each, one joining);
+               flash must have launched; the isolation check;
+               the decode step at 2 slots (median of 11, CUDA events), the
+               f32 head's device time in it, and the two profiles.
+               grok-1-314b at full width with its depth cut to 2 layers
+               (the 64 are 633 GB): the oracle drop-free (capacity factor
+               E/k), a 1 x 2048 prefill at the config's 1.25 with its
+               drop fraction per layer printed (not gated), and a 2-slot
+               ``ServeEngine`` on 2 requests with the isolation check.
+               musicgen-large at full width (embeddings in, LayerNorm,
+               GELU, sinusoidal positions, 32x64 heads): the oracle on
+               seeded embeddings.  Reduced qwen3-14b and arctic-480b
+               (f32): the card's prefill logits within 1e-3 of the CPU's.
+ 11. LM timing  per kernel at the LM path's shapes: the kernel, its plain
                version and one PyTorch call computing the same function
                (``F.conv1d``, ``F.scaled_dot_product_attention``; never
-               called by the port), beside the kernel's bound; and the
-               flash kernels' D = 128 instance at q (64, 2048, 128) bf16
+               called by the port), beside the kernel's bound; the flash
+               kernels' D = 128 instance at q (64, 2048, 128) bf16
                causal, reported as the ``d128`` entry of the
-               ``flash_attention_fwd`` row (zamba2-7b's head dim is 112:
-               that instance is not on the LM path).
- 11. train profile  one more train step of phase 6 under
+               ``flash_attention_fwd`` row; and the row
+               ``flash_attention_fwd_dense_path`` at qwen2.5-3b's prefill
+               shape, q (32, 2048, 128), k/v (4, 2048, 128), its launches
+               those of phase 10's main path.
+ 12. train profile  one more train step of phase 6 under
                ``torch.profiler`` (device busy time and idle share), last
                so that no timed phase runs after a profiler session.
 
@@ -128,7 +152,8 @@ calls replayed from a CUDA graph, the host's time per call left out);
 checking call on the ``_train_path`` rows), the host's time included.
 
 The last three lines of output are the ``kernels`` JSON line (all five
-kernels; each conv grain has a second row, ``<name>_main_path``, and each
+kernels, flash twice; each conv grain has a second row,
+``<name>_main_path``, and each
 grain the train step launches a row ``<name>_train_path`` at its longest
 plan of the step), the card's name and power limit, and ``{"ok": true,
 ...}``.
@@ -1305,6 +1330,9 @@ FLASH_SHAPES = [(2, 64, 64, 4, 4, 32), (2, 64, 64, 8, 2, 32),
                 (1, 128, 128, 4, 1, 64), (2, 96, 96, 2, 2, 16),
                 (2, 255, 255, 8, 4, 112)]
 FLASH_SHAPES += [shape[:5] + (128,) for shape in FLASH_SHAPES]
+# the dense path's prefill (qwen2.5-3b, 2 x 2048 tokens): q (2*16, 2048,
+# 128), k/v (2*2, 2048, 128), 8 query heads per kv head, causal
+DENSE_FLASH = (2, 2048, 2048, 16, 2, 128)
 # the D = 128 timing: q (B*H = 64, 2048, 128), 4 query heads per kv head
 FLASH128_B, FLASH128_H, FLASH128_HKV = 2, 32, 8
 PREFILL_B, PREFILL_S = 2, 2048
@@ -1357,7 +1385,7 @@ def lm_kernel_phase(torch):
         get_config(LM_ARCH))
     conv_shapes = CONV1D_SHAPES + [(b0, l0, c0, k0)]
     flash_shapes = FLASH_SHAPES + [(PREFILL_B, s0, s0, bh // PREFILL_B,
-                                    bhkv // PREFILL_B, d0)]
+                                    bhkv // PREFILL_B, d0), DENSE_FLASH]
     gen = torch.Generator().manual_seed(5)
     errs, checks = {}, 0
     t0 = time.perf_counter()
@@ -1385,6 +1413,9 @@ def lm_kernel_phase(torch):
                 if d == 128:
                     _hold(torch, "flash_attention_fwd", dtype, got, want,
                           errs, what, key="flash_d128")
+                if (b, s, t, hq, hkv, d) == DENSE_FLASH and causal:
+                    _hold(torch, "flash_attention_fwd", dtype, got, want,
+                          errs, what, key="flash_dense")
                 checks += 1
     torch.cuda.synchronize()
     print(f"LM kernels: {checks} launches held against their plain "
@@ -1492,6 +1523,55 @@ def lm_profile(torch, fn, label: str):
             "idle": 1 - busy_ms / wall_ms}
 
 
+def cross_form_oracle(torch, model, inp, label: str, **kw):
+    """The reference's cross-form oracle (tests/test_models.py:47-72):
+    ``prefill`` of all but the last position of ``inp`` (``{"tokens"}`` or
+    ``{"embeds"}``, batch first) and one ``decode_step`` must give
+    ``forward``'s logits at the last position, within ``ORACLE_TOL`` of
+    max |logit|.  ``kw`` goes to ``forward`` and ``prefill``."""
+    F = torch.nn.functional
+    (name, x), = inp.items()
+    b, s = x.shape[:2]
+    full, _ = model(**inp, **kw)
+    _, cache = model.prefill(**{name: x[:, :-1]}, **kw)
+    cache["kv"] = {k: F.pad(v, (0, 0, 0, 0, 0, 1))
+                   for k, v in cache["kv"].items()}
+    dec, _ = model.decode_step(cache, torch.full((b,), s - 1, device="cuda"),
+                               **{name: x[:, -1:]})
+    want, got = full[:, -1], dec[:, 0]
+    if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite logits in the oracle")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f"  {label}: oracle prefill({s - 1}) + decode_step vs forward("
+          f"{s}): max |diff| / max |logit| = {rel:.3e} (tol {ORACLE_TOL}), "
+          f"max |logit| {want.abs().max().item():.3f}, argmax agrees "
+          f"{agree}")
+    if rel > ORACLE_TOL:
+        raise AssertionError(f"{label}: decode does not match forward: {rel}")
+    return rel
+
+
+def card_vs_cpu(torch, small, gen) -> float:
+    """A reduced (f32) config seeded on the CPU and copied to the card:
+    the card's ``prefill`` logits of 2 x 32 tokens must lie within 1e-3 of
+    the CPU's.  Returns the max abs error."""
+    import copy
+
+    from repro_torch.models.transformer import init_params
+
+    cpu_model = init_params(small, seed=1, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    stoks = torch.randint(0, small.vocab, (2, 32), generator=gen)
+    lc, _ = cpu_model.prefill(tokens=stoks)
+    lg, _ = card_model.prefill(tokens=stoks.cuda())
+    err = (lg.cpu() - lc).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"reduced {small.name}: card prefill logits "
+                             f"differ from the CPU's by {err}")
+    return err
+
+
 def lm_path(torch, np):
     """Full-width zamba2-7b on the card: the cross-form oracle, then the
     main path (prefill 2 x 2048, ServeEngine) with launch counts read
@@ -1499,12 +1579,9 @@ def lm_path(torch, np):
     reduced config.  Returns the main path's launch counts and its times
     (prefill s, decode step ms, request latency p50/max ms, the two
     profiles)."""
-    import copy
-
     from repro_torch.configs.registry import get_config, reduced
     from repro_torch.models.transformer import init_params
 
-    F = torch.nn.functional
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0)                 # device None: the card
@@ -1525,26 +1602,8 @@ def lm_path(torch, np):
 
     with torch.no_grad():
         # the reference's cross-form oracle (tests/test_models.py:47-72)
-        toks = tokens(2, ORACLE_S)
-        full, _ = model(tokens=toks)
-        _, cache = model.prefill(tokens=toks[:, :-1])
-        cache["kv"] = {k: F.pad(v, (0, 0, 0, 0, 0, 1))
-                       for k, v in cache["kv"].items()}
-        dec, _ = model.decode_step(
-            cache, torch.full((2,), ORACLE_S - 1, device="cuda"),
-            tokens=toks[:, -1:])
-        want, got = full[:, -1], dec[:, 0]
-        if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
-            raise AssertionError("non-finite logits in the oracle")
-        rel = ((got - want).abs().max() / want.abs().max()).item()
-        agree = (got.argmax(-1) == want.argmax(-1)).tolist()
-        print(f"  oracle prefill({ORACLE_S - 1}) + decode_step vs forward("
-              f"{ORACLE_S}): max |diff| / max |logit| = {rel:.3e} (tol "
-              f"{ORACLE_TOL}), max |logit| {want.abs().max().item():.3f}, "
-              f"argmax agrees {agree}")
-        if rel > ORACLE_TOL:
-            raise AssertionError(f"decode does not match forward: {rel}")
-        del full, cache, dec, want, got
+        cross_form_oracle(torch, model, {"tokens": tokens(2, ORACLE_S)},
+                          cfg.name)
 
         # the main path, launch counts read around it
         prompt_rng = np.random.default_rng(7)
@@ -1602,15 +1661,7 @@ def lm_path(torch, np):
 
         # the card against the CPU on the reduced config (f32)
         small = reduced(cfg)
-        cpu_model = init_params(small, seed=1, device="cpu")
-        card_model = copy.deepcopy(cpu_model).to("cuda")
-        stoks = torch.randint(0, small.vocab, (2, 32), generator=gen)
-        lc, cc = cpu_model.prefill(tokens=stoks)
-        lg, cg = card_model.prefill(tokens=stoks.cuda())
-        small_err = (lg.cpu() - lc).abs().max().item()
-        if small_err > 1e-3:
-            raise AssertionError(f"reduced {small.name}: card prefill logits "
-                                 f"differ from the CPU's by {small_err}")
+        small_err = card_vs_cpu(torch, small, gen)
 
     ms = np.asarray([lat[r.rid] for r in reqs]) * 1e3
     print(f"  prefill {PREFILL_B}x{PREFILL_S} tokens: {prefill_s:.3f} s, "
@@ -1633,9 +1684,281 @@ def lm_path(torch, np):
                     "prefill_profile": pre_prof}
 
 
-def lm_timing_phase(torch, counts, errs):
+# --------------------------------------------------------------------------
+# Attention-block LM path: qwen2.5-3b through ServeEngine, grok-1-314b
+# (MoE, depth cut), musicgen-large (embeddings in), reduced configs
+# --------------------------------------------------------------------------
+DENSE_ARCH = "qwen2.5-3b"
+MOE_ARCH = "grok-1-314b"
+# 2 of grok-1's 64 layers: 11.45 B parameters, 22.9 GB in bf16 (all 64
+# are 633 GB, over one 80 GB card)
+MOE_LAYERS = 2
+MOE_PROMPT_LENS = PROMPT_LENS[:2]
+AUDIO_ARCH = "musicgen-large"
+REDUCED_ARCHS = ("qwen3-14b", "arctic-480b")
+DECODE_ITERS = 11
+
+
+def median_ms(torch, fn, iters: int = DECODE_ITERS) -> float:
+    """Median milliseconds of ``fn()`` over ``iters`` calls, each between
+    two CUDA events (the host's time included), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _describe(cfg, model) -> str:
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    ffn = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} x "
+           f"{cfg.moe.d_ff_expert}" if cfg.moe else f"d_ff {cfg.d_ff}")
+    return (f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}x{cfg.d_head} heads over {cfg.n_kv_heads} kv, "
+            f"{ffn}, vocab {cfg.vocab}, {cfg.norm}/{cfg.mlp}/{cfg.pos}, "
+            f"{cfg.dtype}), {n_params / 1e9:.3f} B params, "
+            f"{n_bytes / 1e9:.2f} GB")
+
+
+def _check_served(reqs, vocab: int) -> None:
+    for r in reqs:
+        if not (r.done and len(r.out) == MAX_NEW
+                and all(0 <= t < vocab for t in r.out)):
+            raise AssertionError(f"request {r.rid} not served: {r}")
+
+
+def _isolation(torch, cfg, model, prompts, reqs) -> None:
+    """The joining request's neighbour, served alone, gives its tokens."""
+    solo, _, _ = _serve(torch, cfg, model, prompts[:1], join=False)
+    if solo[0].out != reqs[0].out:
+        raise AssertionError(f"{cfg.name}: request 0 served alone gave "
+                             f"{solo[0].out}, beside a joining request "
+                             f"{reqs[0].out}")
+
+
+class _DropLog:
+    """Records ``drop_frac`` of every ``moe_ffn`` call while entered (the
+    transformer calls it through the module, one call per layer)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner, self.fracs = moe, moe.moe_ffn, []
+
+        def logged(*args, **kw):
+            y, stats = self.inner(*args, **kw)
+            self.fracs.append(stats["drop_frac"])
+            return y, stats
+        moe.moe_ffn = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.inner
+        self.fracs = [float(f) for f in self.fracs]
+
+
+def dense_lm(torch, np, gen) -> dict:
+    """Full-width qwen2.5-3b: the oracle, then with the launch counts set
+    to 0 a 2 x 2048 prefill and a 2-slot ServeEngine on 4 requests; the
+    isolation check, the decode step (median, CUDA events), the f32 head's
+    cost in it, and two profiles."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(DENSE_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"attention LM path: {_describe(cfg, model)}, seeded init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+
+    cross_form_oracle(torch, model, {"tokens": tokens(2, ORACLE_S)},
+                      cfg.name)
+    prompt_rng = np.random.default_rng(9)
+    prompts = [prompt_rng.integers(0, cfg.vocab, n).tolist()
+               for n in PROMPT_LENS]
+    ptoks = tokens(PREFILL_B, PREFILL_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens=ptoks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    reqs, lat, steps = _serve(torch, cfg, model, prompts, join=True)
+    counts = _lm_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite or misshapen")
+    kv_shape = tuple(cache["kv"]["k"].shape)
+    if kv_shape != (cfg.n_layers, PREFILL_B, PREFILL_S, cfg.n_kv_heads,
+                    cfg.d_head):
+        raise AssertionError(f"prefill KV cache {kv_shape}")
+    del logits, cache
+    _check_served(reqs, cfg.vocab)
+    if counts["flash_attention_fwd"] == 0:
+        raise AssertionError(f"flash_attention_fwd never launched on the "
+                             f"{cfg.name} path: {counts}")
+    _isolation(torch, cfg, model, prompts, reqs)
+
+    cache = model.init_cache(2, MAX_LEN)
+    pos = torch.full((2,), PROMPT_LENS[-1], device="cuda")
+    tok = tokens(2, 1)
+    dec_ms = median_ms(torch, lambda: model.decode_step(cache, pos,
+                                                        tokens=tok))
+    dec_prof = lm_profile(
+        torch, lambda: model.decode_step(cache, pos, tokens=tok),
+        f"{cfg.name} decode step, 2 slots")
+    del cache
+    # the f32 head (unembed) at the decode step's shape: its bf16 -> f32
+    # copy of the tied embedding, and the whole head
+    x = torch.randn((2, 1, cfg.d_model), generator=gen).to("cuda", model.dtype)
+    copy_ms = device_ms(torch, lambda: model.embed.T.float(), iters=5)
+    head_ms = device_ms(torch, lambda: model.unembed(x), iters=5)
+    pre_prof = lm_profile(torch, lambda: model.prefill(tokens=ptoks),
+                          f"{cfg.name} prefill {PREFILL_B}x{PREFILL_S}")
+    ms = np.asarray([lat[r.rid] for r in reqs]) * 1e3
+    busy = dec_prof["busy_ms"] if dec_prof else None
+    print(f"  {cfg.name} prefill {PREFILL_B}x{PREFILL_S} tokens: "
+          f"{prefill_s:.3f} s, {PREFILL_B * PREFILL_S / prefill_s:.0f} "
+          f"tokens/s")
+    print(f"  {cfg.name} ServeEngine: {len(reqs)} requests (prompts "
+          f"{PROMPT_LENS}, {MAX_NEW} new each) in {steps} steps; request "
+          f"latency p50 {np.percentile(ms, 50):.1f} ms, max {ms.max():.1f} "
+          f"ms; decode step at 2 slots {dec_ms:.2f} ms (median of "
+          f"{DECODE_ITERS})")
+    print(f"  {cfg.name} f32 head at decode: the bf16 -> f32 copy of the "
+          f"{cfg.vocab} x {cfg.d_model} tied embedding {copy_ms:.4f} ms, the "
+          f"whole head {head_ms:.4f} ms (device time) of "
+          f"{'not measured' if busy is None else f'{busy:.2f}'} ms device "
+          f"busy per decode step")
+    print(f"  {cfg.name} isolation: request 0 gives {reqs[0].out[:6]}... "
+          f"alone and beside a joining request; peak memory {peak_gb:.1f} "
+          f"GB; launches on the path: {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "prefill_s": prefill_s, "decode_ms": dec_ms,
+            "head_copy_ms": copy_ms, "head_ms": head_ms,
+            "decode_profile": dec_prof, "prefill_profile": pre_prof}
+
+
+def moe_lm(torch, np, gen) -> None:
+    """grok-1-314b at full width, its depth cut to ``MOE_LAYERS``: the
+    oracle drop-free, a 1 x 2048 prefill at the config's capacity factor
+    (drop fraction per layer, not gated), and a 2-slot ServeEngine on 2
+    requests with the isolation check (which holds only if the engine
+    prefills drop-free)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.moe import drop_free_factor
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"attention LM path: {_describe(cfg, model)} (depth cut from "
+          f"{get_config(MOE_ARCH).n_layers}), seeded init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+
+    free = drop_free_factor(cfg.moe)
+    cross_form_oracle(torch, model, {"tokens": tokens(2, ORACLE_S)},
+                      f"{cfg.name} (capacity factor {free})",
+                      capacity_factor=free)
+    with _DropLog() as log:
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(tokens=tokens(1, PREFILL_S))
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    del logits
+    prompt_rng = np.random.default_rng(10)
+    prompts = [prompt_rng.integers(0, cfg.vocab, n).tolist()
+               for n in MOE_PROMPT_LENS]
+    reqs, _, steps = _serve(torch, cfg, model, prompts, join=True)
+    _check_served(reqs, cfg.vocab)
+    _isolation(torch, cfg, model, prompts, reqs)
+    print(f"  {cfg.name} prefill 1x{PREFILL_S} at capacity factor "
+          f"{cfg.moe.capacity_factor}: {pre_s:.3f} s, drop_frac per layer "
+          f"{[round(f, 4) for f in log.fracs]} (informational)")
+    print(f"  {cfg.name} ServeEngine: {len(reqs)} requests (prompts "
+          f"{MOE_PROMPT_LENS}, {MAX_NEW} new each, one joining) in {steps} "
+          f"steps; request 0 gives {reqs[0].out[:6]}... alone and beside "
+          f"the joining request")
+    del model
+    torch.cuda.empty_cache()
+
+
+def audio_lm(torch, gen) -> int:
+    """musicgen-large at full width on seeded embeddings: the cross-form
+    oracle (flash's bf16 D = 64 instance on a model path).  Returns the
+    flash launches it made."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(AUDIO_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"attention LM path: {_describe(cfg, model)}, seeded init "
+          f"{time.perf_counter() - t0:.1f} s")
+    emb = torch.randn((2, ORACLE_S, cfg.d_model), generator=gen)
+    _reset_lm_counts()
+    cross_form_oracle(torch, model, {"embeds": emb.to("cuda", model.dtype)},
+                      cfg.name)
+    launches = _lm_counts()["flash_attention_fwd"]
+    if launches == 0:
+        raise AssertionError(f"{cfg.name}: flash never launched")
+    print(f"  {cfg.name}: flash_attention_fwd launched {launches} times at "
+          f"D = {cfg.d_head}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def attn_lm_path(torch, np) -> dict:
+    """The attention-block families on the card: qwen2.5-3b served
+    (the main path, launch counts read around it), grok-1-314b cut to 2
+    layers, musicgen-large, and the reduced qwen3-14b and arctic-480b on
+    the card against the CPU.  Returns qwen2.5-3b's counts and times."""
+    from repro_torch.configs.registry import get_config, reduced
+
+    gen = torch.Generator().manual_seed(11)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dense = dense_lm(torch, np, gen)
+        moe_lm(torch, np, gen)
+        audio_lm(torch, gen)
+        errs = {arch: card_vs_cpu(torch, reduced(get_config(arch)), gen)
+                for arch in REDUCED_ARCHS}
+    print(f"  reduced configs, card vs CPU prefill logits max abs err "
+          f"{ {a: f'{e:.3e}' for a, e in errs.items()} } (tol 1e-3)")
+    print(f"attention LM path: {time.perf_counter() - t0:.1f} s")
+    return dense
+
+
+def lm_timing_phase(torch, counts, errs, dense_counts):
     """Per kernel at the LM path's prefill shapes (bf16): kernel, plain
-    version and one PyTorch call computing the same function."""
+    version and one PyTorch call computing the same function; and flash at
+    the dense path's shape (``flash_attention_fwd_dense_path``, launches
+    from ``dense_counts``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.causal_conv1d import (causal_conv1d,
                                                    causal_conv1d_plain)
@@ -1650,8 +1973,10 @@ def lm_timing_phase(torch, counts, errs):
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to("cuda", bf)
 
-    def row(name, fn, plain, lib, lib_out, flops, nbytes, shape):
+    def row(name, fn, plain, lib, lib_out, flops, nbytes, shape,
+            row_name=None, err_key=None, launches=None):
         source, replaces = LM_KERNELS[name]
+        err_key = err_key or name
         got = fn()
         _hold(torch, name, "bfloat16", got, plain(), errs, shape)
         lib_err = (lib_out(lib()).float() - got.float()).abs().max().item()
@@ -1661,13 +1986,14 @@ def lm_timing_phase(torch, counts, errs):
         nbytes += got.numel() * got.element_size()
         ops_ms = flops / PEAK_BF16_FLOPS * 1e3
         bytes_ms = nbytes / PEAK_HBM_BW * 1e3
-        print(f"  {name} at {shape}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, library {lib_ms:.4f} ms (max abs diff to the "
-              f"kernel {lib_err:.3e}), bound {max(ops_ms, bytes_ms):.4f} ms")
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name],
-                "max_abs_err": errs[(name, "float32")],
-                "max_abs_err_bf16": errs[(name, "bfloat16")],
+        print(f"  {row_name or name} at {shape}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms (max abs diff "
+              f"to the kernel {lib_err:.3e}), bound {max(ops_ms, bytes_ms):.4f} ms")
+        return {"name": row_name or name, "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": counts[name] if launches is None else launches,
+                "max_abs_err": errs[(err_key, "float32")],
+                "max_abs_err_bf16": errs[(err_key, "bfloat16")],
                 "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1698,7 +2024,37 @@ def lm_timing_phase(torch, counts, errs):
         f"q ({bh}, {s}, {d}) bf16 causal, {h} heads x {PREFILL_B}"))
     del q, kk, v, q4, k4, v4
     rows[-1]["d128"] = flash128_row(torch, row, rand, errs)
+    rows.append(flash_dense_row(torch, row, rand,
+                                dense_counts["flash_attention_fwd"]))
     return rows
+
+
+def flash_dense_row(torch, row, rand, launches: int):
+    """Flash at the dense path's prefill shape (bf16, ``DENSE_FLASH``:
+    q (32, 2048, 128), k/v (4, 2048, 128), causal): kernel, plain version
+    and ``scaled_dot_product_attention`` (K/V repeated to the query heads
+    outside the timed call), beside the bound; the
+    ``flash_attention_fwd_dense_path`` row, its launches those of
+    qwen2.5-3b's main path."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+
+    F = torch.nn.functional
+    b, s, _, h, hkv, d = DENSE_FLASH
+    q, kk, v = rand(b * h, s, d), rand(b * hkv, s, d), rand(b * hkv, s, d)
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, kk, v))
+    k4, v4 = (t.repeat_interleave(h // hkv, 1) for t in (k4, v4))
+    return row("flash_attention_fwd",
+               lambda: flash_attention_fwd(q, kk, v, causal=True),
+               lambda: flash_attention_plain(q, kk, v, causal=True),
+               lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True),
+               lambda o: o.reshape(b * h, s, d), 4 * b * h * s * s * d // 2,
+               (q.numel() + kk.numel() + v.numel()) * 2,
+               f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads x {b}, "
+               f"{hkv} kv heads ({DENSE_ARCH} prefill)",
+               row_name="flash_attention_fwd_dense_path",
+               err_key="flash_dense", launches=launches)
 
 
 def flash128_row(torch, row, rand, errs):
@@ -1807,7 +2163,8 @@ def smoke(torch, tmp: str) -> int:
 
     lm_errs = lm_kernel_phase(torch)
     lm_counts, _ = lm_path(torch, np)
-    rows += lm_timing_phase(torch, lm_counts, lm_errs)
+    dense = attn_lm_path(torch, np)
+    rows += lm_timing_phase(torch, lm_counts, lm_errs, dense["counts"])
     train_profile(torch, train_run)
 
     print(json.dumps({"kernels": rows}))

@@ -1,20 +1,29 @@
 """Batched LM serving engine: continuous batching over a fixed-capacity slot
 pool, prefill + decode steps, greedy/temperature sampling.
 
-Port of ``repro.serve.engine`` for the hybrid family (``HybridLM``).  Slot
-refill order, the last prompt token feeding the first decode step and the
-``max_len`` stop are the reference's.  Filling a slot differs, to keep the
-reference's own contract that a request joining mid-stream does not change
-another's output (``tests/test_serve.py:46``):
+Port of ``repro.serve.engine`` for every ported token model: the
+attention-block families (dense and moe, ``AttnLM``) and the hybrid
+(``HybridLM``).  vlm and audio configs embed no tokens and are rejected,
+as in the reference.  Slot refill order, the last prompt token feeding
+the first decode step and the ``max_len`` stop are the reference's.
+Filling a slot differs, to keep the reference's own contract that a
+request joining mid-stream does not change another's output
+(``tests/test_serve.py:46``):
 
   * the reference fills a slot by running full-batch decode steps over the
-    prompt, which also advances the Mamba conv and SSM state of every other
-    slot, and it never clears a refilled slot's state;
+    prompt; on the hybrid that also advances the Mamba conv and SSM state
+    of every other slot, and it never clears a refilled slot's state;
   * here the slot's state is zeroed, ``prompt[:-1]`` is prefilled through
-    ``HybridLM.prefill`` at batch 1 (the longest prefix prefill accepts,
-    ``transformer.prefill_len``) and written into that slot's rows, and any
-    remainder is decoded token by token over a view of that slot's rows
-    alone.
+    the model's ``prefill`` at batch 1 (the longest prefix prefill
+    accepts, ``transformer.prefill_len``) and written into that slot's
+    rows, and any remainder is decoded token by token over a view of that
+    slot's rows alone.
+
+The reference's decode-step fill never drops a MoE token (decode runs at
+capacity factor ``E / k``), but a prefill at the config's capacity factor
+(1.25 at full width) would.  So the engine prefills MoE models at
+``E / k`` too: a served request's tokens are ``forward``'s drop-free
+argmax chain, whatever else the batch holds.
 
 Every decode step runs all slots (idle ones too, at a clamped position),
 so the batch shape, and with it the arithmetic of each row, does not depend
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
 
@@ -61,12 +71,12 @@ class ServeEngine:
     raises), where ``model`` must already live.
     """
 
-    def __init__(self, cfg: ArchConfig, model: T.HybridLM, *, slots: int,
+    def __init__(self, cfg: ArchConfig, model: T.LM, *, slots: int,
                  max_len: int, seed: int = 0, device: DeviceSpec = None):
         if not cfg.embed_inputs:
             raise ValueError("serving engine drives token models "
                              "(cfg.embed_inputs must be set)")
-        T.require_hybrid(cfg)
+        T.require_ported(cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, the engine "
@@ -79,6 +89,8 @@ class ServeEngine:
         self.queue: List[Request] = []
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.last_token = np.zeros((slots,), np.int64)
+        self.prefill_kw = {} if cfg.moe is None else \
+            {"capacity_factor": MOE.drop_free_factor(cfg.moe)}
 
     def submit(self, req: Request) -> None:
         if not req.prompt or len(req.prompt) > self.max_len:
@@ -93,9 +105,9 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
         """Zero the slot's state, prefill ``prompt[:-1]`` into it at batch 1
-        and decode any remainder over the slot's rows alone; the final
-        prompt token is consumed by the first engine decode step (whose
-        logits produce ``out[0]``)."""
+        (drop-free for MoE) and decode any remainder over the slot's rows
+        alone; the final prompt token is consumed by the first engine
+        decode step (whose logits produce ``out[0]``)."""
         rows = _slot_rows(self.cache, slot)
         for leaves in rows.values():
             for t in leaves.values():
@@ -103,7 +115,8 @@ class ServeEngine:
         body = req.prompt[:-1]
         n = T.prefill_len(self.cfg, len(body))
         if n:
-            _, pre = self.model.prefill(tokens=self._tensor([body[:n]]))
+            _, pre = self.model.prefill(tokens=self._tensor([body[:n]]),
+                                        **self.prefill_kw)
             for name, leaves in pre.items():
                 for k, t in leaves.items():
                     dst = rows[name][k]

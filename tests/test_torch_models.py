@@ -106,7 +106,7 @@ def test_registry_aliases_and_shapes_match():
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = treg.reduced(treg.get_config("qwen3-14b"))
+    cfg = treg.reduced(treg.get_config("rwkv6-3b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init_params(cfg, device="cpu")
 

@@ -174,5 +174,5 @@ def test_engine_rejects_bad_requests_and_devices(served):
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(cfg, model, slots=1, max_len=8)   # device=None: card
     with pytest.raises(NotImplementedError):
-        ServeEngine(reduced(get_config("qwen3-14b")), model, slots=1,
+        ServeEngine(reduced(get_config("rwkv6-3b")), model, slots=1,
                     max_len=8, device="cpu")
