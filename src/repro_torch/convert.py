@@ -8,8 +8,8 @@ carries a trainable CNN's whole parameter dict (convs and head).
 
 LMs: ``lm_params_from_numpy`` turns the reference's parameter pytree of
 ``transformer.init_params`` (as numpy) into the port's model of the
-config's family: an ``AttnLM`` (dense, moe, vlm, audio) or a
-``HybridLM``.
+config's family: an ``AttnLM`` (dense, moe, vlm, audio), a ``HybridLM``
+or an ``RwkvLM`` (ssm).
 
 bf16 arrays arrive as numpy's ``ml_dtypes`` bfloat16, which torch cannot
 wrap directly, so every array crosses as float32 (exact for bf16 values)
@@ -25,8 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scene import ConvScene
 from repro_torch.device import DeviceSpec, resolve_device, torch_dtype
-from repro_torch.models.transformer import (LM, build, layer_counts,
-                                            require_ported)
+from repro_torch.models.transformer import LM, build, layer_counts
 
 
 def flt_from_numpy(arr, scene: ConvScene,
@@ -82,30 +81,32 @@ def _tree(node, dev: torch.device, index=()):
 
 
 def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
-                         device: DeviceSpec = None) -> LM:
+                         device: DeviceSpec = None,
+                         trainable: bool = False) -> LM:
     """The reference's LM parameter pytree (nested dicts of numpy arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's ``AttnLM`` or
-    ``HybridLM`` on ``device`` (default the card).
+    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's ``AttnLM``,
+    ``HybridLM`` or ``RwkvLM`` on ``device`` (default the card), its
+    parameters frozen unless ``trainable``.
 
     The reference stacks its layers along leading axes
-    (``transformer.py:99-118``): ``(n_layers, ...)`` under ``layers`` for
-    the attention-block families, and for the hybrid the Mamba2 layers as
-    ``(n_groups, attn_every, ...)`` under ``layers`` and ``(tail, ...)``
-    under ``tail_layers``.  These are unstacked into one tree per layer.
-    Each leaf keeps its dtype (bf16 weights; the f32 MoE router and the
-    f32 ``A_log``, ``D`` and ``dt_bias``)."""
-    require_ported(cfg)
+    (``transformer.py:99-128``): ``(n_layers, ...)`` under ``layers`` for
+    the attention-block families and rwkv6 (``{"ln1", "ln2", "mix"}``), and
+    for the hybrid the Mamba2 layers as ``(n_groups, attn_every, ...)``
+    under ``layers`` and ``(tail, ...)`` under ``tail_layers``.  These are
+    unstacked into one tree per layer.  Each leaf keeps its dtype (bf16
+    weights; the f32 MoE router, the f32 ``A_log``, ``D`` and ``dt_bias``,
+    and rwkv6's f32 ``w0`` and ``u``)."""
     dev = resolve_device(device)
     port = {k: _tree(tree[k], dev) for k in
             ("embed", "lm_head", "final_norm", "shared_attn") if k in tree}
     if cfg.family != "hybrid":
         port["layers"] = [_tree(tree["layers"], dev, (i,))
                           for i in range(cfg.n_layers)]
-        return build(cfg, port)
+        return build(cfg, port, trainable)
     n_groups, tail = layer_counts(cfg)
     port["layers"] = [[_tree(tree["layers"], dev, (g, i))
                        for i in range(cfg.attn_every)]
                       for g in range(n_groups)]
     port["tail_layers"] = [_tree(tree["tail_layers"], dev, (i,))
                            for i in range(tail)]
-    return build(cfg, port)
+    return build(cfg, port, trainable)

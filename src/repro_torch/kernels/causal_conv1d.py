@@ -23,6 +23,15 @@ reference's does; it differs from both by rounding only.)
 On a CPU tensor ``causal_conv1d`` runs the plain version; a CUDA tensor
 launches the kernel or raises.  Launches are counted in
 ``causal_conv1d.launches``.
+
+Gradients: ``CausalConv1d`` (a ``torch.autograd.Function``) runs the
+forward through ``causal_conv1d`` (the kernel on the card) and computes
+the backward in torch ops, ``causal_conv1d_grads``: dx is the anti-causal
+conv of dy with the same taps, dw the shifted x times dy summed over B and
+L.  The reference has no backward kernel either: its Mamba2 calls the
+plain ``causal_conv1d_ref`` on the model path (``models/mamba2.py:146``)
+and XLA differentiates it.  Backward passes are counted in
+``CausalConv1d.backward_calls``.
 """
 from __future__ import annotations
 
@@ -110,3 +119,41 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 causal_conv1d.launches = 0
+
+
+def causal_conv1d_grads(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """(dx, dw) of ``y = causal_conv1d(x, w)`` for the cotangent ``dy``, in
+    f32, cast to x's and w's dtypes.  With s = K-1-k the shift of tap k,
+    ``y[l] += w[k] x[l-s]``, so ``dx[m] += w[k] dy[m+s]`` and ``dw[k] =
+    sum over b and l >= s of x[l-s] dy[l]``."""
+    _check(x, w)
+    kw, length = w.shape[0], x.shape[1]
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    dx = torch.zeros_like(xf)
+    dw = torch.zeros_like(wf)
+    for k in range(kw):
+        s = kw - 1 - k
+        if s >= length:
+            continue
+        dx[:, :length - s] += wf[k] * dyf[:, s:]
+        dw[k] = (xf[:, :length - s] * dyf[:, s:]).sum((0, 1))
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class CausalConv1d(torch.autograd.Function):
+    """Differentiable ``causal_conv1d``: the kernel (or, on a CPU tensor,
+    the plain version) forward, ``causal_conv1d_grads`` backward.
+    ``CausalConv1d.apply(x, w)``."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return causal_conv1d(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        CausalConv1d.backward_calls += 1
+        return causal_conv1d_grads(x, w, dy)

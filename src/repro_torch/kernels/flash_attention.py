@@ -34,11 +34,22 @@ reference's chunked JAX attention (``models/layers.py:219``) instead casts
 ``p`` to V's dtype.  On a CPU tensor the wrappers run the plain version; a
 CUDA tensor launches a kernel or raises.  Launches are counted in
 ``flash_attention_fwd.launches``.
+
+Gradients: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
+forward through ``flash_attention_bshd`` (the kernel on the card) and
+saves q, k and v.  The reference has no backward kernel: its training
+differentiates the chunked JAX attention (``models/layers.py:176``) with
+XLA.  So the backward recomputes that function, ported as
+``flash_attention_chunked``, one query chunk at a time under autograd, and
+returns its vector-Jacobian product.  Per query chunk the recomputation
+holds ``q_chunk x T`` scores per head, never the full ``S x T`` softmax.
+Backward passes are counted in ``FlashAttention.backward_calls``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -189,3 +200,130 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.transpose(1, 2).reshape(b * hkv, t, d).contiguous()
     of = flash_attention_fwd(qf, kf, vf, causal=causal)
     return of.reshape(b, h, s, d).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the reference's chunked attention, recomputed in the backward
+# ---------------------------------------------------------------------------
+def _chunks(s: int, t: int, q_chunk: int, kv_chunk: int) -> Tuple[int, int]:
+    """The reference's chunk contract: 0 = unchunked, a chunk longer than
+    the sequence is cut to it, and the lengths must divide."""
+    q_chunk = min(q_chunk, s) if q_chunk else s
+    kv_chunk = min(kv_chunk, t) if kv_chunk else t
+    if s % q_chunk != 0 or t % kv_chunk != 0:
+        raise ValueError(f"(S={s}, T={t}) not divisible by chunks "
+                         f"(q_chunk={q_chunk}, kv_chunk={kv_chunk})")
+    return q_chunk, kv_chunk
+
+
+def _q_block(qi: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int,
+             causal: bool, kv_chunk: int) -> torch.Tensor:
+    """One query chunk of ``flash_attention_chunked``: qi (B, qc, Hq, D)
+    starting at position ``q0`` against k, v (B, T, Hkv, D) -> (B, qc, Hq,
+    D) in q's dtype.  The online softmax walks the kv chunks in order, as
+    the reference's ``lax.scan`` does; under ``causal`` the chunks wholly
+    above the diagonal are not walked: each would add p = exp(-1e30 - m) =
+    0 exactly and scale by corr = exp(0) = 1 (chunk 0 always holds key 0,
+    so m is finite by then), so the result is the same."""
+    b, qc, hq, d = qi.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = qi.reshape(b, qc, hkv, g, d).float()
+    q_pos = q0 + torch.arange(qc, device=qi.device)
+    n_kv = t // kv_chunk
+    if causal:
+        n_kv = min(n_kv, (q0 + qc - 1) // kv_chunk + 1)
+    m = torch.full((b, hkv, g, qc), NEG_INF, dtype=torch.float32,
+                   device=qi.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, qc, d), dtype=torch.float32,
+                      device=qi.device)
+    for j in range(n_kv):
+        kj = k[:, j * kv_chunk:(j + 1) * kv_chunk]
+        vj = v[:, j * kv_chunk:(j + 1) * kv_chunk]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj.float()) \
+            * d ** -0.5
+        if causal:
+            k_pos = j * kv_chunk + torch.arange(kv_chunk, device=qi.device)
+            scores = torch.where(q_pos[:, None] >= k_pos[None, :], scores,
+                                 NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vj.dtype).float(),
+                          vj.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, qc, hq, d).to(qi.dtype)
+
+
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            q_chunk: int = 512,
+                            kv_chunk: int = 1024) -> torch.Tensor:
+    """Port of the reference's chunked online-softmax attention
+    (``repro/models/layers.py:176``): q (B, S, Hq, D), k/v (B, T, Hkv, D)
+    -> (B, S, Hq, D) in q's dtype; grouped GQA (K and V never repeated),
+    scores and the running max/sum in f32, the weights cast to V's dtype
+    before the product with V (f32 accumulation), the same ``ValueError``
+    on chunks that do not divide the lengths.  Memory is O(q_chunk x
+    kv_chunk) per (batch, head) per step.  Not a kernel and not a
+    wrapper's fallback: ``FlashAttention`` differentiates it."""
+    s, t = q.shape[1], k.shape[1]
+    q_chunk, kv_chunk = _chunks(s, t, q_chunk, kv_chunk)
+    return torch.cat([_q_block(q[:, i:i + q_chunk], k, v, i, causal,
+                               kv_chunk) for i in range(0, s, q_chunk)], 1)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable ``flash_attention_bshd``: the forward is the kernel
+    (the plain version on a CPU tensor); the backward is the VJP of
+    ``flash_attention_chunked`` (the reference's differentiated function)
+    recomputed one query chunk at a time, dK and dV summed over the chunks
+    in f32.  ``FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)``
+    with the model's (B, S, H, D) layout."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
+        _chunks(q.shape[1], k.shape[1], q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v)
+        ctx.attrs = (causal, q_chunk, kv_chunk)
+        return flash_attention_bshd(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        FlashAttention.backward_calls += 1
+        return flash_attention_vjp(q, k, v, dout, *ctx.attrs) + \
+            (None, None, None)
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        q_chunk: int = 512, kv_chunk: int = 1024
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_chunked`` for the cotangent
+    ``dout``: each query chunk recomputed under autograd and
+    differentiated on its own (the chunks are independent, as the
+    reference's ``lax.map`` over them), dK and dV summed over the chunks
+    in f32 and cast to K's and V's dtypes."""
+    q_chunk, kv_chunk = _chunks(q.shape[1], k.shape[1], q_chunk, kv_chunk)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        kd = k.detach().requires_grad_(True)
+        vd = v.detach().requires_grad_(True)
+        for i in range(0, q.shape[1], q_chunk):
+            qi = q[:, i:i + q_chunk].detach().requires_grad_(True)
+            out = _q_block(qi, kd, vd, i, causal, kv_chunk)
+            gq, gk, gv = torch.autograd.grad(out, (qi, kd, vd),
+                                             dout[:, i:i + q_chunk])
+            dq[:, i:i + q_chunk] = gq
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

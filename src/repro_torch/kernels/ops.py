@@ -10,7 +10,7 @@ amortize resolution.
 ``causal_conv1d_op``: the reference pads x and w up to whole ``(block_l,
 block_d)`` blocks before its Pallas call and slices the result back
 (ops.py:86-94); the CUDA kernel masks its own ragged edges, so the op is
-the kernel wrapper itself.
+the kernel wrapper itself, behind its autograd Function.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.mapping import ScheduleChoice
 from repro_torch.core.scene import ConvScene
 from repro_torch.device import DeviceSpec, resolve_device
-from repro_torch.kernels.causal_conv1d import causal_conv1d
+from repro_torch.kernels.causal_conv1d import CausalConv1d
 from repro_torch.plan import build as plan_build
 
 ScheduleSpec = Union[None, str, ScheduleChoice]
@@ -74,5 +74,6 @@ def mg3m_conv_op(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene, *,
 def causal_conv1d_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d (Mamba2's conv), x ``[B, L, D]``, w
     ``[K, D]``: the CUDA kernel on a card tensor, its plain version on a
-    CPU one — see ``kernels/causal_conv1d.py``."""
-    return causal_conv1d(x, w)
+    CPU one, differentiable through ``CausalConv1d`` — see
+    ``kernels/causal_conv1d.py``."""
+    return CausalConv1d.apply(x, w)

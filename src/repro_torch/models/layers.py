@@ -5,14 +5,13 @@ Port of ``repro.models.layers``: pure functions over parameter mappings (a
 dict or an ``nn.ParameterDict``), the same names, layouts and rounding
 points.  Differences from the reference:
 
-  * no ``ctx.constrain``: it is the identity without a mesh, and the port
-    has no ``parallel/`` yet;
   * ``flash_attention`` keeps the reference's signature and its chunk
-    divisibility check, but computes through the kernel wrapper
-    (``kernels.flash_attention``): the CUDA kernel on a card tensor, its
-    plain version on a CPU one — one function on both devices, with the
-    softmax weights kept in f32 (the reference's chunked JAX version rounds
-    them to V's dtype, ``layers.py:219``);
+    divisibility check, but computes through ``FlashAttention``
+    (``kernels.flash_attention``): forward the CUDA kernel on a card
+    tensor, its plain version on a CPU one — one function on both
+    devices, with the softmax weights kept in f32 (the reference's chunked
+    JAX version rounds them to V's dtype, ``layers.py:219``); backward the
+    gradient of the reference's chunked function, recomputed;
   * ``attention_decode`` writes the new K and V into the cache in place
     (the reference returns updated copies) and returns the same tensors;
   * ``trunc_normal`` draws from a ``torch.Generator``: seeded weights
@@ -31,7 +30,8 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.parallel import ctx
 
 Params = Mapping[str, torch.Tensor]
 F32 = torch.float32
@@ -132,9 +132,9 @@ def init_mlp(gen: torch.Generator, d: int, f: int, kind: str, dtype,
 
 def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     # IO-dtype matmuls (f32 accumulation inside), as the reference's
-    up = x @ p["w_up"]
+    up = ctx.constrain(x @ p["w_up"], "hidden")
     if kind == "swiglu":
-        gate = x @ p["w_gate"]
+        gate = ctx.constrain(x @ p["w_gate"], "hidden")
         h = (F.silu(gate.float()) * up.float()).to(x.dtype)
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
@@ -190,9 +190,12 @@ def _project_qkv(p: Params, x: torch.Tensor, spec: AttnSpec,
     v = x @ p["wv"]
     if spec.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.to(x.dtype).reshape(b, s, spec.n_heads, dh)
-    k = k.to(x.dtype).reshape(b, s, spec.n_kv_heads, dh)
-    v = v.to(x.dtype).reshape(b, s, spec.n_kv_heads, dh)
+    q = ctx.constrain(q.to(x.dtype).reshape(b, s, spec.n_heads, dh),
+                      "heads")
+    k = ctx.constrain(k.to(x.dtype).reshape(b, s, spec.n_kv_heads, dh),
+                      "heads")
+    v = ctx.constrain(v.to(x.dtype).reshape(b, s, spec.n_kv_heads, dh),
+                      "heads")
     if spec.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
@@ -206,20 +209,17 @@ def _project_qkv(p: Params, x: torch.Tensor, spec: AttnSpec,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 1024) -> torch.Tensor:
-    """Online-softmax attention through the flash kernel wrapper.
+    """Online-softmax attention through ``FlashAttention``: the flash
+    kernel forward, the reference's chunked attention differentiated
+    backward.
 
     Keeps the reference's chunk contract: ``S`` must be a multiple of
     ``min(q_chunk, S)`` and ``T`` of ``min(kv_chunk, T)`` (0 = unchunked),
-    else ``ValueError`` — the kernel itself tiles and masks on its own.
+    else ``ValueError`` — the kernel itself tiles and masks on its own;
+    the chunks size the backward's recomputation.
     q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D)
     """
-    s, t = q.shape[1], k.shape[1]
-    q_chunk = min(q_chunk, s) if q_chunk else s     # 0 = unchunked
-    kv_chunk = min(kv_chunk, t) if kv_chunk else t
-    if s % q_chunk != 0 or t % kv_chunk != 0:
-        raise ValueError(f"(S={s}, T={t}) not divisible by chunks "
-                         f"(q_chunk={q_chunk}, kv_chunk={kv_chunk})")
-    return flash_attention_bshd(q, k, v, causal=causal)
+    return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -57,12 +57,19 @@ def _segsum_decay(a: torch.Tensor) -> torch.Tensor:
     """a: (..., Q) log-decays -> (..., Q, Q) lower-tri exp(segment sums).
 
     out[i, j] = exp(sum_{t=j+1..i} a_t) for i >= j, else 0.
+
+    The exponent is masked before ``exp``: above the diagonal ``seg`` is a
+    sum of -a > 0, which overflows to inf once a chunk's decay passes ~88
+    (zamba2-7b's chunk of 256), and ``where`` after ``exp`` would then
+    give the backward inf * 0 = nan.  The reference (``repro.models.
+    mamba2._segsum_decay``) masks after ``exp`` and has that nan; the
+    values are the same.
     """
     q = a.shape[-1]
     cum = torch.cumsum(a, -1)
     seg = cum[..., :, None] - cum[..., None, :]
     mask = torch.ones(q, q, dtype=torch.bool, device=a.device).tril()
-    return torch.where(mask, torch.exp(seg), 0.0)
+    return torch.exp(seg.masked_fill(~mask, float("-inf")))
 
 
 def _heads(t: torch.Tensor, hg: int, axis: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Model assembly for every ported architecture family.
+"""Model assembly for every architecture family.
 
 Port of ``repro.models.transformer``, written as ``nn.Module``s with a
 Python loop over layers where the reference stacks parameters and runs
@@ -12,33 +12,38 @@ Python loop over layers where the reference stacks parameters and runs
                              layers, each group followed by one SHARED
                              attention+MLP block (one set of weights), then
                              ``n_layers % attn_every`` tail Mamba2 layers
-  ssm (rwkv6)                not ported yet: ``NotImplementedError``
-                             naming ROADMAP §1 item 3
+  ssm (rwkv6)                ``RwkvLM``: ``[norm -> time-mix -> norm ->
+                             channel-mix] x L`` (``models/rwkv6.py``); the
+                             time-mix is chunked when the length is a
+                             multiple of 64, a scan otherwise
 
 vlm and audio take ``embeds`` in place of tokens (``embed_inputs=False``;
 their frontends are stubs in the reference too), and ``pos == "sin"``
 adds sinusoidal positions at the embedding.  The reference's entry points
-are methods of both models:
+are methods of every model:
 
   ``forward``      <- ``transformer.forward``      (logits f32, moe aux)
   ``prefill``      <- ``transformer.prefill``      (logits, serving cache)
   ``init_cache``   <- ``transformer.init_cache``
   ``decode_step``  <- ``transformer.decode_step``  (updates the cache in place)
 
-and ``init_params`` builds a seeded model of the config's family (a
+and ``lm_loss`` (``transformer.lm_loss``) is a function of a model and a
+batch.  ``init_params`` builds a seeded model of the config's family (a
 ``torch.Generator`` on the target device).  ``AttnLM.forward`` and
 ``prefill`` take ``capacity_factor`` (default the MoE config's, as
 ``moe_ffn`` has); ``decode_step`` runs the MoE drop-free (``E / k``), as
 the reference's decode does (``transformer.py:393-395``).
 
 The serving caches have the reference's layout, batch at the same axis of
-every leaf:
+every leaf (``BATCH_AXIS``):
 
   ``kv``          {"k": (L, B, T, Hkv, D), "v": ...} for ``AttnLM``, one
                   per layer; (G, B, T, Hkv, D) for ``HybridLM``, one per
                   application of the shared block
   ``mamba``       {"conv": (G, A, B, K-1, C), "ssm": (G, A, B, H, S, P)}
   ``mamba_tail``  {"conv": (tail, B, K-1, C), "ssm": (tail, B, H, S, P)}
+  ``rwkv``        {"tm_x": (L, B, 1, d), "cm_x": (L, B, 1, d),
+                   "s": (L, B, H, 64, 64) f32}
 
 ``decode_step`` writes into that cache in place (the reference returns an
 updated copy), which is what lets ``serve.engine`` decode one slot over a
@@ -47,27 +52,40 @@ view of its rows.  The head computes in f32 as the reference's
 a copy of the head per call.  That copy is kept, because it changes no
 bit of the logits and is a small share of a decode step (qwen2.5-3b at 2
 slots on an H100: 0.94 ms of device time in a 66 ms step, PERF.md §5).
-Every module's
-parameters are frozen (``requires_grad=False``): these slices serve;
-training the LMs is ROADMAP §1 item 4.
+
+Parameters are frozen (``requires_grad=False``) unless the model is built
+with ``trainable=True``, as ``train/step.py`` does.  Where the config's
+``remat_policy`` is ``"nothing_saveable"`` (every full-width config) and
+gradients are being recorded, each scanned body of the reference (a
+layer; for the hybrid a group and each tail layer) runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as the
+reference's ``_remat`` does.  The model calls ``parallel.ctx.constrain``
+where the reference does (the identity without installed hooks).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, \
+    Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceSpec, resolve_device, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
+from repro_torch.parallel import ctx
 
 F32 = torch.float32
 Tree = Dict[str, Any]
-BATCH_AXIS = {"mamba": 2, "kv": 1, "mamba_tail": 1}   # of each cache leaf
+BATCH_AXIS = {"mamba": 2, "kv": 1, "mamba_tail": 1, "rwkv": 1}  # per leaf
 FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
+AUX_LOSS_WEIGHT = 0.01
+RWKV_CHUNKED = 64         # lengths the chunked time-mix runs (else a scan)
 
 
 def attn_spec(cfg: ArchConfig) -> L.AttnSpec:
@@ -77,15 +95,18 @@ def attn_spec(cfg: ArchConfig) -> L.AttnSpec:
                       rope_theta=cfg.rope_theta, use_rope=(cfg.pos == "rope"))
 
 
-def require_ported(cfg: ArchConfig) -> None:
-    """Raises ``NotImplementedError`` for the one family not ported yet,
-    ``ssm`` (rwkv6)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: family 'ssm' (rwkv6) is not ported yet; it is "
-            f"ROADMAP §1 item 3.")
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+def _remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` under activation checkpointing when gradients are being
+    recorded and the config asks for it (the reference's ``_remat``):
+    ``"nothing_saveable"`` saves only the body's inputs and recomputes the
+    rest in the backward; ``"none"`` saves everything."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy != "nothing_saveable":
+        raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r} "
+                         f"has no counterpart; use 'none' or "
+                         f"'nothing_saveable'")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def layer_counts(cfg: ArchConfig) -> Tuple[int, int]:
@@ -198,7 +219,6 @@ class _LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, tree: Tree):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         if cfg.embed_inputs:
@@ -218,19 +238,23 @@ class _LM(nn.Module):
         embedding of ``arange(S)``, or of ``position`` (B,) on a decode
         step (``transformer.py:180-189, 376-381``)."""
         cfg = self.cfg
-        x = self.embed[tokens] if cfg.embed_inputs else embeds.to(self.dtype)
+        # F.embedding's backward sums repeated tokens in a fixed order (the
+        # CPU's backward of ``embed[tokens]`` does not: a restarted run
+        # would not reproduce its gradients bit for bit)
+        x = F.embedding(tokens, self.embed) if cfg.embed_inputs \
+            else embeds.to(self.dtype)
         if cfg.pos == "sin":
             pos = torch.arange(x.shape[1], device=x.device) \
                 if position is None else position[:, None]
             x = x + L.sin_embedding(pos, cfg.d_model).to(x.dtype)
-        return x
+        return ctx.constrain(x, "residual")
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and head; logits in f32 (the reference's
         preferred_element_type=F32: operands go up to f32)."""
         x = L.apply_norm(self.final_norm, x, self.cfg.norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x.float() @ head.float()
+        return ctx.constrain(x.float() @ head.float(), "logits")
 
 
 class AttnLM(_LM):
@@ -254,7 +278,8 @@ class AttnLM(_LM):
         x = self.embed_inputs(tokens, embeds)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for layer in self.layers:
-            x, a = layer(x, capacity_factor)
+            x, a = _remat(layer, self.cfg)(ctx.constrain(x, "residual"),
+                                           capacity_factor)
             if a is not None:
                 aux = aux + a
         return self.unembed(x), aux
@@ -318,12 +343,17 @@ class HybridLM(_LM):
         """Returns (logits fp32 (B,S,V), total moe aux loss = 0)."""
         x = self.embed_inputs(tokens, embeds)
         for group in self.groups:
-            for layer in group:
-                x = layer(x)
-            x, _ = self.shared(x)
+            x = _remat(self._group, self.cfg)(ctx.constrain(x, "residual"),
+                                              group)
         for layer in self.tail:
-            x = layer(x)
+            x = _remat(layer, self.cfg)(x)
         return self.unembed(x), torch.zeros((), dtype=F32, device=x.device)
+
+    def _group(self, x: torch.Tensor, group: nn.ModuleList) -> torch.Tensor:
+        """One group: its Mamba2 layers, then the shared block."""
+        for layer in group:
+            x = layer(x)
+        return self.shared(x)[0]
 
     def prefill(self, tokens=None, embeds=None
                 ) -> Tuple[torch.Tensor, Tree]:
@@ -391,7 +421,121 @@ class HybridLM(_LM):
         return self.unembed(x), cache
 
 
-LM = Union[AttnLM, HybridLM]
+class RwkvLayer(nn.Module):
+    """norm -> time-mix -> norm -> channel-mix, with residuals
+    (``_apply_rwkv_layer``); ``mix`` holds both mixes' parameters."""
+
+    def __init__(self, cfg: ArchConfig, tree: Tree):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _frozen(tree["ln1"])
+        self.ln2 = _frozen(tree["ln2"])
+        self.mix = _frozen(tree["mix"])
+
+    def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tree]:
+        """The layer over a whole sequence from a zero state (chunked when
+        its length is a multiple of 64), and the serving state after it:
+        the last normed inputs of both token shifts and S."""
+        b, l, d = x.shape
+        tail = x.new_zeros(b, 1, d)
+        s0 = torch.zeros(b, d // R6.HEAD_SIZE, R6.HEAD_SIZE, R6.HEAD_SIZE,
+                         dtype=F32, device=x.device)
+        h = L.apply_norm(self.ln1, x, self.cfg.norm)
+        timemix = R6.rwkv6_timemix_chunked if l % RWKV_CHUNKED == 0 \
+            else R6.rwkv6_timemix_scan
+        y, s_fin = timemix(self.mix, h, tail, s0)
+        x = x + y
+        h2 = L.apply_norm(self.ln2, x, self.cfg.norm)
+        x = x + R6.rwkv6_channelmix(self.mix, h2, tail)
+        return x, {"tm_x": h[:, -1:], "cm_x": h2[:, -1:], "s": s_fin}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.prefill(x)[0]
+
+    def step(self, x: torch.Tensor, tm_x: torch.Tensor, cm_x: torch.Tensor,
+             s: torch.Tensor) -> torch.Tensor:
+        """One decode token (a one-step scan); ``tm_x``/``cm_x``/``s`` are
+        this layer's state rows, overwritten with the new state."""
+        h = L.apply_norm(self.ln1, x, self.cfg.norm)
+        y, s_new = R6.rwkv6_timemix_scan(self.mix, h, tm_x, s)
+        x = x + y
+        h2 = L.apply_norm(self.ln2, x, self.cfg.norm)
+        x = x + R6.rwkv6_channelmix(self.mix, h2, cm_x)
+        tm_x.copy_(h)
+        cm_x.copy_(h2)
+        s.copy_(s_new)
+        return x
+
+
+class RwkvLM(_LM):
+    """The ssm family (rwkv6): ``[norm -> time-mix -> norm -> channel-mix]
+    x L`` over a tree in the port's layout ``{"embed", "lm_head",
+    "final_norm": {...}, "layers": [{"ln1", "ln2", "mix"}] * n_layers}``.
+    The serving cache is ``{"rwkv": {"tm_x": (L, B, 1, d), "cm_x": (L, B,
+    1, d), "s": (L, B, H, 64, 64) f32}}``; no sequence axis, so
+    ``max_len`` bounds nothing but the engine's positions."""
+
+    def __init__(self, cfg: ArchConfig, tree: Tree):
+        super().__init__(cfg, tree)
+        self.layers = nn.ModuleList(RwkvLayer(cfg, lt)
+                                    for lt in tree["layers"])
+
+    def forward(self, tokens=None, embeds=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (logits fp32 (B,S,V), total moe aux loss = 0)."""
+        x = self.embed_inputs(tokens, embeds)
+        for layer in self.layers:
+            x = _remat(layer, self.cfg)(ctx.constrain(x, "residual"))
+        return self.unembed(x), torch.zeros((), dtype=F32, device=x.device)
+
+    def prefill(self, tokens=None, embeds=None
+                ) -> Tuple[torch.Tensor, Tree]:
+        """Full-sequence pass that also emits the serving state: (logits
+        (B,S,V), cache)."""
+        x = self.embed_inputs(tokens, embeds)
+        states = []
+        for layer in self.layers:
+            x, st = layer.prefill(x)
+            states.append(st)
+        cache = {"rwkv": {key: torch.stack([st[key] for st in states])
+                          for key in ("tm_x", "cm_x", "s")}}
+        return self.unembed(x), cache
+
+    def init_cache(self, bsz: int, max_len: int) -> Tree:
+        """A zeroed serving state for ``bsz`` sequences, on the model's
+        device (``max_len`` is unused: the state has no sequence axis)."""
+        st = R6.rwkv6_init_state(bsz, self.cfg.d_model, self.dtype,
+                                 self.device)
+        return {"rwkv": {k: t.new_zeros((self.cfg.n_layers,) + t.shape)
+                         for k, t in st.items()}}
+
+    def decode_step(self, cache: Tree, position: torch.Tensor, *,
+                    tokens=None, embeds=None) -> Tuple[torch.Tensor, Tree]:
+        """One-token decode.  tokens: (B, 1); position: (B,) (used only by
+        sinusoidal positions).  Returns (logits (B, 1, V), cache) — the
+        cache updated in place."""
+        x = self.embed_inputs(tokens, embeds, position)
+        st = cache["rwkv"]
+        for li, layer in enumerate(self.layers):
+            x = layer.step(x, st["tm_x"][li], st["cm_x"][li], st["s"][li])
+        return self.unembed(x), cache
+
+
+LM = Union[AttnLM, HybridLM, RwkvLM]
+
+
+def lm_loss(model: LM, batch: Mapping[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL of ``batch`` (``{"tokens"|"embeds", "labels"}``)
+    plus ``AUX_LOSS_WEIGHT`` times the MoE load-balance loss summed over
+    layers (``transformer.lm_loss``).  Returns (total, {"ce_loss",
+    "moe_aux"})."""
+    logits, aux = model(tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"))
+    logp = torch.log_softmax(logits.float(), -1)
+    nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+    loss = nll.mean()
+    return loss + AUX_LOSS_WEIGHT * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
 def _attn_block_tree(cfg: ArchConfig, gen: torch.Generator, dtype,
@@ -416,9 +560,10 @@ def _attn_block_tree(cfg: ArchConfig, gen: torch.Generator, dtype,
 
 
 def init_tree(cfg: ArchConfig, gen: torch.Generator, device) -> Tree:
-    """A seeded parameter tree in the port's layout (see ``AttnLM`` and
-    ``HybridLM``), drawn in the reference's init distributions."""
-    require_ported(cfg)
+    """A seeded parameter tree in the port's layout (see ``AttnLM``,
+    ``HybridLM`` and ``RwkvLM``), drawn in the reference's init
+    distributions."""
+    check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     tree: Tree = {}
     if cfg.embed_inputs:
@@ -428,6 +573,14 @@ def init_tree(cfg: ArchConfig, gen: torch.Generator, device) -> Tree:
         tree["lm_head"] = L.trunc_normal(gen, (cfg.d_model, cfg.vocab),
                                          cfg.d_model ** -0.5, dtype, device)
     tree["final_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype, device)
+    if cfg.family == "ssm":
+        tree["layers"] = [
+            {"ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
+             "ln2": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
+             "mix": R6.init_rwkv6_layer(gen, cfg.d_model, cfg.d_ff, dtype,
+                                        cfg.n_layers, device)}
+            for _ in range(cfg.n_layers)]
+        return tree
     if cfg.family != "hybrid":
         tree["layers"] = [_attn_block_tree(cfg, gen, dtype, device)
                           for _ in range(cfg.n_layers)]
@@ -446,35 +599,53 @@ def init_tree(cfg: ArchConfig, gen: torch.Generator, device) -> Tree:
     return tree
 
 
-def build(cfg: ArchConfig, tree: Tree) -> LM:
-    """The family's model over a tree in the port's layout."""
-    return (HybridLM if cfg.family == "hybrid" else AttnLM)(cfg, tree)
+def check_family(cfg: ArchConfig) -> None:
+    """Raises ``ValueError`` for a family the port does not know."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
-def init_params(cfg: ArchConfig, seed: int = 0,
-                device: DeviceSpec = None) -> LM:
-    """A seeded ``AttnLM`` or ``HybridLM`` (``transformer.init_params``),
-    drawn on ``device`` (default the card) from a ``torch.Generator``
-    seeded with ``seed``.  The weights differ from JAX's for the same
+def build(cfg: ArchConfig, tree: Tree, trainable: bool = False) -> LM:
+    """The family's model over a tree in the port's layout, its parameters
+    frozen unless ``trainable``."""
+    check_family(cfg)
+    cls = {"hybrid": HybridLM, "ssm": RwkvLM}.get(cfg.family, AttnLM)
+    return cls(cfg, tree).requires_grad_(trainable)
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceSpec = None,
+                trainable: bool = False) -> LM:
+    """A seeded ``AttnLM``, ``HybridLM`` or ``RwkvLM``
+    (``transformer.init_params``), drawn on ``device`` (default the card)
+    from a ``torch.Generator`` seeded with ``seed``, its parameters frozen
+    unless ``trainable``.  The weights differ from JAX's for the same
     seed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return build(cfg, init_tree(cfg, gen, dev))
+    return build(cfg, init_tree(cfg, gen, dev), trainable)
 
 
 def prefill_accepts(cfg: ArchConfig, n: int) -> bool:
     """Whether ``prefill`` takes a sequence of ``n`` tokens: attention
     needs ``n`` a multiple of ``min(c, n)`` for its q and kv chunks ``c``
     (``layers.flash_attention``), and with an SSM (hybrid) the SSD the same
-    of its chunk (``ssd_chunked``)."""
+    of its chunk (``ssd_chunked``); rwkv6 takes any ``n`` (a scan where the
+    chunked time-mix does not fit)."""
     def fits(c: int) -> bool:
         return not c or n % min(c, n) == 0
+    if cfg.family == "ssm":
+        return n > 0
     return n > 0 and fits(cfg.q_chunk) and fits(cfg.kv_chunk) and \
         (cfg.ssm is None or fits(cfg.ssm.chunk))
 
 
 def prefill_len(cfg: ArchConfig, n: int) -> int:
-    """The longest prefix of ``n`` tokens that ``prefill`` accepts (0 when
-    none does); the rest is decoded token by token."""
+    """The prefix of ``n`` tokens that ``serve.engine`` prefills (0 when
+    none); the rest is decoded token by token.  For attention and the
+    hybrid, the longest prefix ``prefill`` accepts; for rwkv6, which
+    accepts any length, the longest multiple of 64, which runs the chunked
+    time-mix (a scan prefill walks every token of every layer in a Python
+    loop, as decoding does)."""
+    if cfg.family == "ssm":
+        return n - n % RWKV_CHUNKED
     return next((m for m in range(n, 0, -1) if prefill_accepts(cfg, m)), 0)
-

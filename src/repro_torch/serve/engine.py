@@ -1,9 +1,9 @@
 """Batched LM serving engine: continuous batching over a fixed-capacity slot
 pool, prefill + decode steps, greedy/temperature sampling.
 
-Port of ``repro.serve.engine`` for every ported token model: the
-attention-block families (dense and moe, ``AttnLM``) and the hybrid
-(``HybridLM``).  vlm and audio configs embed no tokens and are rejected,
+Port of ``repro.serve.engine`` for every token model: the
+attention-block families (dense and moe, ``AttnLM``), the hybrid
+(``HybridLM``) and rwkv6 (``RwkvLM``).  vlm and audio configs embed no tokens and are rejected,
 as in the reference.  Slot refill order, the last prompt token feeding
 the first decode step and the ``max_len`` stop are the reference's.
 Filling a slot differs, to keep the reference's own contract that a
@@ -11,13 +11,13 @@ request joining mid-stream does not change another's output
 (``tests/test_serve.py:46``):
 
   * the reference fills a slot by running full-batch decode steps over the
-    prompt; on the hybrid that also advances the Mamba conv and SSM state
+    prompt; on the hybrid and rwkv6 that also advances the recurrent state
     of every other slot, and it never clears a refilled slot's state;
   * here the slot's state is zeroed, ``prompt[:-1]`` is prefilled through
-    the model's ``prefill`` at batch 1 (the longest prefix prefill
-    accepts, ``transformer.prefill_len``) and written into that slot's
-    rows, and any remainder is decoded token by token over a view of that
-    slot's rows alone.
+    the model's ``prefill`` at batch 1 (``transformer.prefill_len``: the
+    longest prefix prefill accepts; for rwkv6 the longest multiple of 64,
+    its chunked form) and written into that slot's rows, and any remainder
+    is decoded token by token over a view of that slot's rows alone.
 
 The reference's decode-step fill never drops a MoE token (decode runs at
 capacity factor ``E / k``), but a prefill at the config's capacity factor
@@ -76,7 +76,6 @@ class ServeEngine:
         if not cfg.embed_inputs:
             raise ValueError("serving engine drives token models "
                              "(cfg.embed_inputs must be set)")
-        T.require_ported(cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, the engine "

@@ -1,2 +1,3 @@
-"""repro_torch.train — plan-driven CNN training: the AdamW optimizer, the
-training step over ``ModelPlans`` and checkpoints."""
+"""repro_torch.train — training: the AdamW optimizer, checkpoints, the
+plan-driven CNN step over ``ModelPlans`` (``cnn``), the LM step
+(``step``) and fault tolerance (``ft``)."""

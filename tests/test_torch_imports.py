@@ -132,13 +132,31 @@ def test_tune_modules_are_covered(name):
 # the LM slices' modules, each a port of the reference file of the same
 # path under src/repro (models/moe.py since the attention-block families)
 LM_MODULES = ("models.layers", "models.mamba2", "models.moe",
-              "models.transformer", "serve.engine")
+              "models.rwkv6", "models.transformer", "serve.engine")
 
 
 @pytest.mark.parametrize("name", LM_MODULES)
 def test_lm_modules_are_covered(name):
     """Each module is one of the files the guards above walk, mirrors a
     reference file, and imports here without a GPU toolchain."""
+    rel = Path(*name.split(".")).with_suffix(".py")
+    assert PORT / rel in FILES
+    assert (ROOT / "src" / "repro" / rel).is_file()
+    assert importlib.import_module(f"repro_torch.{name}")
+
+
+# the LM training slice's modules (rwkv6 and the substrate), each a port of
+# the reference file of the same path under src/repro
+LM_TRAIN_MODULES = ("models.rwkv6", "data.pipeline", "parallel.ctx",
+                    "parallel.sharding", "launch.mesh", "launch.train",
+                    "train.step", "train.ft")
+
+
+@pytest.mark.parametrize("name", LM_TRAIN_MODULES)
+def test_lm_train_modules_are_covered(name):
+    """Each module is one of the files the guards above walk (no jax, no
+    repro, no triton), mirrors a reference file, and imports here without
+    a GPU toolchain."""
     rel = Path(*name.split(".")).with_suffix(".py")
     assert PORT / rel in FILES
     assert (ROOT / "src" / "repro" / rel).is_file()

@@ -262,13 +262,10 @@ def test_prefill_len_is_what_prefill_accepts():
 
 
 def test_families_build_their_model():
-    """Every family but ssm builds; ssm names its ROADMAP item."""
+    """Every family builds its model (ssm since the rwkv6 slice)."""
     for arch in treg.ARCH_IDS:
         cfg = treg.reduced(treg.get_config(arch))
-        if cfg.family == "ssm":
-            with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-                TT.init_params(cfg, device="cpu")
-            continue
         model = TT.init_params(cfg, device="cpu")
-        want = TT.HybridLM if cfg.family == "hybrid" else TT.AttnLM
+        want = {"hybrid": TT.HybridLM, "ssm": TT.RwkvLM}.get(cfg.family,
+                                                              TT.AttnLM)
         assert type(model) is want, arch

@@ -173,6 +173,6 @@ def test_engine_rejects_bad_requests_and_devices(served):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(cfg, model, slots=1, max_len=8)   # device=None: card
-    with pytest.raises(NotImplementedError):
-        ServeEngine(reduced(get_config("rwkv6-3b")), model, slots=1,
+    with pytest.raises(ValueError, match="token models"):
+        ServeEngine(reduced(get_config("musicgen-large")), model, slots=1,
                     max_len=8, device="cpu")
