@@ -195,10 +195,47 @@ Phases, each of which raises (non-zero exit) on failure:
                backward, and causal_conv1d at zamba2-7b's training shape
                (x [1, 4096, 7296] bf16; launches from phase 13's zamba2-7b
                steps) with its backward's time.
- 15. train profiles  one more train step of phase 6, then one of phase
+ 15. analyze  ``repro_torch.launch.analyze`` on the card over the six
+               paper CNNs' uncapped fprop/dgrad/wgrad scenes (every
+               feasible (schedule, blocking, tile) point verified
+               statically for this card's SMs and shared memory; the
+               card's own ``in_coord``, ``mg3m_in_coord_table``, equal to
+               the verifier's expected table bit for bit on every swept
+               exec scene; lint over ``src/repro_torch``), then
+               ``verify_plan`` on every plan of phases 4-7 (the served
+               trunk at buckets 1-8, the 30 training plans, the tuned
+               plans) and the card's ``in_coord`` on their exec scenes: 0
+               error findings.  For each compiled tile instance the plans
+               launch, its registers and the card's blocks per SM
+               (``mg3m_tile_attributes``) beside ``blocks_per_sm``'s;
+               ``occupancy-overestimate`` warnings counted, not gated.
+ 16. examples  ``repro_torch.examples.serve_lm`` at its defaults, and
+               ``train_lm --steps 20`` then the same run resumed from its
+               step-10 checkpoint alone: the resumed losses bitwise equal
+               to the uninterrupted run's.  Their reduced f32 models run
+               the f32 flash kernel, which each must launch: the
+               ``flash_attention_fwd_f32`` row (kernel, plain version,
+               SDPA in f32, bound at 67 TFLOP/s) at ``train_lm``'s shape,
+               its launches counted from 0 over the two ``train_lm`` runs
+               (``serve_lm``'s printed apart).
+ 17. train profiles  one more train step of phase 6, then one of phase
                13, each under ``torch.profiler`` (device busy time and idle
-               share), last so that no timed phase runs after a profiler
-               session.
+               share), after every timed phase, since no timed phase
+               should run after a profiler session.
+ 18. dry run and roofline  traced on the meta device, last so that no
+               timed phase shares the host with it: qwen2.5-3b's train
+               step (phase 13's seq 4096, batch 2 in 2 microbatches), its
+               2 x 2048 prefill and its decode step at 2 slots (phase 10):
+               predicted argument bytes and peak beside what the card
+               allocated there; the traced bound (``launch.roofline``:
+               FLOPs by dtype over the datasheet's peaks, bytes over
+               3.35 TB/s) and the model's own bound (its config's FLOPs
+               and unavoidable bytes) beside the measured time; the
+               measured fraction (traced bound / time), the model fraction
+               (model bound / time) and ``roofline_fraction`` must lie in
+               (0, 1.05].  Then one JSON line per (arch x shape) cell of
+               the full-size grid, traced in one process per CPU core (at
+               most 8), ``fits`` against this card's memory.
 
 In the ``kernels`` line, ``ms`` and ``library_ms`` are device time (20
 calls replayed from a CUDA graph, the host's time per call left out);
@@ -210,7 +247,8 @@ kernels, flash twice; each conv grain has a second row,
 ``<name>_main_path``, and each
 grain the train step launches a row ``<name>_train_path`` at its longest
 plan of the step; flash and causal_conv1d have ``<name>_train_path`` rows
-from phases 13 and 14, with ``backward_ms``), the card's name and power
+from phases 13 and 14, with ``backward_ms``; flash's f32 kernel the row
+``flash_attention_fwd_f32`` from phase 16), the card's name and power
 limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -229,10 +267,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM datasheet peaks the bounds are taken against (dense, 700 W).
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BW = 3.35e12
 
 KERNEL_SOURCE = "src/repro_torch/csrc/mg3m_conv.cu"
 SOURCES = ("mg3m_conv.cu", "causal_conv1d.cu", "flash_attention.cu")
@@ -644,6 +678,7 @@ def _grain_row(torch, sched, chain, plan, counts, errs, row_name, where):
     """One ``kernels`` row: the plan's kernel, its plain version and
     ``F.conv2d`` on one seeded input, beside the kernel's bound."""
     from repro_torch.kernels.mg3m_conv import conv_plain
+    from repro_torch.launch import roofline as R
 
     F = torch.nn.functional
     grain, sc = plan.schedule, plan.scene
@@ -670,8 +705,8 @@ def _grain_row(torch, sched, chain, plan, counts, errs, row_name, where):
     nbytes = (inp.numel() * inp.element_size()
               + flt.numel() * flt.element_size()
               + got.numel() * got.element_size())
-    ops_ms = sc.flops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BW * 1e3
+    ops_ms = sc.flops / R.PEAK_FLOPS_F32 * 1e3
+    bytes_ms = nbytes / R.HBM_BW * 1e3
     print(f"  {grain} at {where} B={sc.B}: kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
           f"{max(ops_ms, bytes_ms):.4f} ms")
@@ -972,6 +1007,7 @@ def train_kernel_phase(torch, run):
     bound, and the PyTorch call computing the same function.  Returns the
     ``<grain>_train_path`` rows: each launched grain at its longest plan."""
     from repro_torch.kernels.mg3m_conv import conv_plain
+    from repro_torch.launch import roofline as R
 
     F = torch.nn.functional
     grad = torch.nn.grad
@@ -1028,8 +1064,8 @@ def train_kernel_phase(torch, run):
         for d in plan.io_shapes()[2]:
             out_numel *= d
         nbytes = 4 * (a.numel() + b.numel() + out_numel)
-        ops_ms = sc.flops / PEAK_FP32_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_HBM_BW * 1e3
+        ops_ms = sc.flops / R.PEAK_FLOPS_F32 * 1e3
+        bytes_ms = nbytes / R.HBM_BW * 1e3
         bound = max(ops_ms, bytes_ms)
         in_step = (name, op) != (first, "dgrad")
         if in_step:
@@ -1229,7 +1265,8 @@ def tuned_serve(torch, sched, chain, cache):
     """A second scheduler over the same trunk and weights under
     ``policy="tuned"``: every plan from the tune cache, then the same
     requests at each bucket served by both sessions, bitwise equal, with
-    no measurement, plan build or resolution while serving."""
+    no measurement, plan build or resolution while serving.  Returns the
+    tuned plans."""
     from repro_torch.obs.metrics import default_metrics
     from repro_torch.plan import ConvOp
     from repro_torch.serve.sched import ConvScheduler, SchedConfig
@@ -1249,6 +1286,7 @@ def tuned_serve(torch, sched, chain, cache):
         raise AssertionError(f"{n_plans} tuned plans built with "
                              f"{cache.hits - h0} tune-cache hits and "
                              f"{cache.misses - miss0} misses")
+    plans = list(tsched.registry.plans().values())
     asess, tsess = sched.session("resnet"), tsched.session("resnet")
     sc0 = chain["resnet/L0"]
     gen = torch.Generator().manual_seed(20)
@@ -1286,6 +1324,7 @@ def tuned_serve(torch, sched, chain, cache):
         t_ms = _trunk_kernel_ms(torch, tsched, chain, b)
         print(f"  trunk kernels per forward, B={b}: analytic {a_ms:.4f} ms, "
               f"tuned {t_ms:.4f} ms (device)")
+    return plans
 
 
 def _wgrad_kernel_ms(torch, run) -> dict:
@@ -1320,7 +1359,8 @@ def tuned_train(torch, run):
     """The trainer of ``train_path`` again, its plans under
     ``policy="tuned"``: its losses must equal the analytic run's bitwise,
     with no measurement; then step ms of both runs, interleaved, and each
-    layer's wgrad kernel ms beside the analytic run's."""
+    layer's wgrad kernel ms beside the analytic run's.  Returns the tuned
+    trainer's plans."""
     from repro_torch.obs.metrics import default_metrics
 
     m = default_metrics()
@@ -1346,20 +1386,24 @@ def tuned_train(torch, run):
     for name in wa:
         print(f"  {name} wgrad: analytic {wa[name][1]} {wa[name][0]:.4f} "
               f"ms, tuned {wt[name][1]} {wt[name][0]:.4f} ms")
+    plans = [p for _, _, p in tuned["walk"]]
     del tuned
+    return plans
 
 
 def tune_phase(torch, sched, chain, run):
-    """Tune, calibrate, then serve and train under ``policy="tuned"``."""
+    """Tune, calibrate, then serve and train under ``policy="tuned"``.
+    Returns the tuned plans (serving's and training's)."""
     import gc
 
     t0 = time.perf_counter()
     cache = tune_and_calibrate(torch, chain, run)
-    tuned_serve(torch, sched, chain, cache)
-    tuned_train(torch, run)
+    plans = tuned_serve(torch, sched, chain, cache)
+    plans += tuned_train(torch, run)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"tune phase: {time.perf_counter() - t0:.1f} s")
+    return plans
 
 
 # --------------------------------------------------------------------------
@@ -1833,8 +1877,10 @@ def dense_lm(torch, np, gen) -> dict:
 
     cfg = get_config(DENSE_ARCH)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     model = init_params(cfg, seed=0)
     torch.cuda.synchronize()
+    weight_bytes = torch.cuda.memory_allocated() - base
     print(f"attention LM path: {_describe(cfg, model)}, seeded init "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1857,6 +1903,7 @@ def dense_lm(torch, np, gen) -> dict:
     reqs, lat, steps = _serve(torch, cfg, model, prompts, join=True)
     counts = _lm_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_peak = torch.cuda.max_memory_allocated() - base
     if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -1875,8 +1922,12 @@ def dense_lm(torch, np, gen) -> dict:
     cache = model.init_cache(2, MAX_LEN)
     pos = torch.full((2,), PROMPT_LENS[-1], device="cuda")
     tok = tokens(2, 1)
+    torch.cuda.synchronize()
+    decode_args = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
     dec_ms = median_ms(torch, lambda: model.decode_step(cache, pos,
                                                         tokens=tok))
+    decode_peak = torch.cuda.max_memory_allocated() - base
     dec_prof = lm_profile(
         torch, lambda: model.decode_step(cache, pos, tokens=tok),
         f"{cfg.name} decode step, 2 slots")
@@ -1910,7 +1961,9 @@ def dense_lm(torch, np, gen) -> dict:
     torch.cuda.empty_cache()
     return {"counts": counts, "prefill_s": prefill_s, "decode_ms": dec_ms,
             "head_copy_ms": copy_ms, "head_ms": head_ms,
-            "decode_profile": dec_prof, "prefill_profile": pre_prof}
+            "decode_profile": dec_prof, "prefill_profile": pre_prof,
+            "weight_bytes": weight_bytes, "prefill_peak": prefill_peak,
+            "decode_args": decode_args, "decode_peak": decode_peak}
 
 
 def moe_lm(torch, np, gen) -> None:
@@ -2023,6 +2076,8 @@ def lm_timing_phase(torch, counts, errs, dense_counts):
                                                    causal_conv1d_plain)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
+    from repro_torch.kernels.meta import causal_conv1d_flops, flash_flops
+    from repro_torch.launch import roofline as R
 
     F = torch.nn.functional
     bf = torch.bfloat16
@@ -2043,8 +2098,8 @@ def lm_timing_phase(torch, counts, errs, dense_counts):
         p_ms = time_ms(torch, plain)
         lib_ms = device_ms(torch, lib)
         nbytes += got.numel() * got.element_size()
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_HBM_BW * 1e3
+        ops_ms = flops / R.PEAK_FLOPS_BF16 * 1e3
+        bytes_ms = nbytes / R.HBM_BW * 1e3
         print(f"  {row_name or name} at {shape}: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms (max abs diff "
               f"to the kernel {lib_err:.3e}), bound {max(ops_ms, bytes_ms):.4f} ms")
@@ -2064,7 +2119,8 @@ def lm_timing_phase(torch, counts, errs, dense_counts):
     rows = [row("causal_conv1d", lambda: causal_conv1d(x, w),
                 lambda: causal_conv1d_plain(x, w),
                 lambda: F.conv1d(xt, wt, padding=k - 1, groups=c)[..., :l],
-                lambda y: y.transpose(1, 2), 2 * k * b * l * c,
+                lambda y: y.transpose(1, 2),
+                causal_conv1d_flops(b, l, c, k),
                 (x.numel() + w.numel()) * 2,
                 f"x [{b}, {l}, {c}] bf16, K={k}")]
     del x, w, xt, wt
@@ -2078,7 +2134,7 @@ def lm_timing_phase(torch, counts, errs, dense_counts):
         lambda: flash_attention_fwd(q, kk, v, causal=True),
         lambda: flash_attention_plain(q, kk, v, causal=True),
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-        lambda o: o.reshape(bh, s, d), 4 * bh * s * s * d // 2,
+        lambda o: o.reshape(bh, s, d), flash_flops(bh, s, s, d, True),
         (q.numel() + kk.numel() + v.numel()) * 2,
         f"q ({bh}, {s}, {d}) bf16 causal, {h} heads x {PREFILL_B}"))
     del q, kk, v, q4, k4, v4
@@ -2097,6 +2153,7 @@ def flash_dense_row(torch, row, rand, launches: int):
     qwen2.5-3b's main path."""
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
+    from repro_torch.kernels.meta import flash_flops
 
     F = torch.nn.functional
     b, s, _, h, hkv, d = DENSE_FLASH
@@ -2108,7 +2165,8 @@ def flash_dense_row(torch, row, rand, launches: int):
                lambda: flash_attention_plain(q, kk, v, causal=True),
                lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                       is_causal=True),
-               lambda o: o.reshape(b * h, s, d), 4 * b * h * s * s * d // 2,
+               lambda o: o.reshape(b * h, s, d),
+               flash_flops(b * h, s, s, d, True),
                (q.numel() + kk.numel() + v.numel()) * 2,
                f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads x {b}, "
                f"{hkv} kv heads ({DENSE_ARCH} prefill)",
@@ -2124,6 +2182,7 @@ def flash128_row(torch, row, rand, errs):
     zamba2-7b's head dim is 112)."""
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
+    from repro_torch.kernels.meta import flash_flops
 
     F = torch.nn.functional
     b, h, hkv, s, d = (FLASH128_B, FLASH128_H, FLASH128_HKV, PREFILL_S,
@@ -2136,7 +2195,8 @@ def flash128_row(torch, row, rand, errs):
               lambda: flash_attention_plain(q, kk, v, causal=True),
               lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                      is_causal=True),
-              lambda o: o.reshape(b * h, s, d), 4 * b * h * s * s * d // 2,
+              lambda o: o.reshape(b * h, s, d),
+              flash_flops(b * h, s, s, d, True),
               (q.numel() + kk.numel() + v.numel()) * 2,
               f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads x {b}, "
               f"{hkv} kv heads")
@@ -2411,10 +2471,12 @@ def lm_train_phase(torch, np) -> dict:
     errs = {}
     flash_train_checks(torch, errs)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     model = init_params(cfg, seed=0, trainable=True)
     moments = "bfloat16" if cfg.param_count() >= 30e9 else "float32"
     state = S.init_train_state(model, moments)
     torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
     print(f"LM train: {_describe(cfg, model)}; checkpointing "
           f"{cfg.remat_policy}; {moments} moments; seq {LM_TRAIN_SEQ}, "
           f"global batch {LM_TRAIN_BATCH} (train_4k's "
@@ -2463,6 +2525,7 @@ def lm_train_phase(torch, np) -> dict:
         counts = _lm_counts()
         bwd = FlashAttention.backward_calls - bwd0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_peak = torch.cuda.max_memory_allocated() - base
     n_steps = 2 + LM_TRAIN_STEPS
     if not (all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]
@@ -2492,7 +2555,8 @@ def lm_train_phase(torch, np) -> dict:
     print(f"LM train phase: {time.perf_counter() - t_phase:.1f} s")
     return {"model": model, "state": state, "step": step, "batch": batch,
             "hooks": hooks, "counts": counts, "errs": errs, "step_ms": ms,
-            "tokens_s": tok_s, "peak_gb": peak_gb, "losses": losses}
+            "tokens_s": tok_s, "peak_gb": peak_gb, "losses": losses,
+            "state_bytes": state_bytes, "step_peak": step_peak}
 
 
 def hybrid_train_step(torch) -> dict:
@@ -2701,6 +2765,8 @@ def lm_train_rows(torch, train, hybrid, errs):
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain,
                                                      flash_attention_vjp)
+    from repro_torch.kernels.meta import causal_conv1d_flops, flash_flops
+    from repro_torch.launch import roofline as R
 
     F = torch.nn.functional
     bf = torch.bfloat16
@@ -2728,10 +2794,10 @@ def lm_train_rows(torch, train, hybrid, errs):
     dref = do4.transpose(1, 2).contiguous()
     lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
         ref, leaves, dref, retain_graph=True), iters=3)
-    flops = 4 * b * h * s * s * d // 2
+    flops = flash_flops(b * h, s, s, d, True)
     nbytes = (q.numel() + kk.numel() + v.numel() + got.numel()) * 2
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, \
-        nbytes / PEAK_HBM_BW * 1e3
+    ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
+        nbytes / R.HBM_BW * 1e3
     source, replaces = LM_KERNELS["flash_attention_fwd"]
     rows.append({
         "name": "flash_attention_fwd_train_path", "route": "cuda",
@@ -2767,10 +2833,10 @@ def lm_train_rows(torch, train, hybrid, errs):
     lib_ms = device_ms(torch, lambda: F.conv1d(xt, wt, padding=kw - 1,
                                                groups=c))
     bwd_ms = time_ms(torch, lambda: causal_conv1d_grads(x, w, dy))
-    flops = 2 * kw * LM_TRAIN_SEQ * c
+    flops = causal_conv1d_flops(1, LM_TRAIN_SEQ, c, kw)
     nbytes = (x.numel() + w.numel() + got.numel()) * 2
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, \
-        nbytes / PEAK_HBM_BW * 1e3
+    ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
+        nbytes / R.HBM_BW * 1e3
     source, replaces = LM_KERNELS["causal_conv1d"]
     rows.append({
         "name": "causal_conv1d_train_path", "route": "cuda",
@@ -2789,6 +2855,232 @@ def lm_train_rows(torch, train, hybrid, errs):
           f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms; backward "
           f"(torch ops) {bwd_ms:.3f} ms")
     return rows
+
+
+# --------------------------------------------------------------------------
+# static analysis, examples, dry run and roofline (phases 15, 16, 18)
+# --------------------------------------------------------------------------
+GRID_JOBS = 8              # most worker processes of the dry-run grid
+# the steps phases 10 and 13 time, as (name, shape, batch, seq, microbatches)
+CUT_CELLS = (("train_step", "train_4k", LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+              LM_TRAIN_N_MB),
+             ("prefill", "prefill_32k", PREFILL_B, PREFILL_S, None),
+             ("decode_step", "decode_32k", 2, MAX_LEN, None))
+
+
+def analyze_phase(torch, plans) -> None:
+    """``launch.analyze`` on the card over the six paper CNNs' full scenes
+    (every feasible point, the card's own in_coord against the expected
+    table for every swept exec scene, lint); then ``verify_plan`` on every
+    plan of phases 4-7 and the card's in_coord on each of their exec
+    scenes; 0 error findings.  For each compiled tile instance the plans
+    launch: its registers, and the card's blocks per SM beside
+    ``blocks_per_sm``'s at each of its plans' footprints."""
+    from repro_torch.analysis import verify as V
+    from repro_torch.analysis.footprint import tile_threads, vmem_bytes
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.core.mapping import blocks_per_sm, device_limits
+    from repro_torch.core.scene import dtype_name
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.launch import analyze
+
+    t0 = time.perf_counter()
+    if analyze.main(["--device", "cuda", "--no-cache", "--full"]) != 0:
+        raise AssertionError("launch.analyze reported error findings")
+    findings, scenes, instances = [], {}, {}
+    for plan in plans:
+        findings += V.verify_plan(plan, device="cuda")
+        if plan.uses_reference:
+            continue
+        ex, spec, tile = plan.exec_scene, plan.spec, plan.choice.tile
+        scenes[ex.describe()] = ex
+        smem = vmem_bytes(ex, spec.schedule, spec.bm, spec.bn, spec.bk, tile)
+        instances.setdefault((spec.schedule, tuple(tile),
+                              dtype_name(ex.dtype)), set()).add(smem)
+    for ex in scenes.values():
+        findings += V.device_index_map(ex, "cuda")
+    errors = V.errors(findings)
+    if errors:
+        raise AssertionError(f"{len(errors)} error findings on the plans of "
+                             f"phases 4-7: {[f.message for f in errors[:4]]}")
+    warned = [f for f in findings if f.code == "occupancy-overestimate"]
+    print(f"analyze: {len(plans)} plans of phases 4-7 ({len(scenes)} exec "
+          f"scenes) verified for the card: 0 errors, {len(warned)} "
+          f"occupancy-overestimate warnings; the card's in_coord equals the "
+          f"expected table on all {len(scenes)} exec scenes")
+    smem_sm = device_limits("cuda")[1]
+    for (grain, tile, dt), smems in sorted(instances.items()):
+        pairs = []
+        for smem in sorted(smems):
+            a = K.tile_attributes(grain, tile, dt, smem)
+            pairs.append(f"{a['blocks_per_sm']}/"
+                         f"{blocks_per_sm(smem, tile_threads(tile), smem_sm)}")
+        print(f"  tile {grain} {tile} {dt}: {a['registers']} registers, "
+              f"{a['local_bytes']} B local a thread; blocks per SM card/"
+              f"model at its {len(smems)} footprints: {', '.join(pairs)}")
+    bad = lint_paths(str(SRC / "repro_torch"))
+    if bad:
+        raise AssertionError(f"lint: {[str(f) for f in bad[:4]]}")
+    print(f"analyze phase: {time.perf_counter() - t0:.1f} s")
+
+
+def measured_steps(dense, train) -> dict:
+    """What phases 10 and 13 measured of the three steps of
+    ``CUT_CELLS``: ms, argument bytes, peak and their descriptions."""
+    return {
+        "train_step": (train["step_ms"], train["state_bytes"],
+                       train["step_peak"], "the state", "the train phase"),
+        "prefill": (dense["prefill_s"] * 1e3, dense["weight_bytes"],
+                    dense["prefill_peak"], "the weights",
+                    "the prefill and serving"),
+        "decode_step": (dense["decode_ms"], dense["decode_args"],
+                        dense["decode_peak"], "the weights and cache",
+                        "the timed decode steps")}
+
+
+def roofline_phase(measured: dict) -> None:
+    """The dry run and roofline of the three steps phases 10 and 13 timed
+    (qwen2.5-3b's train step, 2 x 2048 prefill and decode step at 2
+    slots), traced here on the meta device after every timed phase:
+    predicted argument bytes and peak beside what the card allocated, the
+    traced bound and the model's own bound beside the measured time; the
+    measured fraction (traced bound / time, a check of the count), the
+    model fraction (model bound / time) and ``roofline_fraction`` must lie
+    in (0, 1.05].  Then one JSON line per cell of the full-size grid, in
+    one worker process per CPU core (at most ``GRID_JOBS``), ``fits``
+    against this card's memory."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as R
+
+    t0 = time.perf_counter()
+    for name, shape, b, seq, n_mb in CUT_CELLS:
+        ms, args, peak, what, when = measured[name]
+        r = R.run_cell(DENSE_ARCH, shape, batch_override=b, seq_override=seq,
+                       n_microbatches=n_mb)
+        fracs = {"measured fraction": R.measured_fraction(r, ms / 1e3),
+                 "model fraction": R.model_fraction(r, ms / 1e3),
+                 "roofline_fraction": r["roofline_fraction"]}
+        t, mt = r["terms_s"], r["model_terms_s"]
+        print(f"roofline: {DENSE_ARCH} {name} ({r['batch']} x "
+              f"{r['seq_len']}, {r['n_microbatches']} microbatches): "
+              f"arguments predicted {r['memory']['argument_bytes'] / 1e9:.3f}"
+              f" GB, {what} allocated {args / 1e9:.3f} GB; peak predicted "
+              f"{r['memory']['peak_bytes'] / 1e9:.3f} GB, over {when} "
+              f"{peak / 1e9:.3f} GB; traced bound {r['bound_s'] * 1e3:.2f} "
+              f"ms ({r['dominant']}; compute {t['compute'] * 1e3:.2f} ms, "
+              f"memory {t['memory'] * 1e3:.2f} ms), model bound "
+              f"{r['model_bound_s'] * 1e3:.2f} ms (compute "
+              f"{mt['compute'] * 1e3:.2f} ms, memory "
+              f"{mt['memory'] * 1e3:.2f} ms) against {ms:.2f} ms measured: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in fracs.items())
+              + f"; FLOPs by dtype "
+              f"{ {k: f'{v:.4g}' for k, v in r['flops_by_dtype'].items()} }"
+              f", bytes {r['per_chip']['bytes']:.4g}, model FLOPs "
+              f"{r['model_flops_global']:.4g}; traced in {r['probe_s']} s")
+        for what_, f in fracs.items():
+            if not 0 < f <= 1.05:
+                raise AssertionError(f"{name}: {what_} {f} outside "
+                                     f"(0, 1.05]: the count is wrong")
+    t1, n_fit = time.perf_counter(), 0
+    jobs = min(len(os.sched_getaffinity(0)), GRID_JOBS)
+    for cell in dryrun.run_grid(jobs=jobs):
+        n_fit += bool(cell.get("fits"))
+        print(json.dumps(cell))
+    cap = dryrun.card_memory_bytes()
+    print(f"dry-run grid: {n_fit} cells fit this card's {cap / 1e9:.1f} GB "
+          f"({time.perf_counter() - t1:.1f} s in {jobs} processes); "
+          f"roofline phase {time.perf_counter() - t0:.1f} s")
+
+
+def examples_phase(torch, tmp: str) -> dict:
+    """The two LM examples in-process on the card: ``serve_lm`` at its
+    defaults, then ``train_lm --steps 20`` (checkpoints every 10) and the
+    same run resumed from its step-10 checkpoint alone, whose 10 losses
+    must equal the uninterrupted run's last 10 bit for bit.  Their
+    models are reduced f32 configs, so flash runs its f32 kernel
+    (``flash_fwd_kernel``), which each example must launch: with the
+    launch counts set to 0 after ``serve_lm`` and read after the two
+    ``train_lm`` runs, returns its row at ``train_lm``'s shape."""
+    from repro_torch.examples import serve_lm, train_lm
+
+    t0 = time.perf_counter()
+    _reset_lm_counts()
+    reqs = serve_lm.main([])
+    if not all(r.done and 0 < len(r.out) and all(0 <= t < 512 for t in r.out)
+               for r in reqs):
+        raise AssertionError(f"serve_lm: {[(r.done, r.out) for r in reqs]}")
+    serve_launches = _lm_counts()["flash_attention_fwd"]
+    _reset_lm_counts()
+    full_dir, cut_dir = (tempfile.mkdtemp(dir=tmp) for _ in range(2))
+    argv = ["--steps", "20", "--ckpt-every", "10"]
+    full = train_lm.main(argv + ["--ckpt-dir", full_dir])
+    shutil.copytree(os.path.join(full_dir, "step_00000010"),
+                    os.path.join(cut_dir, "step_00000010"))
+    resumed = train_lm.main(argv + ["--ckpt-dir", cut_dir, "--resume"])
+    launches = _lm_counts()["flash_attention_fwd"]
+    if not all(math.isfinite(x) for x in full) or resumed != full[10:]:
+        raise AssertionError(f"train_lm: resumed losses {resumed} differ "
+                             f"from the uninterrupted run's {full[10:]}")
+    if serve_launches == 0 or launches == 0:
+        raise AssertionError(f"flash launched {serve_launches} times in "
+                             f"serve_lm, {launches} in train_lm")
+    print(f"examples: serve_lm served {len(reqs)} requests (flash launched "
+          f"{serve_launches} times); train_lm "
+          f"{len(full)} steps, loss {full[0]:.4f} -> {full[-1]:.4f}, "
+          f"resumed at step 10 bitwise equal (flash launched {launches} "
+          f"times over both runs, at the f32 row's shape); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return flash_f32_row(torch, launches)
+
+
+def flash_f32_row(torch, launches: int) -> dict:
+    """The f32 flash kernel (``flash_fwd_kernel``) at ``train_lm``'s
+    default shape (batch 8, seq 256, 4 heads of 64 over 2 kv heads,
+    causal): kernel, plain version and ``scaled_dot_product_attention``
+    in f32 (TF32 off), beside the bound at the f32 rate: the
+    ``flash_attention_fwd_f32`` row, its launches the examples'."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.meta import flash_flops
+    from repro_torch.launch import roofline as R
+
+    F = torch.nn.functional
+    b, s, h, hkv, d = 8, 256, 4, 2, 64
+    gen = torch.Generator().manual_seed(19)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    q, kk, v = rand(b * h, s, d), rand(b * hkv, s, d), rand(b * hkv, s, d)
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, kk, v))
+    k4, v4 = (t.repeat_interleave(h // hkv, 1) for t in (k4, v4))
+    got = flash_attention_fwd(q, kk, v, causal=True)
+    errs = {}
+    _hold(torch, "flash_attention_fwd", "float32", got,
+          flash_attention_plain(q, kk, v, causal=True), errs, "f32 row")
+    k_ms = device_ms(torch, lambda: flash_attention_fwd(q, kk, v,
+                                                        causal=True))
+    p_ms = time_ms(torch, lambda: flash_attention_plain(q, kk, v,
+                                                        causal=True))
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    flops = flash_flops(b * h, s, s, d, True)
+    nbytes = (q.numel() + kk.numel() + v.numel() + got.numel()) * 4
+    ops_ms = flops / R.PEAK_FLOPS_F32 * 1e3
+    bytes_ms = nbytes / R.HBM_BW * 1e3
+    source, replaces = LM_KERNELS["flash_attention_fwd"]
+    print(f"  flash_attention_fwd_f32 at q ({b * h}, {s}, {d}) f32 causal: "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA (f32) "
+          f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms")
+    return {"name": "flash_attention_fwd_f32", "route": "cuda",
+            "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[("flash_attention_fwd", "float32")],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms,
+            "shape": f"q ({b * h}, {s}, {d}), k/v ({b * hkv}, {s}, {d}) f32 "
+                     f"causal (train_lm's default)",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
 def isolate_tune_artifacts() -> str:
@@ -2830,6 +3122,10 @@ def smoke(torch, tmp: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    return phases(torch, np, tmp, card)
+
+
+def phases(torch, np, tmp: str, card: str) -> int:
     from repro_torch.kernels import cuda_build
     t0 = time.perf_counter()
     cuda_build.load_all(SOURCES)
@@ -2861,7 +3157,7 @@ def smoke(torch, tmp: str) -> int:
     rows = timing_phase(torch, sched, chain, counts, errs)
     train_rows, train_run = train_phase(torch)
     rows += train_rows
-    tune_phase(torch, sched, chain, train_run)
+    tuned_plans = tune_phase(torch, sched, chain, train_run)
 
     lm_errs = lm_kernel_phase(torch)
     lm_counts, _ = lm_path(torch, np)
@@ -2873,8 +3169,13 @@ def smoke(torch, tmp: str) -> int:
     lm_errs.update(lm_train["errs"])
     lm_grad_oracle(torch)
     rows += lm_train_rows(torch, lm_train, hybrid, lm_errs)
+    analyze_phase(torch, list(sched.registry.plans().values())
+                  + [p for _, _, p in train_run["walk"]] + tuned_plans)
+    rows.append(examples_phase(torch, tmp))
+    measured = measured_steps(dense, lm_train)
     train_profile(torch, train_run)
     lm_train_profile(torch, lm_train)
+    roofline_phase(measured)
 
     print(json.dumps({"kernels": rows}))
     print(card)

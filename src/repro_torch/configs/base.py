@@ -1,13 +1,16 @@
 """Architecture config schema (port of ``repro.configs.base``).
 
 Pure data: the dataclasses and ``SHAPES`` are copies of the reference's.
-``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the dry-run) waits
-for the port of ``launch/``.
+``input_specs`` gives the dry run's inputs as tensors on the ``meta``
+device (shapes and dtypes, no data) where the reference gives
+``jax.ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +123,37 @@ SHAPES: Dict[str, Dict] = {
     "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
 }
 
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                batch_override: int = None, *, seq_override: int = None,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of one dry-run cell: empty tensors
+    of the reference's shapes and dtypes on ``device`` (default ``meta``).
+
+    For ``embed_inputs=False`` archs (vlm/audio) the modality frontend is a
+    stub: the spec hands the backbone precomputed frame/patch embeddings.
+    ``batch_override`` substitutes the global batch (probes trace a single
+    microbatch), ``seq_override`` the sequence length (a cut cell)."""
+    from repro_torch.device import torch_dtype
+    spec = SHAPES[shape_name]
+    b = batch_override or spec["global_batch"]
+    s = seq_override or spec["seq_len"]
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    act = torch_dtype(cfg.dtype)
+    if spec["kind"] == "train":
+        if cfg.embed_inputs:
+            return {"tokens": empty(b, s), "labels": empty(b, s)}
+        return {"embeds": empty(b, s, cfg.d_model, dtype=act),
+                "labels": empty(b, s)}
+    if spec["kind"] == "prefill":
+        if cfg.embed_inputs:
+            return {"tokens": empty(b, s)}
+        return {"embeds": empty(b, s, cfg.d_model, dtype=act)}
+    # decode: one new token against a cache of length s
+    if cfg.embed_inputs:
+        return {"tokens": empty(b, 1), "position": empty(b)}
+    return {"embeds": empty(b, 1, cfg.d_model, dtype=act),
+            "position": empty(b)}

@@ -883,16 +883,31 @@ static int tb88_shape(const void* in, const void* flt, void* out,
                 (T*)out, g, s, BM / TM * (BC / TC));
 }
 
-// The compiled (BM, BC, TM, TC) tiles of TB11 (footprint.TB11_SHAPES) and
-// TB88 (footprint.TB88_SHAPES).
+// The compiled (BM, BC, TM, TC) tiles of each grain (footprint.TB11_SHAPES,
+// TB18_SHAPES, TB88_SHAPES), each named once: a dispatcher defines
+// <grain>_SHAPE for one tile, expands the list, and undefines it.
+#define TB11_TILES                                                       \
+  TB11_SHAPE(64, 128, 8, 8) TB11_SHAPE(64, 128, 8, 4)                    \
+  TB11_SHAPE(64, 64, 8, 4) TB11_SHAPE(64, 64, 4, 4) TB11_SHAPE(64, 32, 4, 4)
+#define TB18_TILES                                                       \
+  TB18_SHAPE(32, 64, 8, 4) TB18_SHAPE(32, 128, 8, 4)                     \
+  TB18_SHAPE(32, 256, 8, 4) TB18_SHAPE(64, 128, 8, 4)                    \
+  TB18_SHAPE(128, 64, 8, 4) TB18_SHAPE(8, 64, 4, 2)                      \
+  TB18_SHAPE(8, 128, 4, 2) TB18_SHAPE(16, 64, 4, 2)                      \
+  TB18_SHAPE(16, 128, 4, 2) TB18_SHAPE(32, 64, 4, 2)
+#define TB88_TILES                                                       \
+  TB88_SHAPE(128, 64, 8, 8) TB88_SHAPE(64, 128, 8, 8)                    \
+  TB88_SHAPE(64, 128, 8, 4) TB88_SHAPE(64, 64, 8, 4)                     \
+  TB88_SHAPE(64, 64, 4, 4) TB88_SHAPE(32, 128, 8, 4)                     \
+  TB88_SHAPE(64, 32, 4, 4) TB88_SHAPE(128, 32, 4, 4)
+
 template <typename T>
 static int tb11(const void* in, const void* flt, void* out, const Geom& g,
                 cudaStream_t s) {
 #define TB11_SHAPE(BM_, BC_, TM_, TC_)                                \
   if (g.tbm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)      \
     return tb11_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
-  TB11_SHAPE(64, 128, 8, 8) TB11_SHAPE(64, 128, 8, 4)
-  TB11_SHAPE(64, 64, 8, 4) TB11_SHAPE(64, 64, 4, 4) TB11_SHAPE(64, 32, 4, 4)
+  TB11_TILES
 #undef TB11_SHAPE
   return -1;
 }
@@ -903,10 +918,7 @@ static int tb88(const void* in, const void* flt, void* out, const Geom& g,
 #define TB88_SHAPE(BM_, BC_, TM_, TC_)                                \
   if (g.tbm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)      \
     return tb88_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
-  TB88_SHAPE(128, 64, 8, 8) TB88_SHAPE(64, 128, 8, 8)
-  TB88_SHAPE(64, 128, 8, 4) TB88_SHAPE(64, 64, 8, 4)
-  TB88_SHAPE(64, 64, 4, 4) TB88_SHAPE(32, 128, 8, 4)
-  TB88_SHAPE(64, 32, 4, 4) TB88_SHAPE(128, 32, 4, 4)
+  TB88_TILES
 #undef TB88_SHAPE
   return -1;
 }
@@ -929,7 +941,7 @@ static int tb18_shape(const void* in, const void* flt, void* out,
                 BM / TM * (BC / TC));
 }
 
-// The compiled (BM, BC, TM, TC) tiles: analysis/footprint.TB18_SHAPES.
+// TB18 runs the smallest compiled m-tile that holds its slice.
 template <typename T>
 static int tb18(const void* in, const void* flt, void* out, const Geom& g,
                 cudaStream_t s) {
@@ -938,11 +950,7 @@ static int tb18(const void* in, const void* flt, void* out, const Geom& g,
 #define TB18_SHAPE(BM_, BC_, TM_, TC_)                              \
   if (bm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)       \
     return tb18_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
-  TB18_SHAPE(32, 64, 8, 4) TB18_SHAPE(32, 128, 8, 4) TB18_SHAPE(32, 256, 8, 4)
-  TB18_SHAPE(64, 128, 8, 4) TB18_SHAPE(128, 64, 8, 4)
-  TB18_SHAPE(8, 64, 4, 2) TB18_SHAPE(8, 128, 4, 2)
-  TB18_SHAPE(16, 64, 4, 2) TB18_SHAPE(16, 128, 4, 2)
-  TB18_SHAPE(32, 64, 4, 2)
+  TB18_TILES
 #undef TB18_SHAPE
   return -1;
 }
@@ -958,6 +966,74 @@ static bool valid(const Geom* g) {
 // TB18 slices and TB88 m-tiles: a width that divides M.
 static bool valid_bm(const Geom* g) {
   return g->bm > 0 && g->bm <= 128 && g->M % g->bm == 0;
+}
+
+// ---------------------------------------------------------------------------
+// verifier hooks, for analysis/verify.py and chip_smoke.py only:
+// mg3m_in_coord_table evaluates the device's own in_coord over one axis,
+// mg3m_tile_attributes reports what the runtime says of one compiled tile
+// instance (registers, limits, occupancy at the plan's shared memory)
+// ---------------------------------------------------------------------------
+__global__ void in_coord_table_kernel(Geom g, int axis, int* out) {
+  const int taps = axis == 0 ? g.fh : g.fw;
+  const int n_out = axis == 0 ? g.outH : g.outW;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_out * taps) return;
+  const int o = e / taps, t = e - o * taps;
+  out[e] = axis == 0
+               ? in_coord(o, t, g.stdH, g.fdilH, g.padH, g.dilH, g.Hl)
+               : in_coord(o, t, g.stdW, g.fdilW, g.padW, g.dilW, g.Wl);
+}
+
+// registers, max threads per block, max dynamic shared memory (after the
+// opt-in to smem), resident blocks per SM at smem, local bytes per thread
+template <typename K>
+static int tile_attrs_of(K kernel, int smem, int threads, int* out) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = a.maxThreadsPerBlock;
+  out[2] = a.maxDynamicSharedSizeBytes;
+  out[3] = blocks;
+  out[4] = (int)a.localSizeBytes;
+  return 0;
+}
+
+// grain: 0 = TB11, 1 = TB18, 2 = TB88; t: the compiled (BM, BC, TM, TC)
+template <typename T>
+static int tile_attrs(int grain, const int* t, int smem, int* out) {
+#define TB11_SHAPE(BM_, BC_, TM_, TC_)                                    \
+  if (grain == 0 && t[0] == BM_ && t[1] == BC_ && t[2] == TM_ &&          \
+      t[3] == TC_)                                                        \
+    return tile_attrs_of(mg3m_tb11_kernel<T, BM_, BC_, TM_, TC_>, smem,   \
+                         BM_ / TM_ * (BC_ / TC_), out);
+  TB11_TILES
+#undef TB11_SHAPE
+#define TB18_SHAPE(BM_, BC_, TM_, TC_)                                    \
+  if (grain == 1 && t[0] == BM_ && t[1] == BC_ && t[2] == TM_ &&          \
+      t[3] == TC_)                                                        \
+    return tile_attrs_of(mg3m_tb18_kernel<T, BM_, BC_, TM_, TC_>, smem,   \
+                         BM_ / TM_ * (BC_ / TC_), out);
+  TB18_TILES
+#undef TB18_SHAPE
+#define TB88_SHAPE(BM_, BC_, TM_, TC_)                                    \
+  if (grain == 2 && t[0] == BM_ && t[1] == BC_ && t[2] == TM_ &&          \
+      t[3] == TC_)                                                        \
+    return tile_attrs_of(mg3m_tb88_kernel<T, BM_, BC_, TM_, TC_>, smem,   \
+                         BM_ / TM_ * (BC_ / TC_), out);
+  TB88_TILES
+#undef TB88_SHAPE
+  return -1;
 }
 
 extern "C" {
@@ -992,6 +1068,24 @@ int mg3m_tb88(int dtype, const void* in, const void* flt, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return tb88<float>(in, flt, out, *g, s);
   if (dtype == 1) return tb88<__nv_bfloat16>(in, flt, out, *g, s);
+  return -1;
+}
+
+// out: [outH][fh] (axis 0) or [outW][fw] (axis 1) int32 on the device
+int mg3m_in_coord_table(const Geom* g, int axis, int* out, void* stream) {
+  if (!valid(g) || !out || (axis != 0 && axis != 1)) return -1;
+  const int n = axis == 0 ? g->outH * g->fh : g->outW * g->fw;
+  in_coord_table_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      *g, axis, out);
+  return (int)cudaGetLastError();
+}
+
+// out: the five values of tile_attrs_of; -1 for a tile not compiled
+int mg3m_tile_attributes(int grain, const int* tile, int dtype, int smem,
+                         int* out) {
+  if (!tile || !out || smem < 0) return -1;
+  if (dtype == 0) return tile_attrs<float>(grain, tile, smem, out);
+  if (dtype == 1) return tile_attrs<__nv_bfloat16>(grain, tile, smem, out);
   return -1;
 }
 

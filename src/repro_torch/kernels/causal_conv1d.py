@@ -21,8 +21,9 @@ sum rounded on its own — so they agree bit for bit in f32.  (The oracle
 reference's does; it differs from both by rounding only.)
 
 On a CPU tensor ``causal_conv1d`` runs the plain version; a CUDA tensor
-launches the kernel or raises.  Launches are counted in
-``causal_conv1d.launches``.
+launches the kernel or raises; a meta tensor (the dry run's) gets an empty
+output and the kernel's closed-form cost reported to ``kernels.meta``.
+Launches are counted in ``causal_conv1d.launches``.
 
 Gradients: ``CausalConv1d`` (a ``torch.autograd.Function``) runs the
 forward through ``causal_conv1d`` (the kernel on the card) and computes
@@ -40,7 +41,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, meta
 
 SOURCE = "causal_conv1d.cu"
 MAX_TAPS = 4
@@ -113,6 +114,10 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     if x.device.type == "cpu":
         return causal_conv1d_plain(x, w)
+    if x.device.type == "meta":
+        y = torch.empty_like(x)
+        meta.record_causal_conv1d(x, w, y)
+        return y
     y = _launch(x, w)
     causal_conv1d.launches += 1
     return y

@@ -32,7 +32,9 @@ with V) is the Pallas kernel's function and the yardstick both kernels are
 held to: the f32 kernel within 2e-4, the bf16 one within 2e-2.  The
 reference's chunked JAX attention (``models/layers.py:219``) instead casts
 ``p`` to V's dtype.  On a CPU tensor the wrappers run the plain version; a
-CUDA tensor launches a kernel or raises.  Launches are counted in
+CUDA tensor launches a kernel or raises; a meta tensor (the dry run's)
+gets an empty output and the kernel's closed-form cost reported to
+``kernels.meta``.  Launches are counted in
 ``flash_attention_fwd.launches``.
 
 Gradients: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
@@ -53,7 +55,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, meta
 
 SOURCE = "flash_attention.cu"
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -181,6 +183,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        meta.record_flash(q, k, v, out, causal)
+        return out
     out = _launch(q, k, v, causal)
     flash_attention_fwd.launches += 1
     return out
@@ -298,8 +304,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         FlashAttention.backward_calls += 1
-        return flash_attention_vjp(q, k, v, dout, *ctx.attrs) + \
-            (None, None, None)
+
+        def vjp():
+            return flash_attention_vjp(q, k, v, dout, *ctx.attrs)
+
+        grads = meta.repeated((q, k, v, dout), ctx.attrs, vjp) \
+            if q.device.type == "meta" else vjp()
+        return grads + (None, None, None)
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -236,7 +236,62 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mg3m_error_string.argtypes = [ctypes.c_int]
     lib.mg3m_error_string.restype = ctypes.c_char_p
+    lib.mg3m_in_coord_table.argtypes = [ctypes.POINTER(_Geom), ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_void_p]
+    lib.mg3m_in_coord_table.restype = ctypes.c_int
+    lib.mg3m_tile_attributes.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.mg3m_tile_attributes.restype = ctypes.c_int
     return lib
+
+
+# --------------------------------------------------------------------------
+# hooks for the verifier: the device's own index map and compiled tiles
+# --------------------------------------------------------------------------
+GRAIN_CODE = {"TB11": 0, "TB18": 1, "TB88": 2}
+TILE_ATTRIBUTES = ("registers", "max_threads", "max_dynamic_smem",
+                   "blocks_per_sm", "local_bytes")
+
+
+def in_coord_table(geom: _Geom, axis: str, device=None) -> torch.Tensor:
+    """The device's ``in_coord`` (``csrc/mg3m_conv.cu``) evaluated for
+    every (output coordinate, tap) of one axis (``"h"`` or ``"w"``) of
+    ``geom``, on ``device`` (default the current card): an int32
+    ``[out, taps]`` CPU tensor, -1 where the tap is masked."""
+    n_out, taps = ((geom.outH, geom.fh) if axis == "h"
+                   else (geom.outW, geom.fw))
+    dev = torch.device("cuda" if device is None else device)
+    out = torch.empty((n_out, taps), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mg3m_in_coord_table(ctypes.byref(geom),
+                                     0 if axis == "h" else 1,
+                                     out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mg3m_in_coord_table failed: "
+                           f"{lib.mg3m_error_string(rc).decode()} ({rc})")
+    return out.cpu()
+
+
+def tile_attributes(schedule: str, tile: Tuple[int, ...], dtype: str,
+                    smem: int) -> Dict[str, int]:
+    """What the card reports for one compiled tile instance: registers
+    per thread, the most threads a block may have, the most dynamic
+    shared memory it may opt into, the blocks an SM holds at ``smem``
+    bytes of dynamic shared memory (``cudaOccupancyMaxActiveBlocks
+    PerMultiprocessor``) and its local (spill) bytes per thread."""
+    tile_c = (ctypes.c_int * 4)(*tile)
+    out = (ctypes.c_int * len(TILE_ATTRIBUTES))()
+    lib = library()
+    rc = lib.mg3m_tile_attributes(GRAIN_CODE[schedule], tile_c,
+                                  0 if dtype == "float32" else 1, smem, out)
+    if rc != 0:
+        raise RuntimeError(f"mg3m_tile_attributes({schedule}, {tile}, "
+                           f"{dtype}) failed: "
+                           f"{lib.mg3m_error_string(rc).decode()} ({rc})")
+    return dict(zip(TILE_ATTRIBUTES, out))
 
 
 def launch_grid(spec: LaunchSpec, device=None) -> Tuple[int, int, int, int]:
@@ -265,6 +320,27 @@ def launch_grid(spec: LaunchSpec, device=None) -> Tuple[int, int, int, int]:
     return ceil_div(items, per_block), rows, bc, threads
 
 
+def launch_geom(spec: LaunchSpec, device=None) -> _Geom:
+    """The ``Geom`` a launch of ``spec`` on ``device`` passes the kernel
+    (``csrc/mg3m_conv.cu``): the launched extents, the index map's
+    stride, dilation and padding (zero padding and unit lhs dilation on
+    the dense route, where the input arrives pre-padded), the blocking,
+    the persistent grid of ``launch_grid`` and the compiled tile."""
+    sc = spec.scene
+    pad_h, pad_w, dil_h, dil_w = _index_params(sc)
+    hl, wl, k, n = spec.in_shape
+    return _Geom(hl, wl, k, n, spec.flt_shape[3], sc.outH, sc.outW,
+                 sc.fltH, sc.fltW, sc.stdH, sc.stdW, sc.fdilH, sc.fdilW,
+                 pad_h, pad_w, dil_h, dil_w, spec.bm, spec.bk,
+                 launch_grid(spec, device)[0], *spec.tile[1:],
+                 spec.tile[0])
+
+
+def geom_fields(geom: _Geom) -> Dict[str, int]:
+    """A ``Geom``'s fields by name."""
+    return {name: getattr(geom, name) for name, _ in _Geom._fields_}
+
+
 def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
             flt: torch.Tensor) -> torch.Tensor:
     _require(inp.is_cuda and flt.device == inp.device,
@@ -276,13 +352,7 @@ def _launch(fn_name: str, spec: LaunchSpec, inp: torch.Tensor,
     _require(inp.is_contiguous() and flt.is_contiguous(),
              f"{fn_name}: operands must be contiguous")
     sc = spec.scene
-    pad_h, pad_w, dil_h, dil_w = _index_params(sc)
-    hl, wl, k, n = spec.in_shape
-    geom = _Geom(hl, wl, k, n, spec.flt_shape[3], sc.outH, sc.outW,
-                 sc.fltH, sc.fltW, sc.stdH, sc.stdW, sc.fdilH, sc.fdilW,
-                 pad_h, pad_w, dil_h, dil_w, spec.bm, spec.bk,
-                 launch_grid(spec, inp.device)[0], *spec.tile[1:],
-                 spec.tile[0])
+    geom = launch_geom(spec, inp.device)
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
     lib = library()
     with torch.cuda.device(inp.device):

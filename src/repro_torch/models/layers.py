@@ -42,7 +42,10 @@ def trunc_normal(gen: torch.Generator, shape, std: float, dtype,
                  device=None) -> torch.Tensor:
     """A normal draw truncated to +-2 sigma, times ``std``, in ``dtype``:
     uniform in the normal CDF between -2 and 2, mapped back through
-    ``erfinv`` (f32, on ``device``, from ``gen``)."""
+    ``erfinv`` (f32, on ``device``, from ``gen``).  On the meta device
+    (``gen`` None) an empty tensor of the shape: nothing is drawn."""
+    if gen is None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     lo = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
     hi = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
     u = torch.rand(shape, generator=gen, dtype=F32, device=device)

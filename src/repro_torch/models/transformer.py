@@ -619,9 +619,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceSpec = None,
     (``transformer.init_params``), drawn on ``device`` (default the card)
     from a ``torch.Generator`` seeded with ``seed``, its parameters frozen
     unless ``trainable``.  The weights differ from JAX's for the same
-    seed."""
+    seed.  On ``device="meta"`` the model has every parameter's shape and
+    dtype and no values (a generator cannot draw there): what the dry run
+    traces."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     return build(cfg, init_tree(cfg, gen, dev), trainable)
 
 

@@ -176,6 +176,29 @@ def derive_exec_spec(scene: ConvScene, choice: ScheduleChoice,
                     m, n, **extra)
 
 
+def launched_shapes(scene: ConvScene, spec: ExecSpec
+                    ) -> Tuple[Tuple[int, int, int, int],
+                               Tuple[int, int, int, int]]:
+    """(input, filter) shapes exactly as ``_conv_body`` launches them:
+    spatial pre-padding on the dense route (the compact input on the
+    lhs-dilated one: no sentinel row or column, the kernels mask those
+    taps), channel/batch alignment per schedule.  The static verifier
+    rebuilds the launch from these, so what it proves is what executes."""
+    if spec.sentinel:
+        ih, iw = scene.inH, scene.inW
+    else:
+        ih = scene.inH + 2 * spec.pad_h + spec.apad_h
+        iw = scene.inW + 2 * spec.pad_w + spec.apad_w
+    if spec.schedule == "TB11":
+        return ((ih, iw, scene.K, scene.N),
+                (scene.fltH, scene.fltW, scene.K, scene.M))
+    if spec.schedule == "TB18":
+        return ((ih, iw, scene.K, scene.N),
+                (scene.fltH, scene.fltW, scene.K, spec.mp))
+    return ((ih, iw, spec.kp, spec.np_),
+            (scene.fltH, scene.fltW, spec.kp, spec.mp))
+
+
 # --------------------------------------------------------------------------
 # backward-scene derivation (exact copies of the reference's arithmetic)
 # --------------------------------------------------------------------------

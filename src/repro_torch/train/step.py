@@ -15,8 +15,11 @@ The model owns its parameters: ``TrainState.params`` is the model's own
 ``named_parameters()`` (``init_train_state``), so the step differentiates
 the model directly and checkpointed layers recompute with the updated
 weights.  The sharding hooks and specs are the reference's names at one
-device (``parallel/``); ``lower_train_step`` and ``lower_serve_step`` wait
-for the port of ``launch/dryrun`` (ROADMAP §1 item 4).
+device (``parallel/``).  The reference's ``lower_train_step`` and
+``lower_serve_step`` lower a step for XLA's memory and cost analyses; with
+no compiler to ask, ``trace_train_step`` and ``trace_serve_step`` run the
+step on the ``meta`` device under ``launch.dryrun.CostCounter`` instead
+(FLOPs by dtype, bytes, live bytes: a ``launch.dryrun.Trace``).
 
 Serve: ``build_prefill_step`` (last-position logits and the cache) and
 ``build_decode_step`` (one token), both without gradients and both under
@@ -225,3 +228,72 @@ def build_decode_step(mesh) -> Callable:
         return logits[:, -1], new_cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Dry-run traces (the reference's lower_train_step / lower_serve_step)
+# ---------------------------------------------------------------------------
+def _meta_model(cfg: ArchConfig, trainable: bool = False) -> T.LM:
+    return T.init_params(cfg, device="meta", trainable=trainable)
+
+
+def _n_params(model: T.LM) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def trace_train_step(cfg: ArchConfig, shape_name: str, mesh,
+                     plan: Optional[StepPlan] = None,
+                     batch_override: Optional[int] = None, *,
+                     seq_override: Optional[int] = None,
+                     opt_cfg: Optional[opt.AdamWConfig] = None):
+    """One train step of ``cfg`` at ``plan`` (default ``default_plan``) on
+    the ``meta`` device, counted: its ``launch.dryrun.Trace`` (arguments
+    the parameters, the moments and the batch of ``input_specs``).  The
+    moments are bf16 from 30 B parameters, as the reference's
+    ``lower_train_step`` sets them."""
+    from repro_torch.configs.base import input_specs
+    from repro_torch.launch.dryrun import run_traced
+    plan = plan or default_plan(cfg, shape_name, mesh)
+    if opt_cfg is None:
+        moments = "bfloat16" if cfg.param_count() >= 30e9 else "float32"
+        opt_cfg = opt.AdamWConfig(moments_dtype=moments)
+    model = _meta_model(cfg, trainable=True)
+    state = init_train_state(model, opt_cfg.moments_dtype)
+    batch = input_specs(cfg, shape_name, batch_override,
+                        seq_override=seq_override)
+    step_fn, hooks = build_train_step(cfg, mesh, opt_cfg, plan, model)
+
+    def run():
+        with ctx.activation_sharding(hooks):
+            return step_fn(state, batch)
+
+    return run_traced(run, (state, batch), _n_params(model))
+
+
+def trace_serve_step(cfg: ArchConfig, shape_name: str, mesh, *,
+                     batch_override: Optional[int] = None,
+                     seq_override: Optional[int] = None):
+    """The prefill or decode step of a serve cell on the ``meta`` device,
+    counted: its ``launch.dryrun.Trace``.  Prefill's arguments are the
+    parameters and the prompt batch; decode's also the cache of the
+    shape's length (``init_cache``), which the step updates in place."""
+    from repro_torch.configs.base import input_specs
+    from repro_torch.launch.dryrun import run_traced
+    kind = SHAPES[shape_name]["kind"]
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"unknown serve step kind {kind!r}")
+    model = _meta_model(cfg)
+    batch = input_specs(cfg, shape_name, batch_override,
+                        seq_override=seq_override)
+    if kind == "prefill":
+        fn = build_prefill_step(mesh)
+        return run_traced(lambda: fn(model, batch),
+                          (dict(model.named_parameters()), batch),
+                          _n_params(model))
+    b = batch_override or SHAPES[shape_name]["global_batch"]
+    seq = seq_override or SHAPES[shape_name]["seq_len"]
+    cache = model.init_cache(b, seq)
+    fn = build_decode_step(mesh)
+    return run_traced(lambda: fn(model, cache, batch),
+                      (dict(model.named_parameters()), cache, batch),
+                      _n_params(model))

@@ -1,0 +1,345 @@
+"""The port's dry run and roofline (``repro_torch.launch.{dryrun,roofline}``,
+``train.step.trace_*``, ``configs.base.input_specs``) on the CPU, on the
+``meta`` device: inputs and closed forms held to the reference's, the
+counter's byte and memory rules, counted FLOPs against a closed form,
+cost affine in depth, argument bytes against a real state, the
+reference's skips, and one full-width cell per family.
+
+The reference's launch modules set ``XLA_FLAGS`` at import, so its
+``model_flops`` and constants are read from its source with ``ast`` here,
+never imported."""
+import ast
+import dataclasses
+import math
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as ref_base
+from repro.configs import registry as ref_registry
+
+from repro_torch.configs.base import SHAPES, input_specs
+from repro_torch.configs.registry import ALIASES, get_config, reduced
+from repro_torch.kernels import meta
+from repro_torch.kernels.causal_conv1d import causal_conv1d
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.transformer import init_params
+from repro_torch.train import step as S
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCHS = sorted(ALIASES)
+CELLS = [(a, s) for a in ARCHS for s in SHAPES]
+MESH = make_host_mesh("meta")
+
+
+def _reference_roofline():
+    """The reference's ``model_flops`` and module constants, from its
+    source (importing it would set ``XLA_FLAGS`` in this process)."""
+    tree = ast.parse((ROOT / "src/repro/launch/roofline.py").read_text())
+    ns = {"SHAPES": ref_base.SHAPES, "ArchConfig": ref_base.ArchConfig}
+    consts = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "model_flops":
+            exec(compile(ast.Module([node], []), "roofline.py", "exec"), ns)
+        elif isinstance(node, ast.Assign) and \
+                isinstance(node.value, ast.Constant):
+            consts[node.targets[0].id] = node.value.value
+    return ns["model_flops"], consts
+
+
+REF_MODEL_FLOPS, REF_CONSTS = _reference_roofline()
+
+
+# --------------------------------------------------------------------------
+# inputs and closed forms: the reference's
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_specs_match_the_reference(arch, shape):
+    ref = ref_base.input_specs(ref_registry.get_config(arch), shape)
+    got = input_specs(get_config(arch), shape)
+    assert sorted(got) == sorted(ref)
+    for k, t in got.items():
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(ref[k].shape)
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(ref[k].dtype).name
+
+
+def test_input_specs_overrides():
+    cfg = get_config("qwen2.5-3b")
+    got = input_specs(cfg, "train_4k", 2, seq_override=128)
+    assert got["tokens"].shape == (2, 128) == got["labels"].shape
+    assert input_specs(cfg, "decode_32k", 3)["position"].shape == (3,)
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_model_flops_is_the_reference(arch, shape):
+    assert roofline.model_flops(get_config(arch), shape) == \
+        REF_MODEL_FLOPS(ref_registry.get_config(arch), shape)
+
+
+def test_optimizer_constants_are_the_reference():
+    assert roofline.OPT_FLOPS_PER_PARAM == REF_CONSTS["OPT_FLOPS_PER_PARAM"]
+    assert roofline.OPT_BYTES_PER_PARAM == REF_CONSTS["OPT_BYTES_PER_PARAM"]
+
+
+def test_h100_constants():
+    assert roofline.PEAK_FLOPS_BF16 == 989e12
+    assert roofline.PEAK_FLOPS_F32 == 67e12
+    assert roofline.HBM_BW == 3.35e12
+    assert roofline.LINK_BW == 450e9
+    # the f32 products are priced at the CUDA cores' rate
+    assert roofline.compute_seconds({"f32": 67e12, "bf16": 989e12}) == 2.0
+
+
+@pytest.mark.parametrize("shape,batch,seq", [("train_4k", 2, 4096),
+                                             ("prefill_32k", 2, 2048),
+                                             ("decode_32k", 2, 640)])
+def test_model_terms_are_the_configs_own_work(shape, batch, seq):
+    """The model's bound comes from its config alone: its FLOPs with the
+    f32 head at the f32 peak, and the bytes it cannot avoid."""
+    cfg = get_config("qwen2.5-3b")
+    kind = SHAPES[shape]["kind"]
+    tokens = batch * (1 if kind == "decode" else seq)
+    head = (6 if kind == "train" else 2) * cfg.d_model * cfg.vocab * tokens
+    mf = roofline.model_flops(cfg, shape, batch_override=batch,
+                              seq_override=seq)
+    kv = 2 * cfg.n_layers * batch * seq * cfg.n_kv_heads * cfg.d_head * 2
+    nbytes = 20 * cfg.param_count() if kind == "train" else \
+        2 * cfg.active_param_count() + kv
+    t = roofline.model_terms(cfg, shape, batch_override=batch,
+                             seq_override=seq)
+    assert t["compute"] == pytest.approx(head / 67e12 + (mf - head) / 989e12,
+                                         rel=1e-12)
+    assert t["memory"] == pytest.approx(nbytes / 3.35e12, rel=1e-12)
+
+
+# --------------------------------------------------------------------------
+# the counter's rules, op by op
+# --------------------------------------------------------------------------
+def _count(fn, *args):
+    counter = dryrun.CostCounter()
+    counter.add_arguments(args)
+    with meta.recording(counter), counter:
+        out = fn(*args)
+    return counter, out
+
+
+def _m(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_views_move_nothing():
+    c, _ = _count(lambda x: x.reshape(-1).view(8, 8)[:4].t()[None]
+                  .expand(2, 8, 4), _m(8, 8))
+    assert c.bytes_accessed == 0 and c.peak_bytes == 256
+    # a reshape that must copy (a transposed input) is traffic
+    c, _ = _count(lambda x: x.t().reshape(-1), _m(8, 8))
+    assert c.bytes_accessed == 2 * 256
+
+
+def test_matmul_reads_its_inputs_and_writes_its_output():
+    c, _ = _count(lambda a, b: a @ b, _m(4, 8), _m(8, 16, dtype=torch.float32))
+    assert c.flops == {"f32": 2 * 4 * 8 * 16}
+    assert c.bytes_accessed == 4 * (4 * 8 + 8 * 16 + 4 * 16)
+    c, _ = _count(lambda a, b: a @ b, _m(4, 8, dtype=torch.bfloat16),
+                  _m(8, 16, dtype=torch.bfloat16))
+    assert c.flops == {"bf16": 2 * 4 * 8 * 16}
+
+
+def test_gather_reads_only_what_it_gathers():
+    table, idx = _m(1000, 64), torch.empty(2, 3, dtype=torch.long,
+                                           device="meta")
+    c, out = _count(lambda t, i: torch.nn.functional.embedding(i, t),
+                    table, idx)
+    assert c.bytes_accessed == 2 * out.numel() * 4 + idx.numel() * 8
+
+
+def test_copy_does_not_read_its_destination():
+    c, _ = _count(lambda d, s: d.copy_(s), _m(16), _m(16))
+    assert c.bytes_accessed == 2 * 64
+
+
+def test_live_bytes_and_peak():
+    def fn(x):
+        y = x * 2          # +64
+        z = y + 1          # +64
+        del y              # -64
+        return z * 3       # +64
+    c, out = _count(fn, _m(16))
+    assert c.argument_bytes == 64
+    assert c.peak_bytes == 64 * 3
+    assert c.output_bytes(out) == 64
+
+
+def test_meta_kernels_report_their_closed_forms():
+    q, k = _m(8, 128, 64, dtype=torch.bfloat16), _m(2, 128, 64,
+                                                     dtype=torch.bfloat16)
+    c, out = _count(lambda q, k, v: flash_attention_fwd(q, k, v), q, k, k)
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert c.flops["bf16"] == meta.flash_flops(8, 128, 128, 64, True) == \
+        4 * 8 * 128 * 128 * 64 // 2
+    assert c.by_op["kernel:flash_attention_fwd"][2] == \
+        2 * (2 * q.numel() + 2 * k.numel())
+    x, w = _m(2, 32, 16), _m(4, 16)
+    c, y = _count(causal_conv1d, x, w)
+    assert y.shape == x.shape
+    assert c.flops["f32"] == 2 * 4 * 2 * 32 * 16
+    assert c.bytes_accessed == 4 * (2 * x.numel() + w.numel())
+
+
+# --------------------------------------------------------------------------
+# whole steps
+# --------------------------------------------------------------------------
+def _dense(layers=2):
+    return dataclasses.replace(reduced(get_config("qwen3-14b")),
+                               n_layers=layers)
+
+
+def test_prefill_flops_equal_the_closed_form():
+    cfg = _dense()
+    b, s = 2, 64
+    tr = S.trace_serve_step(cfg, "prefill_32k", MESH, batch_override=b,
+                            seq_override=s)
+    t, d, dh = b * s, cfg.d_model, cfg.d_head
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    layer = (2 * t * d * dh * (2 * h + 2 * hkv)       # q, k, v, o
+             + 3 * 2 * t * d * cfg.d_ff                # swiglu
+             + 4 * b * h * s * s * dh // 2)           # causal flash
+    assert tr.flops_by_dtype == {"f32": cfg.n_layers * layer
+                                 + 2 * t * d * cfg.vocab}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b"])
+def test_cost_is_affine_in_depth(arch):
+    base = reduced(get_config(arch))
+
+    def cost(layers):
+        tr = S.trace_train_step(dataclasses.replace(base, n_layers=layers),
+                                "train_4k", MESH, S.StepPlan(),
+                                batch_override=2, seq_override=64)
+        return np.array([tr.flops, tr.bytes_accessed], dtype=np.int64)
+
+    c1, c2, c4 = cost(1), cost(2), cost(4)
+    np.testing.assert_array_equal(c4, c1 + (c2 - c1) * 3)
+
+
+# (arch, seq, q_chunk, kv_chunk); at 512 the dense step's peak falls
+# inside the backward's recomputed chunks
+@pytest.mark.parametrize("arch,seq,q_chunk,kv_chunk",
+                         [("qwen3-14b", 512, 256, 512),
+                          ("zamba2-7b", 64, 16, 32)])
+def test_repeated_backward_is_counted_as_executed(arch, seq, q_chunk,
+                                                  kv_chunk, monkeypatch):
+    """``FlashAttention``'s backward replayed from its first call per
+    shape gives the trace it gives executed every time, peak included."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=3,
+                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+    def trace():
+        return S.trace_train_step(cfg, "train_4k", MESH,
+                                  S.StepPlan(n_microbatches=2),
+                                  batch_override=2, seq_override=seq)
+
+    replays = []
+    repeat = dryrun.CostCounter.repeat
+
+    def spy(self, key, fn):
+        replays.append(key in self._repeats)
+        return repeat(self, key, fn)
+
+    monkeypatch.setattr(dryrun.CostCounter, "repeat", spy)
+    replayed = trace()
+    assert sum(replays) >= 1 and not all(replays)
+    monkeypatch.setattr(dryrun.CostCounter, "repeat",
+                        lambda self, key, fn: fn())
+    assert trace() == replayed
+
+
+def test_argument_bytes_are_the_real_state():
+    cfg = _dense()
+    tr = S.trace_train_step(cfg, "train_4k", MESH, S.StepPlan(),
+                            batch_override=2, seq_override=32)
+    model = init_params(cfg, device="cpu", trainable=True)
+    state = S.init_train_state(model)
+    real = sum(t.numel() * t.element_size() for t in
+               [*state.params.values(), *state.opt.m.values(),
+                *state.opt.v.values(), state.opt.step])
+    batch = input_specs(cfg, "train_4k", 2, seq_override=32, device="cpu")
+    real += sum(t.numel() * t.element_size() for t in batch.values())
+    assert tr.argument_bytes == real
+    assert tr.params_counted == sum(p.numel() for p in model.parameters())
+    assert tr.peak_bytes > tr.argument_bytes
+
+
+def test_train_cell_is_the_probe_times_microbatches_plus_adamw():
+    cfg = _dense()
+    cell = dryrun.run_config(cfg, "train_4k", batch_override=4,
+                             seq_override=32, n_microbatches=2)
+    probe = S.trace_train_step(cfg, "train_4k", MESH,
+                               S.StepPlan(n_microbatches=1, tp=False,
+                                          skip_update=True),
+                               batch_override=2, seq_override=32)
+    p = cfg.param_count()
+    assert cell["cost"]["flops"] == \
+        2 * probe.flops + roofline.OPT_FLOPS_PER_PARAM * p
+    assert cell["cost"]["bytes_accessed"] == \
+        2 * probe.bytes_accessed + roofline.OPT_BYTES_PER_PARAM * p
+    assert cell["memory"]["peak_bytes"] > probe.peak_bytes
+    r = roofline.run_config(cfg, "train_4k", batch_override=4,
+                            seq_override=32, n_microbatches=2)
+    assert 0 < r["roofline_fraction"] <= 1.05
+    assert r["bound_s"] == max(r["terms_s"].values())
+    assert roofline.measured_fraction(r, 2 * r["bound_s"]) == 0.5
+    assert r["model_bound_s"] == max(r["model_terms_s"].values())
+    assert roofline.model_fraction(r, 2 * r["model_bound_s"]) == 0.5
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_long_500k_skipped_as_the_reference(arch):
+    cfg = get_config(arch)
+    want = not ref_registry.get_config(arch).sub_quadratic
+    assert (dryrun.skip_reason(cfg, "long_500k") is not None) == want
+    if want:
+        assert dryrun.run_cell(arch, "long_500k")["status"] == "skipped"
+        assert roofline.run_cell(arch, "long_500k")["status"] == "skipped"
+
+
+def test_multi_pod_raises():
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dryrun.run_cell("qwen2.5-3b", "decode_32k", True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
+                     "--multi-pod"])
+
+
+# one arch per family, at full width
+FAMILY_ARCHS = {"dense": "qwen2.5-3b", "moe": "grok-1-314b",
+                "vlm": "llava-next-mistral-7b", "audio": "musicgen-large",
+                "hybrid": "zamba2-7b", "ssm": "rwkv6-3b"}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_full_width_cell_per_family(family):
+    arch = FAMILY_ARCHS[family]
+    cfg = get_config(arch)
+    assert cfg.family == family
+    r = roofline.run_cell(arch, "decode_32k")
+    assert r["status"] == "ok" and r["probe_s"] < 30
+    mem = r["memory"]
+    assert 0 < mem["argument_bytes"] <= mem["peak_bytes"]
+    # decode reads every weight: the memory term at least the weights'
+    assert r["per_chip"]["bytes"] >= r["params_counted"] * 2
+    assert 0 < r["roofline_fraction"] <= 1.05
+    # the model's own work is a part of what the port's step does
+    assert 0 < r["model_bound_s"] <= r["bound_s"]
+    if family in ("dense", "moe"):
+        # elsewhere param_count() is the reference's approximation: no
+        # token table for vlm/audio inputs is counted, rwkv6's and the
+        # hybrid's formulas leave parts out (the shared block)
+        assert math.isclose(r["params_counted"], cfg.param_count(),
+                            rel_tol=0.01)

@@ -161,3 +161,61 @@ def test_lm_train_modules_are_covered(name):
     assert PORT / rel in FILES
     assert (ROOT / "src" / "repro" / rel).is_file()
     assert importlib.import_module(f"repro_torch.{name}")
+
+
+# the static-analysis and cost layers and the LM examples: each a port of
+# the reference file named beside it
+ANALYSIS_MODULES = {"analysis.verify": "src/repro/analysis/verify.py",
+                    "analysis.lint": "src/repro/analysis/lint.py",
+                    "launch.dryrun": "src/repro/launch/dryrun.py",
+                    "launch.roofline": "src/repro/launch/roofline.py",
+                    "launch.analyze": "scripts/analyze.py",
+                    "examples.serve_lm": "examples/serve_lm.py",
+                    "examples.train_lm": "examples/train_lm.py"}
+
+
+@pytest.mark.parametrize("name", sorted(ANALYSIS_MODULES))
+def test_analysis_modules_are_covered(name):
+    """Each module is one of the files the guards above walk (no jax, no
+    repro, no triton), mirrors its reference file, and imports here
+    without a GPU toolchain."""
+    rel = Path(*name.split(".")).with_suffix(".py")
+    assert PORT / rel in FILES
+    assert (ROOT / ANALYSIS_MODULES[name]).is_file()
+    assert importlib.import_module(f"repro_torch.{name}")
+
+
+def test_meta_hooks_never_load_the_cuda_library(monkeypatch):
+    """On the meta device the LM kernels' wrappers (and their autograd
+    Functions, forward and backward) report closed forms and never build
+    or load a kernel library."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.kernels import causal_conv1d as CC
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mg3m_conv as MG
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step as S
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel library was loaded on meta")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    monkeypatch.setattr(cuda_build, "load_all", refuse)
+    for lib in (FA.library, CC.library, MG.library):
+        lib.cache_clear()
+    cfg = dataclasses.replace(reduced(get_config("zamba2-7b")),
+                              remat_policy="nothing_saveable")
+    tr = S.trace_train_step(cfg, "train_4k", make_host_mesh("meta"),
+                            S.StepPlan(), batch_override=1, seq_override=32)
+    assert tr.by_op["kernel:flash_attention_fwd"][0] > 0
+    assert tr.by_op["kernel:causal_conv1d"][0] > 0
+    x = torch.empty(1, 8, 4, device="meta", requires_grad=True)
+    CC.CausalConv1d.apply(x, torch.empty(3, 4, device="meta")).sum() \
+        .backward()
+    for lib in (FA.library, CC.library, MG.library):
+        assert lib.cache_info().currsize == 0
