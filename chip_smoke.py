@@ -218,11 +218,36 @@ Phases, each of which raises (non-zero exit) on failure:
                SDPA in f32, bound at 67 TFLOP/s) at ``train_lm``'s shape,
                its launches counted from 0 over the two ``train_lm`` runs
                (``serve_lm``'s printed apart).
- 17. train profiles  one more train step of phase 6, then one of phase
+ 17. shard    ``repro_torch.shard`` on a ring of 4 x this card
+               (``(cuda:0,) * 4``) over the full-width ResNet trunk:
+               every layer at bucket 8, every op (fprop, dgrad, wgrad) and
+               every axis feasible at n = 4 pinned (the selector's grain for
+               the sub-scene) and held against the one-device plan on the
+               same operands, batch/oc/h bitwise and ic within
+               rtol=atol=1e-4, with the blocked (layer, op, axis) printed and
+               a grain no sub-scene picks forced where it fits; then, with
+               the launch counts set to 0, ``ConvServer(mesh=make_mesh_for(
+               4, 1, devices=ring))`` over the trunk's layers at buckets
+               1-8 (strict) bitwise equal to the one-device server, 0 plan
+               misses and builds after prewarm, the partition of each
+               (layer, bucket) printed (when the selector keeps all of
+               them unsharded, a second mesh server prewarmed from an
+               artifact of pinned ``batch:4`` plans too), and
+               ``make_model_plans(trunk, devices=ring)`` trained 3 steps by
+               phase 6's trainer, losses within 1e-4 of a one-device run's
+               and each grain's launches equal to the plans' routing;
+               ``verify_sharded_plan`` on every sharded plan: 0 errors; per
+               layer the ``batch:4`` and one-device dispatch times at
+               bucket 8 (CUDA events, host included) and the shards'
+               kernels' device time, from which the ring's launch overhead
+               and one copy's time (``core.mapping``'s
+               ``SHARD_LAUNCH_OVERHEAD_S`` and ``ICI_LATENCY_S``) are read.
+               No speed is claimed: the four shards share one card.
+ 18. train profiles  one more train step of phase 6, then one of phase
                13, each under ``torch.profiler`` (device busy time and idle
                share), after every timed phase, since no timed phase
                should run after a profiler session.
- 18. dry run and roofline  traced on the meta device, last so that no
+ 19. dry run and roofline  traced on the meta device, last so that no
                timed phase shares the host with it: qwen2.5-3b's train
                step (phase 13's seq 4096, batch 2 in 2 microbatches), its
                2 x 2048 prefill and its decode step at 2 slots (phase 10):
@@ -248,8 +273,10 @@ kernels, flash twice; each conv grain has a second row,
 grain the train step launches a row ``<name>_train_path`` at its longest
 plan of the step; flash and causal_conv1d have ``<name>_train_path`` rows
 from phases 13 and 14, with ``backward_ms``; flash's f32 kernel the row
-``flash_attention_fwd_f32`` from phase 16), the card's name and power
-limit, and ``{"ok": true, ...}``.
+``flash_attention_fwd_f32`` from phase 16; each conv grain a row
+``<name>_shard_path`` from phase 17 at its longest sub-scene launch of the
+forced partitions, its launches those of phase 17's sharded serving and
+training), the card's name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -2858,7 +2885,7 @@ def lm_train_rows(torch, train, hybrid, errs):
 
 
 # --------------------------------------------------------------------------
-# static analysis, examples, dry run and roofline (phases 15, 16, 18)
+# static analysis, examples, dry run and roofline (phases 15, 16, 19)
 # --------------------------------------------------------------------------
 GRID_JOBS = 8              # most worker processes of the dry-run grid
 # the steps phases 10 and 13 time, as (name, shape, batch, seq, microbatches)
@@ -3083,6 +3110,505 @@ def flash_f32_row(torch, launches: int) -> dict:
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
+# --------------------------------------------------------------------------
+# Shard phase: repro_torch.shard on a 4-shard ring of this one card
+# --------------------------------------------------------------------------
+SHARD_N = 4                # ring size: (cuda:0,) * 4
+SHARD_BUCKET = 8           # the forced partitions' and the timings' batch
+SHARD_STEPS = 3            # sharded and one-device train steps compared
+# max |loss_sharded - loss_one_device| over the steps: ic partitions sum
+# their partials in another order (tests/test_shard.py's 1e-4)
+SHARD_LOSS_TOL = 1e-4
+
+
+def _shard_library(torch, es, inp, flt):
+    """One PyTorch call computing the kernel's function on a launched
+    (pre-padded) exec-scene operand pair: ``F.conv2d`` with the filter
+    dilation on the dense route, ``F.conv_transpose2d`` (the flipped,
+    transposed filter) on the lhs-dilated one; returns ``(fn, out)`` with
+    ``out`` in the kernels' ``[outH, outW, M, N]`` layout."""
+    F = torch.nn.functional
+    x = inp.permute(3, 2, 0, 1).contiguous()
+    if es.dilH == 1 and es.dilW == 1:
+        w = flt.permute(3, 2, 0, 1).contiguous()
+
+        def fn():
+            return F.conv2d(x, w, stride=(es.stdH, es.stdW),
+                            dilation=(es.fdilH, es.fdilW))
+    else:
+        w = flt.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        pad = (es.fdilH * (es.fltH - 1) - es.padH,
+               es.fdilW * (es.fltW - 1) - es.padW)
+
+        def fn():
+            return F.conv_transpose2d(x, w, stride=(es.dilH, es.dilW),
+                                      padding=pad,
+                                      output_padding=(es.apadH, es.apadW),
+                                      dilation=(es.fdilH, es.fdilW))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = fn().permute(2, 3, 1, 0)
+    return fn, out
+
+
+def _shard_operands(torch, scene, op, gen):
+    """Seeded f32 operands of one (forward scene, op) on the card, scaled
+    so the exec conv's outputs are O(1)."""
+    shapes = {"fprop": (scene.in_shape(), scene.flt_shape()),
+              "dgrad": (scene.out_shape(), scene.flt_shape()),
+              "wgrad": (scene.in_shape(), scene.out_shape())}[op]
+    fan = {"fprop": scene.fltH * scene.fltW * scene.IC,
+           "dgrad": scene.fltH * scene.fltW * scene.OC,
+           "wgrad": scene.outH * scene.outW * scene.B}[op]
+    return (torch.randn(shapes[0], generator=gen).cuda(),
+            (torch.randn(shapes[1], generator=gen) * fan ** -0.5).cuda())
+
+
+def shard_forced(torch, ring, chain):
+    """Every trunk layer at ``SHARD_BUCKET``, every op, every axis feasible
+    at ``SHARD_N``: the pinned partition (the selector's grain for its
+    sub-scene) against the one-device plan on the same operands — batch,
+    oc and h bitwise, ic within rtol=atol=1e-4.  A grain no sub-scene
+    picks is then forced on the first sub-scene it fits.  Returns the
+    plans and the launched (plan, operands) pairs."""
+    from repro_torch.core.mapping import select_schedule, smem_budget
+    from repro_torch.plan import ConvOp, make_plan
+    from repro_torch.shard import (PARTITION_AXES, make_sharded_plan,
+                                   pinned_shard_spec, shard_blocker,
+                                   shard_sub_scene)
+    from repro_torch.shard.plan import _exec_scene_for
+
+    gen = torch.Generator().manual_seed(21)
+    budget = smem_budget("cuda")
+    plans, launched, blocked, worst_ic = [], [], [], 0.0
+    cases = []
+    for name, sc0 in chain.items():
+        sc = sc0.with_batch(SHARD_BUCKET)
+        for op in ("fprop", "dgrad", "wgrad"):
+            ex, _ = _exec_scene_for(sc, ConvOp(op))
+            for axis in PARTITION_AXES:
+                why = shard_blocker(ex, axis, SHARD_N)
+                if why:
+                    blocked.append(f"{name}/{op}/{axis} ({why})")
+                else:
+                    cases.append((name, sc, op, ex, axis))
+
+    def sub_launches():
+        # sub-scene launches by grain: n_shards per sharded execute (the
+        # one-device plans these are held against launch kernels too)
+        counts = {"TB11": 0, "TB18": 0, "TB88": 0}
+        for p in plans:
+            counts[p.schedule] += p.n_shards
+        return counts
+
+    def run(name, sc, op, axis, choice, a, b, one):
+        spec = pinned_shard_spec(sc, op, axis, SHARD_N, choice)
+        plan = make_sharded_plan(sc, op, devices=ring, spec=spec)
+        got = plan.execute(a, b)
+        if axis == "ic":
+            if not torch.allclose(got, one, rtol=1e-4, atol=1e-4):
+                raise AssertionError(
+                    f"{name} {op} ic:{SHARD_N} differs from the one-device "
+                    f"plan by {(got - one).abs().max().item():.3e}")
+            err = (got - one).abs().max().item()
+        elif not torch.equal(got, one):
+            raise AssertionError(
+                f"{name} {op} {axis}:{SHARD_N} ({choice.schedule}) is not "
+                f"bitwise the one-device plan: max abs diff "
+                f"{(got - one).abs().max().item():.3e}")
+        else:
+            err = 0.0
+        plans.append(plan)
+        launched.append((plan, a, b))
+        return err
+
+    t0 = time.perf_counter()
+    ones = {}
+    for name, sc, op, ex, axis in cases:
+        if (name, op) not in ones:
+            a, b = _shard_operands(torch, sc, op, gen)
+            ones[(name, op)] = (a, b, make_plan(sc, op).execute(a, b))
+        a, b, one = ones[(name, op)]
+        sub = shard_sub_scene(ex, axis, SHARD_N)
+        err = run(name, sc, op, axis, select_schedule(sub, budget=budget),
+                  a, b, one)
+        worst_ic = max(worst_ic, err)
+    counts = sub_launches()
+    forced = []
+    for grain in ("TB11", "TB18", "TB88"):
+        if counts[grain]:
+            continue
+        for name, sc, op, ex, axis in cases:
+            try:
+                choice = select_schedule(shard_sub_scene(ex, axis, SHARD_N),
+                                         allowed=(grain,), budget=budget)
+            except ValueError:
+                continue
+            a, b, one = ones[(name, op)]
+            run(name, sc, op, axis, choice, a, b, one)
+            forced.append(f"{grain} on {name} {op} {axis}:{SHARD_N}")
+            break
+        else:
+            print(f"  {grain} fits no sub-scene of the trunk at bucket "
+                  f"{SHARD_BUCKET} over {SHARD_N} shards")
+    torch.cuda.synchronize()
+    counts = sub_launches()
+    grains = {}
+    for p in plans:
+        key = f"{p.op.value}/{p.spec.axis}"
+        grains.setdefault(key, {}).setdefault(p.schedule, 0)
+        grains[key][p.schedule] += 1
+    print(f"shard forced partitions: {len(plans)} plans over the trunk at "
+          f"bucket {SHARD_BUCKET} on a ring of {SHARD_N} x {ring[0]}, "
+          f"batch/oc/h bitwise equal to the one-device plans, ic within "
+          f"1e-4 (max abs err {worst_ic:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"  grains of the sub-scenes by (op/axis): {grains}")
+    print(f"  sub-scene launches by grain {counts}"
+          + (f"; selector never picked, so forced: {forced}"
+             if forced else ""))
+    print(f"  blocked (layer/op/axis): {len(blocked)}: {blocked}")
+    for grain in ("TB11", "TB18", "TB88"):
+        if not counts[grain]:
+            print(f"  {grain} launched on no sub-scene (see above)")
+    return plans, launched
+
+
+def shard_serve(torch, ring, chain, weights, tmp):
+    """``ConvServer(mesh=make_mesh_for(SHARD_N, 1, devices=ring))`` over
+    the trunk's layers at buckets 1-8, strict, beside the one-device
+    server on the same requests: outputs bitwise equal, zero plan misses
+    and builds after prewarm.  When the selector keeps every bucket
+    unsharded, a second mesh server is prewarmed from a registry artifact
+    of pinned ``batch:4`` plans (buckets 4 and 8) and held the same way.
+    Returns the mesh servers and their kernel launches by grain."""
+    from repro_torch.core.mapping import select_schedule, smem_budget
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.plan import ConvOp, PlanRegistry
+    from repro_torch.serve.conv import ConvRequest, server_from_scenes
+    from repro_torch.shard import assemble_sharded_plan, shard_sub_scene
+
+    t0 = time.perf_counter()
+    kw = dict(max_batch=SHARD_BUCKET, strict=True, ladder_slack=0.0)
+    mesh = make_mesh_for(SHARD_N, 1, devices=ring)
+    scenes = {name: sc.with_batch(1) for name, sc in chain.items()}
+    gen = torch.Generator().manual_seed(22)
+    xs = [(name, torch.randn(sc.in_shape()[:3] + (b,), generator=gen))
+          for name, sc in scenes.items() for b in (1, 2, 4, 8)]
+
+    def serve(server):
+        return server.serve([ConvRequest(rid=i, layer=name, x=x)
+                             for i, (name, x) in enumerate(xs)])
+
+    one = server_from_scenes(scenes, weights, device="cuda", **kw)
+    one.prewarm(compile=True)
+    want = serve(one)
+    launches = {"TB11": 0, "TB18": 0, "TB88": 0}
+
+    def check(server, what, artifact=None):
+        torch.cuda.synchronize()
+        before = K.launch_counts()
+        built = server.prewarm(artifact=artifact, compile=True)
+        snap = server.snapshot()
+        got = serve(server)
+        torch.cuda.synchronize()
+        for g, n in K.launch_counts().items():
+            launches[g] += n - before[g]
+        st = server.stats(since=snap)
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if not torch.equal(g, w)]
+        if bad:
+            raise AssertionError(f"{what}: requests {bad} differ from the "
+                                 f"one-device server's")
+        if st["plan_misses"] or st["plan_builds"]:
+            raise AssertionError(f"{what}: post-warm plan misses/builds "
+                                 f"{st}")
+        tags = {}
+        for (name, _, b), tag in sorted(server._shard_tags.items()):
+            tags.setdefault(name, {})[b] = tag
+        print(f"  {what}: {len(xs)} requests in {st['dispatches']} "
+              f"dispatches bitwise equal to the one-device server's, 0 "
+              f"plan misses and builds after a prewarm that built {built}; "
+              f"partition by (layer, bucket):")
+        for name, by_b in tags.items():
+            print(f"    {name}: {by_b}")
+        return tags
+
+    served = server_from_scenes(scenes, weights, mesh=mesh, **kw)
+    tags = check(served, "mesh server (the selector's partitions)")
+    servers = [served]
+    if all(t == "none:1" for by_b in tags.values() for t in by_b.values()):
+        print("  the selector kept every bucket unsharded: a second mesh "
+              "server is prewarmed from an artifact of pinned batch:4 plans")
+        reg = PlanRegistry(device="cuda")
+        budget = smem_budget("cuda")
+        for sc in scenes.values():
+            for b in (4, 8):
+                scene = sc.with_batch(b)
+                choice = select_schedule(
+                    shard_sub_scene(scene, "batch", SHARD_N), budget=budget)
+                reg.put(assemble_sharded_plan(scene, ConvOp.FPROP,
+                                              "analytic", "batch", SHARD_N,
+                                              choice, devices=ring))
+        path = reg.save(os.path.join(tmp, "shard_plans.json"))
+        pinned = server_from_scenes(scenes, weights, mesh=mesh, **kw)
+        tags = check(pinned, "mesh server (pinned batch:4 artifact)",
+                     artifact=path)
+        if not any(t == f"batch:{SHARD_N}" for by_b in tags.values()
+                   for t in by_b.values()):
+            raise AssertionError("the artifact's batch:4 plans were not "
+                                 "served")
+        servers.append(pinned)
+    else:
+        print("  the selector sharded some buckets: no artifact server")
+    print(f"shard serving: {time.perf_counter() - t0:.1f} s; launches of "
+          f"the mesh servers {launches}")
+    return servers, launches
+
+
+def _trunk_train(torch, plans, scenes, steps):
+    """``steps`` steps of phase 6's trainer (global batch 16 in 2
+    microbatches, f32, AdamW) over ``plans`` from seed-0 parameters on
+    the stream's batch 0; returns the losses."""
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.models.cnn import init_cnn_from_scenes
+    from repro_torch.train import cnn as tc
+    from repro_torch.train.optimizer import AdamWConfig
+
+    params = init_cnn_from_scenes(torch.Generator().manual_seed(0), scenes,
+                                  device="cuda")
+    cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    step = tc.jit_train_step(tc.build_cnn_train_step(
+        plans, cfg, n_microbatches=TRAIN_N_MB,
+        buckets=tc.make_grad_buckets(params), layer_order=plans.names()))
+    state = tc.init_train_state(params)
+    data = SyntheticImages(TRAIN_MB * TRAIN_N_MB,
+                           scenes[f"{TRAIN_NET}/L0"].inH, 3, 10, seed=0,
+                           noise=0.3)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+    losses = []
+    with tc.resolution_guard():
+        for _ in range(steps):
+            _, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+    return losses
+
+
+def shard_train(torch, ring):
+    """``make_model_plans(trunk, devices=ring)`` trained ``SHARD_STEPS``
+    steps by phase 6's trainer, beside a one-device run on the same
+    parameters and data: losses within ``SHARD_LOSS_TOL``, and each
+    grain's launches equal to what the sharded plans route to it (every
+    direction but the first layer's dgrad, ``n_shards`` launches per
+    dispatch).  Returns the sharded plans, the one-device run's and the
+    launch counts."""
+    from repro_torch.core.autodiff import make_model_plans
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.models.cnn import cnn_chain_scenes
+    from repro_torch.plan import PlanRegistry
+
+    t0 = time.perf_counter()
+    scenes = cnn_chain_scenes(TRAIN_NET, TRAIN_MB)
+    plans = make_model_plans(scenes, devices=ring)
+    plan_s = time.perf_counter() - t0
+    one = make_model_plans(scenes, registry=PlanRegistry(device="cuda"))
+    torch.cuda.synchronize()
+    before = K.launch_counts()
+    losses = _trunk_train(torch, plans, scenes, SHARD_STEPS)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    counts = {g: after[g] - before[g] for g in after}
+    want_losses = _trunk_train(torch, one, scenes, SHARD_STEPS)
+    diff = max(abs(a - b) for a, b in zip(losses, want_losses))
+    if not all(map(math.isfinite, losses)) or diff > SHARD_LOSS_TOL:
+        raise AssertionError(f"sharded losses {losses} vs one-device "
+                             f"{want_losses}: max diff {diff:.3e}")
+    first = plans.names()[0]
+    want = {g: 0 for g in counts}
+    for name, op, plan in plans.plans():
+        if (name, op) != (first, "dgrad"):
+            want[plan.schedule] += (plan.n_shards * SHARD_STEPS
+                                    * TRAIN_N_MB)
+    if counts != want:
+        raise AssertionError(f"sharded training launched {counts}, the "
+                             f"plans route {want}")
+    print(f"shard training: {len(scenes)} layers x 3 sharded plans over "
+          f"{SHARD_N} x {ring[0]} built in {plan_s:.2f} s; {SHARD_STEPS} "
+          f"steps at global batch {TRAIN_MB * TRAIN_N_MB} in {TRAIN_N_MB} "
+          f"microbatches, losses {losses} vs one-device {want_losses} "
+          f"(max diff {diff:.3e}, tol {SHARD_LOSS_TOL}); launches {counts} "
+          f"= the plans' routing; {time.perf_counter() - t0:.1f} s")
+    for name, triple in plans.items():
+        print(f"  {name}: " + "; ".join(
+            f"{p.op.value} {p.shard_tag} {p.schedule}" for p in
+            (triple.fprop, triple.dgrad, triple.wgrad)))
+    return plans, counts
+
+
+def shard_times(torch, ring, chain):
+    """Per trunk layer at ``SHARD_BUCKET``: the pinned ``batch:4`` fprop
+    dispatch and the one-device plan's, CUDA events around back-to-back
+    calls (host included), and the four shards' kernels' device time.
+    The launch overhead of the ring's dispatch is the sharded time less
+    its shards' device time (median over the layers); a collective round
+    on this one-card ring is one device copy launch (a 16 KiB copy, host
+    included).  Returns both in seconds."""
+    from repro_torch.core.mapping import select_schedule, smem_budget
+    from repro_torch.plan import make_plan
+    from repro_torch.shard import (make_sharded_plan, pinned_shard_spec,
+                                   shard_sub_scene)
+
+    gen = torch.Generator().manual_seed(23)
+    budget = smem_budget("cuda")
+    over = []
+    for name, sc0 in chain.items():
+        sc = sc0.with_batch(SHARD_BUCKET)
+        choice = select_schedule(shard_sub_scene(sc, "batch", SHARD_N),
+                                 budget=budget)
+        plan = make_sharded_plan(sc, devices=ring, spec=pinned_shard_spec(
+            sc, "fprop", "batch", SHARD_N, choice))
+        one = make_plan(sc)
+        a, b = _shard_operands(torch, sc, "fprop", gen)
+        s_ms = time_ms(torch, lambda: plan.execute(a, b))
+        o_ms = time_ms(torch, lambda: one.execute(a, b))
+        k_ms = sum(device_ms(torch, lambda: fn(inp, flt, plan.inner
+                                               .exec_scene, **blocks))
+                   for fn, inp, flt, blocks in plan.kernel_calls(a, b))
+        fn, inp, flt, blocks = one.kernel_call(a, b)
+        ok_ms = device_ms(torch, lambda: fn(inp, flt, one.exec_scene,
+                                            **blocks))
+        over.append(s_ms - k_ms)
+        print(f"  {name} B={SHARD_BUCKET}: batch:{SHARD_N} ({plan.schedule})"
+              f" {s_ms:.4f} ms, shards' kernels {k_ms:.4f} ms (device); "
+              f"one-device ({one.schedule}) {o_ms:.4f} ms, kernel "
+              f"{ok_ms:.4f} ms")
+    x = torch.zeros(4096, device="cuda")
+    copy_ms = time_ms(torch, lambda: x.clone(), iters=200)
+    over_ms = sorted(over)[len(over) // 2]
+    print(f"shard times: launch overhead of a {SHARD_N}-way dispatch "
+          f"(sharded ms less its shards' device ms, median of "
+          f"{len(over)} layers) {over_ms * 1e3:.1f} us "
+          f"(range {min(over) * 1e3:.1f}-{max(over) * 1e3:.1f}); one "
+          f"16 KiB device copy {copy_ms * 1e3:.2f} us (host included); "
+          f"no speed is claimed: the {SHARD_N} shards share one card")
+    return over_ms / 1e3, copy_ms / 1e3
+
+
+def shard_rows(torch, launched, counts, errs):
+    """The ``<grain>_shard_path`` rows: per grain, its longest sub-scene
+    launch of the phase (device time of every distinct launch, 5 replays),
+    timed in full beside its plain version, its bound and one PyTorch call
+    for the same function; ``launches`` from the served and trained runs
+    of the phase."""
+    from repro_torch.kernels.mg3m_conv import conv_plain
+    from repro_torch.launch import roofline as R
+
+    seen = {}
+    for plan, a, b in launched:
+        es = plan.inner.exec_scene
+        for fn, inp, flt, blocks in plan.kernel_calls(a, b)[:1]:
+            key = (es, plan.choice)
+            if key not in seen:
+                ms = device_ms(torch, lambda: fn(inp, flt, es, **blocks),
+                               iters=5)
+                seen[key] = (ms, plan, fn, inp, flt, blocks)
+    rows = []
+    for grain in ("TB11", "TB18", "TB88"):
+        mine = [v for v in seen.values() if v[1].schedule == grain]
+        if not mine:
+            continue
+        _, plan, fn, inp, flt, blocks = max(mine, key=lambda v: v[0])
+        es = plan.inner.exec_scene
+        got = fn(inp, flt, es, **blocks)
+        t = time.perf_counter()
+        want = conv_plain(inp, flt, es)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=TOL["float32"],
+                              atol=TOL["float32"]):
+            raise AssertionError(f"{plan.describe()}'s shard kernel "
+                                 f"disagrees with its plain version "
+                                 f"(max abs err {err})")
+        lib, lib_out = _shard_library(torch, es, inp, flt)
+        lib_err = (lib_out[:, :, :got.shape[2], :got.shape[3]]
+                   - got).abs().max().item()
+        if lib_err > 1e-3 * max(1.0, got.abs().max().item()):
+            raise AssertionError(f"the PyTorch yardstick of {es.describe()} "
+                                 f"is not the kernel's function "
+                                 f"({lib_err:.3e})")
+        errs[(grain, "float32")] = max(errs.get((grain, "float32"), 0.0),
+                                       err)
+        k_ms = device_ms(torch, lambda: fn(inp, flt, es, **blocks))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_ms = device_ms(torch, lib)
+        nbytes = 4 * (inp.numel() + flt.numel() + got.numel())
+        ops_ms = es.flops / R.PEAK_FLOPS_F32 * 1e3
+        bytes_ms = nbytes / R.HBM_BW * 1e3
+        library = "F.conv2d" if es.dilH == es.dilW == 1 else \
+            "F.conv_transpose2d"
+        print(f"  {grain} shard path: {plan.describe()} sub-scene "
+              f"{es.describe()}: kernel {k_ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, {library} {lib_ms:.4f} ms, bound "
+              f"{max(ops_ms, bytes_ms):.4f} ms")
+        rows.append({
+            "name": f"mg3m_{grain.lower()}_shard_path", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES[grain],
+            "launches": counts[grain], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms, "library": library,
+            "shape": f"the longest of {len(mine)} {grain} sub-scene "
+                     f"launches of the shard phase: {plan.describe()} "
+                     f"shard {es.describe()}",
+            "gflop": es.flops / 1e9, "mbytes": nbytes / 1e6})
+    return rows
+
+
+def shard_phase(torch, tmp, errs):
+    """Phase 17: the conv sharding layer on a ring of ``SHARD_N`` x the
+    card: forced partitions, mesh serving and sharded training (their
+    kernel launches counted from 0, the one-device runs they are held
+    against left out), the verifier on every sharded plan, the dispatch
+    times; returns the ``<grain>_shard_path`` rows."""
+    from repro_torch.analysis import verify as V
+    from repro_torch.models.cnn import cnn_chain_scenes
+
+    t0 = time.perf_counter()
+    ring = (torch.device("cuda", 0),) * SHARD_N
+    chain = cnn_chain_scenes("resnet")
+    weights = he_weights(torch, chain)
+    forced, launched = shard_forced(torch, ring, chain)
+    servers, serve_counts = shard_serve(torch, ring, chain, weights, tmp)
+    plans, train_counts = shard_train(torch, ring)
+    counts = {g: serve_counts[g] + train_counts[g] for g in serve_counts}
+    for grain in ("TB11", "TB18", "TB88"):
+        if not counts[grain]:
+            print(f"  {grain}: no launch while serving or training sharded "
+                  f"(its row counts 0)")
+    sharded = list(forced) + [p for s in servers
+                              for p in s.registry.plans().values()]
+    sharded += [p for _, _, p in plans.plans() if p.shard_tag]
+    findings = []
+    for plan in sharded:
+        findings += V.verify_sharded_plan(plan, device="cuda")
+    bad = V.errors(findings)
+    if bad:
+        raise AssertionError(f"{len(bad)} error findings on sharded plans: "
+                             f"{[f.message for f in bad[:4]]}")
+    print(f"shard verify: {len(sharded)} sharded plans, 0 errors "
+          f"({len(findings)} warnings)")
+    over_s, round_s = shard_times(torch, ring, chain)
+    rows = shard_rows(torch, launched, counts, errs)
+    print(f"shard phase: {time.perf_counter() - t0:.1f} s; launches while "
+          f"serving and training sharded {counts}; measured "
+          f"SHARD_LAUNCH_OVERHEAD_S {over_s:.3e}, ICI_LATENCY_S "
+          f"{round_s:.3e}")
+    return rows
+
+
 def isolate_tune_artifacts() -> str:
     """Point the tune cache and the calibration artifact at a fresh
     temporary directory before anything imports the port, so that no
@@ -3172,6 +3698,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     analyze_phase(torch, list(sched.registry.plans().values())
                   + [p for _, _, p in train_run["walk"]] + tuned_plans)
     rows.append(examples_phase(torch, tmp))
+    rows += shard_phase(torch, tmp, errs)
     measured = measured_steps(dense, lm_train)
     train_profile(torch, train_run)
     lm_train_profile(torch, lm_train)

@@ -610,13 +610,69 @@ def verify_plan(plan: ConvPlan, *, smem_budget_bytes: Optional[int] = None,
                          device=device, op=plan.op.value)
 
 
-def verify_sharded_plan(plan, **kwargs) -> List[Finding]:
-    """The reference verifies a ``repro.shard.ShardedConvPlan``; the
-    port's sharded plans wait for ``torch.distributed`` (ROADMAP §1 item
-    6)."""
-    raise NotImplementedError(
-        "sharded plans wait for the port of shard/ on torch.distributed "
-        "(ROADMAP §1 item 6)")
+def verify_sharded_plan(plan, *, smem_budget_bytes: Optional[int] = None,
+                        device=None) -> List[Finding]:
+    """Statically verify a ``repro_torch.shard.ShardedConvPlan``: the
+    partition identity must re-derive from the exec scene (sub-scene,
+    axis feasibility, halo row coverage — all integer math), and every
+    inner per-shard plan must pass every ``verify_plan`` property on the
+    sub-scene.  The ring transfers themselves are not statically
+    provable here; what *is* provable is that each shard's launch
+    geometry is exactly a verified one-device launch and that the shard
+    x sub-scene algebra reconstructs the global op."""
+    from repro_torch.shard.spec import (halo_geometry, shard_blocker,
+                                        shard_sub_scene)
+    spec, E = plan.spec, plan.exec_scene
+    sch = spec.choice.schedule
+    blocks = (spec.choice.bm, spec.choice.bn, spec.choice.bk)
+
+    def finding(code, msg):
+        return Finding(code=code, severity="error", message=msg,
+                       scene=E.describe(), schedule=sch, blocks=blocks,
+                       op=plan.op.value, tile=tuple(spec.choice.tile))
+
+    out: List[Finding] = []
+    if spec.is_sharded:
+        why = shard_blocker(E, spec.axis, spec.n_shards)
+        if why:
+            out.append(finding(
+                "shard-blocked",
+                f"partition {spec.tag} is infeasible for "
+                f"{E.describe()}: {why}"))
+        else:
+            want = shard_sub_scene(E, spec.axis, spec.n_shards)
+            if spec.sub_scene != want:
+                out.append(finding(
+                    "shard-sub-scene-mismatch",
+                    f"stored sub-scene {spec.sub_scene.describe()} does not "
+                    f"re-derive from {E.describe()} under {spec.tag} "
+                    f"(expected {want.describe()})"))
+            if spec.axis == "h":
+                geo = halo_geometry(E, spec.n_shards)
+                if spec.n_shards * geo.oh_sub < E.outH:
+                    out.append(finding(
+                        "halo-coverage",
+                        f"{spec.n_shards} shards x {geo.oh_sub} output rows "
+                        f"do not cover outH={E.outH}"))
+                if spec.sub_scene.outH != geo.oh_sub:
+                    out.append(finding(
+                        "halo-sub-outH",
+                        f"sub-scene outH {spec.sub_scene.outH} != per-shard "
+                        f"row count {geo.oh_sub}: the slab height is wrong"))
+    elif spec.sub_scene != E:
+        out.append(finding(
+            "shard-sub-scene-mismatch",
+            f"unsharded fallback must execute the exec scene itself, "
+            f"stored sub-scene is {spec.sub_scene.describe()}"))
+    for inner in dict.fromkeys(plan.inners):
+        if inner.exec_scene != spec.sub_scene:
+            out.append(finding(
+                "shard-inner-scene",
+                f"inner plan executes {inner.exec_scene.describe()}, not "
+                f"the partition's sub-scene {spec.sub_scene.describe()}"))
+        out.extend(verify_plan(inner, smem_budget_bytes=smem_budget_bytes,
+                               device=device))
+    return out
 
 
 def device_index_map(scene: ConvScene, device=None) -> List[Finding]:

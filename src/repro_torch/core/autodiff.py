@@ -25,8 +25,9 @@ Where the reference's ``jax.custom_vjp`` always returns both cotangents
 and leaves XLA to drop an unused one, ``conv_with_plans`` reads
 ``ctx.needs_input_grad`` and launches only the directions autograd asks
 for: a first layer over images that need no gradient runs no dgrad.
-Mesh-sharded triples (the reference's ``devices=``) wait for the port's
-``shard/`` (ROADMAP §1).
+``make_model_plans(devices=)`` builds ring-sharded triples instead
+(``repro_torch.shard.autodiff``), and ``apply_conv`` dispatches either
+flavour.
 """
 from __future__ import annotations
 
@@ -42,9 +43,6 @@ from repro_torch.core.scene import ConvScene
 from repro_torch.device import DeviceSpec
 from repro_torch.plan.build import ConvOp, ConvPlan, make_plan
 from repro_torch.plan.registry import PlanRegistry, default_registry
-
-_SHARD_ITEM = ("mesh-sharded training plans wait for the port of shard/ "
-               "(ROADMAP §1, item 5: shard/ and ConvServer(mesh=))")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +154,9 @@ class ModelPlans:
     ``PlanRegistry.warm`` pass per policy), then a training step is pure
     dispatch end to end."""
 
-    layers: Tuple[Tuple[str, TrainingPlans], ...]   # (name, triple), in order
+    # (name, triple) in order; a triple is a TrainingPlans, or a
+    # ShardedTrainingPlans when built over a device ring
+    layers: Tuple[Tuple[str, TrainingPlans], ...]
 
     def __getitem__(self, name: str) -> TrainingPlans:
         for n, triple in self.layers:
@@ -210,15 +210,27 @@ def make_model_plans(scenes: Mapping[str, ConvScene], *,
                      max_shards: Optional[int] = None) -> ModelPlans:
     """Plan a whole CNN: one (fprop, dgrad, wgrad) triple per layer.
 
-    Every (scene x op) plan is prewarmed through ``registry.warm`` (default:
-    the process-wide registry of ``device``, itself defaulting to the
-    card) — a pass that bumps neither hits nor misses — and the triples
-    then assemble from pure registry hits, so "zero resolutions after
-    warm-up" is assertable from the ``repro.plan.resolutions`` counter.
-    ``devices``/``max_shards`` (the reference's mesh-sharded triples)
-    raise ``NotImplementedError`` until ``shard/`` is ported."""
-    if devices is not None or max_shards is not None:
-        raise NotImplementedError(_SHARD_ITEM)
+    One device (``devices=None``): every (scene x op) plan is prewarmed
+    through ``registry.warm`` (default: the process-wide registry of
+    ``device``, itself defaulting to the card) — a pass that bumps
+    neither hits nor misses — and the triples then assemble from pure
+    registry hits, so "zero resolutions after warm-up" is assertable
+    from the ``repro.plan.resolutions`` counter.
+
+    With ``devices`` (a ring, e.g. ``launch.mesh.data_devices(mesh)``,
+    which may repeat a device): each layer builds ring-sharded triples
+    via ``repro_torch.shard.autodiff.make_sharded_training_plans``
+    (``max_shards`` caps the ring), whose joint (partition x grain)
+    selector falls back to ``n_shards=1`` per direction whenever
+    partitioning is a predicted loss; ``device`` and ``registry`` do not
+    apply there (the sharded plans build outside the registry)."""
+    if devices is not None:
+        from repro_torch.shard.autodiff import make_sharded_training_plans
+        return ModelPlans(layers=tuple(
+            (name, make_sharded_training_plans(
+                sc, policy=policy if isinstance(policy, str) else "analytic",
+                devices=devices, max_shards=max_shards))
+            for name, sc in scenes.items()))
     if registry is not None:
         _check_device(registry, device)
         reg = registry
@@ -236,15 +248,19 @@ def make_model_plans(scenes: Mapping[str, ConvScene], *,
 
 
 def apply_conv(inp: torch.Tensor, flt: torch.Tensor, plans) -> torch.Tensor:
-    """Differentiable dispatch of one layer's plan triple, operands in plan
-    layout — the one entry the model forwards call.  Sharded triples wait
-    for ``shard/``."""
+    """Differentiable dispatch for either plan flavour of one layer —
+    operands in plan layout.  The one entry the model forwards call, so a
+    model built sharded and one built on one device share the same
+    forward code."""
     if isinstance(plans, TrainingPlans):
         return conv_with_plans(inp, flt, plans)
-    if type(plans).__name__ == "ShardedTrainingPlans":
-        raise NotImplementedError(_SHARD_ITEM)
+    from repro_torch.shard.autodiff import (ShardedTrainingPlans,
+                                            sharded_conv_with_plans)
+    if isinstance(plans, ShardedTrainingPlans):
+        return sharded_conv_with_plans(inp, flt, plans)
     raise ValueError(
-        f"apply_conv expects a TrainingPlans, got {type(plans).__name__}")
+        f"apply_conv expects a TrainingPlans or ShardedTrainingPlans, "
+        f"got {type(plans).__name__}")
 
 
 # --------------------------------------------------------------------------

@@ -89,6 +89,24 @@ _REGS_PER_SM = 65536             # H100 SXM datasheet: 32-bit registers
 # FMAs don't hide), overlapped across the SM's resident blocks.
 STEP_OVERHEAD_S = 100e-9
 
+# Interconnect constants of ring-sharded execution (``repro_torch.shard``;
+# the reference's names): the joint grain x partition selector charges
+# every inter-device byte against ICI_BW, every collective round against
+# ICI_LATENCY_S and every sharded dispatch SHARD_LAUNCH_OVERHEAD_S, so a
+# partition whose collective term erases its per-shard win loses to
+# shards=1 by construction.
+ICI_BW = 450e9       # H100 SXM5 datasheet: NVLink 4, 900 GB/s both ways
+# Measured by chip_smoke.py's shard phase on a ring of 4 x one NVIDIA H100
+# 80GB HBM3 at 700 W.  A collective round on that ring is one device copy
+# launch: 10.39 us for a 16 KiB copy, host included (a round between two
+# cards over NVLink is not measured).  The dispatch is a host loop of n
+# inner executes: a batch:4 dispatch of a trunk layer at batch 8 took
+# 445.4 us (median of the 10 layers; 62.4-683.6) longer than its four
+# shards' kernels, host included (588.8 us in a second call: the host's
+# time varies from call to call).
+ICI_LATENCY_S = 10.39e-6
+SHARD_LAUNCH_OVERHEAD_S = 445.4e-6
+
 SMEM_BUDGET = H100_SMEM_PER_BLOCK
 
 SCHEDULES = ("TB11", "TB18", "TB88")

@@ -1,8 +1,8 @@
 """Plan-driven CNN training launcher (port of ``repro.launch.train_cnn``).
 
     python -m repro_torch.launch.train_cnn [--device cpu] [--steps N] \
-        [--model small|vgg] [--ckpt-dir DIR] [--metrics-out PATH] \
-        [--check-loss] [--no-strict]
+        [--model small|vgg] [--sharded] [--ckpt-dir DIR] \
+        [--metrics-out PATH] [--check-loss] [--no-strict]
 
 Every fprop/dgrad/wgrad of the run dispatches through a prewarmed
 ``ConvPlan`` (``train/cnn.py`` over a ``ModelPlans``): the plans are built
@@ -15,7 +15,9 @@ images with class structure, so the loss genuinely descends
 
 ``--device`` defaults to the card (``cuda``), where the convolutions run
 on the MG3M CUDA kernels; ``--device cpu`` runs their plain versions.
-``--sharded`` raises until ``shard/`` is ported (ROADMAP §1).  The run
+``--sharded`` builds ring-sharded plan triples (``repro_torch.shard``)
+over the device ring: every visible card, or on the CPU a ring of
+``CPU_RING`` CPU devices (the reference's forced 8-device host).  The run
 records the ``repro.train.*`` metrics, streams every plan's (predicted,
 measured) seconds into the drift monitor, and can dump both as one obs
 artifact (``--metrics-out``).
@@ -28,7 +30,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch.core.autodiff import _SHARD_ITEM, make_model_plans
+from repro_torch.core.autodiff import make_model_plans
 from repro_torch.data.pipeline import SyntheticImages
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn as M
@@ -40,17 +42,34 @@ from repro_torch.train import cnn as tc
 from repro_torch.train.optimizer import AdamWConfig
 
 
+#: CPU devices in the ``--sharded`` ring with ``--device cpu``
+CPU_RING = 8
+
+
+def device_ring(args, device: torch.device):
+    """The ``--sharded`` ring: every visible card, or ``CPU_RING`` copies
+    of the CPU device; None when not sharded."""
+    if not args.sharded:
+        return None
+    if device.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (device,) * CPU_RING
+
+
 def build_model(args, device: torch.device):
     """(params, plans, layer_order) for the requested model/geometry —
-    plans built for the *microbatch* batch size on ``device``."""
+    plans built for the *microbatch* batch size on ``device`` (over its
+    ring with ``--sharded``)."""
     mb = args.batch // args.microbatches
+    devices = device_ring(args, device)
     gen = torch.Generator().manual_seed(args.seed)
     if args.model == "small":
         params = M.init_small_cnn(gen, in_ch=args.channels,
                                   n_classes=args.classes, width=args.width,
                                   device=device)
         plans = M.small_cnn_plans(params, mb, args.res, policy=args.policy,
-                                  device=device)
+                                  device=device, devices=devices)
     else:
         scenes = M.vgg_style_scenes(
             mb, res=args.res, in_ch=args.channels,
@@ -58,7 +77,8 @@ def build_model(args, device: torch.device):
                     (args.width * 4, 2)))
         params = M.init_cnn_from_scenes(gen, scenes, n_classes=args.classes,
                                         device=device)
-        plans = make_model_plans(scenes, policy=args.policy, device=device)
+        plans = make_model_plans(scenes, policy=args.policy, device=device,
+                                 devices=devices)
     return params, plans, plans.names()
 
 
@@ -82,7 +102,8 @@ def parser() -> argparse.ArgumentParser:
                     help="kept for parity with the reference's launcher; "
                          "the defaults are smoke-sized")
     ap.add_argument("--sharded", action="store_true",
-                    help="mesh-sharded plan triples (not ported yet)")
+                    help="ring-sharded plan triples over every visible "
+                         "card (with --device cpu: CPU_RING CPU devices)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--metrics-out", default="",
@@ -98,8 +119,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     """Run the launcher on ``argv`` (default ``sys.argv[1:]``); returns
     the loss of every step run."""
     args = parser().parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(f"--sharded: {_SHARD_ITEM}")
     if args.batch % args.microbatches:
         raise ValueError(f"--batch {args.batch} not divisible by "
                          f"--microbatches {args.microbatches}")
@@ -162,7 +181,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
         for i in range(start + 1, args.steps):
             run_step(i)
 
-    hit_rate = tc.observe_plan_hit_rate(default_registry(device), metrics=m)
+    # sharded triples build outside the registry — hit rate only means
+    # something for the one-device plan path
+    hit_rate = (tc.observe_plan_hit_rate(default_registry(device), metrics=m)
+                if not args.sharded else float("nan"))
     if start < args.steps:
         mb = args.batch // args.microbatches
         mb_batch = {k: v[:mb] for k, v in batch_at(0).items()}

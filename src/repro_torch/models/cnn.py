@@ -213,8 +213,8 @@ def small_cnn_plans(p: Params, batch: int, res: int, *,
     """Pre-build the (fprop, dgrad, wgrad) plan triple of every layer into
     one ``ModelPlans`` (one ``PlanRegistry.warm`` pass per policy) on
     ``registry`` or the default registry of ``device``; then every
-    forward/backward step is pure dispatch.  ``devices`` raises until
-    ``shard/`` is ported."""
+    forward/backward step is pure dispatch.  ``devices`` (a device ring)
+    builds ring-sharded triples instead (``make_model_plans``)."""
     from repro_torch.core.autodiff import make_model_plans
     return make_model_plans(small_cnn_scenes(p, batch, res, dtype),
                             policy=policy, device=device, registry=registry,

@@ -449,7 +449,15 @@ class ConvPlan:
 
     @property
     def predicted_s(self) -> Optional[float]:
+        """Modeled whole-dispatch runtime (None on reference plans); a
+        ``ShardedConvPlan``'s also carries the collective term."""
         return self.choice.predicted_s if self.choice else None
+
+    @property
+    def shard_tag(self) -> Optional[str]:
+        """Partition fragment of this plan's registry signature — always
+        None for a one-device plan (see ``repro_torch.shard``)."""
+        return None
 
     def describe(self) -> str:
         how = ("torch-reference" if self.uses_reference else

@@ -12,7 +12,10 @@ The reference's ``int=`` (interpret) key fragment becomes ``be=`` — the
 backend, ``cuda`` or ``cpu`` — so a plan built for one backend is never
 pinned on the other.  A registry serves one backend (its ``device``);
 artifact entries of the other backend ride along on ``save`` and are
-skipped on ``load``.  Sharded entries are a later slice.
+skipped on ``load``.  Ring-sharded plans (``repro_torch.shard``) live in
+the same registry under a ``|shard=axis:n`` key fragment and rebuild over
+a device pool on ``load`` (an entry whose ring is larger than the pool is
+skipped as stale).
 """
 from __future__ import annotations
 
@@ -48,20 +51,25 @@ _SCENE_FIELDS = ("B", "IC", "OC", "inH", "inW", "fltH", "fltW",
 
 def plan_signature(scene: ConvScene, op: Union[ConvOp, str],
                    policy: PolicySpec, backend: str,
-                   use_kernels: bool) -> str:
+                   use_kernels: bool, shard: Optional[str] = None) -> str:
     """Canonical registry key: explicit about everything that changes the
-    executable.  Dilation axes are appended only when active."""
+    executable.  Dilation axes are appended only when active.  ``shard``
+    is a ``ShardSpec.tag`` (``axis:n``), appended only when set, so
+    unsharded keys stay byte-identical and a sharded plan never shadows
+    its one-device sibling (``"none:1"``, the joint selector's fallback,
+    is still a distinct key: same numerics, different wrapper)."""
+    frag = f"|shard={shard}" if shard else ""
     return (f"v={PLAN_VERSION}|op={ConvOp(op).value}|pol={policy_tag(policy)}"
             f"|be={backend}|kern={int(use_kernels)}"
             f"|dt={dtype_name(scene.dtype)}"
             f"|B={scene.B}|IC={scene.IC}|OC={scene.OC}"
             f"|in={scene.inH}x{scene.inW}|flt={scene.fltH}x{scene.fltW}"
             f"|pad={scene.padH},{scene.padW}|std={scene.stdH},{scene.stdW}"
-            f"{scene.dilation_suffix()}")
+            f"{scene.dilation_suffix()}{frag}")
 
 
-def plan_to_dict(plan: ConvPlan) -> Dict:
-    return {
+def plan_to_dict(plan) -> Dict:
+    d = {
         "scene": {f: getattr(plan.scene, f) for f in _SCENE_FIELDS},
         "op": plan.op.value,
         "policy": plan.policy,
@@ -71,16 +79,34 @@ def plan_to_dict(plan: ConvPlan) -> Dict:
         "notes": list(plan.notes),
         "choice": choice_to_dict(plan.choice) if plan.choice else None,
     }
+    if plan.shard_tag:
+        # sharded identity: partition axis + ring size; cost/geometry terms
+        # are recomputed on reload (pinned_shard_spec), never trusted
+        d["shard"] = {"axis": plan.spec.axis, "n": plan.spec.n_shards}
+    return d
 
 
-def plan_from_dict(d: Dict) -> ConvPlan:
+def plan_from_dict(d: Dict, devices: Optional[Sequence] = None):
     """Rebuild a plan from its artifact entry — no schedule resolution.
     Raises ``ValueError`` on an entry that cannot be rebuilt (and
-    ``RuntimeError`` for a ``cuda`` entry on a machine with no card)."""
+    ``RuntimeError`` for a ``cuda`` entry on a machine with no card).
+    A sharded entry rebuilds through ``assemble_sharded_plan`` over the
+    device pool ``devices`` (default: every visible CUDA device for a
+    ``cuda`` entry, the one CPU for a ``cpu`` entry) and raises
+    ``ValueError`` when the pool is smaller than the stored ring."""
     scene = ConvScene(**d["scene"])
     backend = d["backend"]
     if backend not in _BACKENDS:
         raise ValueError(f"unknown plan backend {backend!r}")
+    sh = d.get("shard")
+    if sh:
+        from repro_torch.shard.plan import assemble_sharded_plan
+        if devices is None and backend == "cpu":
+            devices = ("cpu",)
+        return assemble_sharded_plan(scene, d["op"], d["policy"],
+                                     sh["axis"], int(sh["n"]),
+                                     choice_from_dict(d["choice"]),
+                                     devices=devices)
     choice = choice_from_dict(d["choice"]) if d.get("choice") else None
     return assemble_plan(scene, d["op"], d["policy"], choice,
                          device=backend,
@@ -92,9 +118,23 @@ def valid_plan_dict(d) -> bool:
     An entry for a backend this process cannot build (``cuda`` with no
     card) is checked structurally only — the backend is an environment
     property, and merge-on-``save`` must keep it for the process that can
-    serve it."""
+    serve it.  A sharded entry is likewise checked structurally (its
+    identity re-derives), not by binding a device ring: a 4-shard plan
+    saved by a process with a 4-device pool must survive the merge-on-save
+    of a process whose ``load`` skips it."""
     if not isinstance(d, dict):
         return False
+    if d.get("shard"):
+        try:
+            from repro_torch.shard.plan import pinned_shard_spec
+            if d.get("backend") not in _BACKENDS:
+                return False
+            pinned_shard_spec(ConvScene(**d["scene"]), d["op"],
+                              d["shard"]["axis"], int(d["shard"]["n"]),
+                              choice_from_dict(d["choice"]))
+            return True
+        except (KeyError, TypeError, ValueError):
+            return False
     try:
         if d.get("backend") == "cuda" and not torch.cuda.is_available():
             ConvScene(**d["scene"])
@@ -154,15 +194,19 @@ class PlanRegistry:
             return key in self._mem
 
     def key(self, scene: ConvScene, op: Union[ConvOp, str] = ConvOp.FPROP,
-            policy: PolicySpec = "analytic", use_kernels: bool = True) -> str:
-        return plan_signature(scene, op, policy, self.backend, use_kernels)
+            policy: PolicySpec = "analytic", use_kernels: bool = True,
+            shard: Optional[str] = None) -> str:
+        return plan_signature(scene, op, policy, self.backend, use_kernels,
+                              shard)
 
     # -- lookup ------------------------------------------------------------
     def get(self, scene: ConvScene, op: Union[ConvOp, str] = ConvOp.FPROP, *,
-            policy: PolicySpec = "analytic",
-            use_kernels: bool = True) -> Optional[ConvPlan]:
-        """Registered plan, or None on miss (LRU-touching)."""
-        k = self.key(scene, op, policy, use_kernels)
+            policy: PolicySpec = "analytic", use_kernels: bool = True,
+            shard: Optional[str] = None):
+        """Registered plan, or None on miss (LRU-touching).  ``shard`` is a
+        ``ShardSpec.tag`` and selects the ring-sharded entry population
+        (``ShardedConvPlan``); ``None`` addresses unsharded plans only."""
+        k = self.key(scene, op, policy, use_kernels, shard)
         with self._lock:
             plan = self._mem.get(k)
             if plan is None:
@@ -172,12 +216,12 @@ class PlanRegistry:
             self._c_hits.inc()
             return plan
 
-    def put(self, plan: ConvPlan) -> str:
+    def put(self, plan) -> str:
         if plan.backend != self.backend:
             raise ValueError(f"a {plan.backend!r} plan cannot be registered "
                              f"in a {self.backend!r} registry")
         k = plan_signature(plan.scene, plan.op, plan.policy, plan.backend,
-                           plan.use_kernels)
+                           plan.use_kernels, plan.shard_tag)
         with self._lock:
             self._mem[k] = plan
             self._mem.move_to_end(k)
@@ -293,6 +337,7 @@ class PlanRegistry:
             out = {plan.scene.B for plan in self._mem.values()
                    if plan.op is op and plan.policy == pol
                    and plan.use_kernels == use_kernels
+                   and plan.shard_tag is None
                    and plan.scene.with_batch(1) == base}
         return tuple(sorted(out))
 
@@ -339,10 +384,12 @@ class PlanRegistry:
                 os.unlink(tmp)
         return p
 
-    def load(self, path: str) -> int:
+    def load(self, path: str, devices: Optional[Sequence] = None) -> int:
         """Merge this backend's plans from an artifact; returns how many
         were loaded.  Malformed or stale entries are skipped with a
-        warning; entries of the other backend are skipped silently."""
+        warning; entries of the other backend are skipped silently.
+        Sharded entries rebuild over the device pool ``devices`` (see
+        ``plan_from_dict``); one whose ring exceeds the pool is stale."""
         p = os.path.abspath(os.path.expanduser(path))
         t0 = time.perf_counter()
         loaded = 0
@@ -355,7 +402,7 @@ class PlanRegistry:
                     if isinstance(d, dict) and d.get("backend") != self.backend:
                         continue
                     try:
-                        plan = plan_from_dict(d)
+                        plan = plan_from_dict(d, devices)
                     except (KeyError, TypeError, ValueError) as e:
                         skipped.append((k, e))
                         continue

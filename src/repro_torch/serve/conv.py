@@ -38,8 +38,22 @@ launched on and synchronizes it before completing its requests (the
 reference's ``jax.block_until_ready``).  A request tensor copied to the
 card on the submitter's stream carries an event the dispatching thread's
 stream waits on, so the background loop of ``serve.sched`` may run on
-another thread (PyTorch's current stream is per thread).  Mesh-sharded
-serving is a later slice.
+another thread (PyTorch's current stream is per thread).
+
+``mesh=`` extends the same argument one level up: a coalesced bucket's B
+axis is exactly the independent-GEMM-column axis the mesh's data
+dimension partitions, so in mesh mode every (layer x op x bucket)
+prewarms a ``ShardedConvPlan`` (``repro_torch.shard``, ``axes=("batch",)``)
+across the mesh's data-axis device ring (``launch.mesh.data_devices``,
+which may repeat a device) instead of a one-device plan; the server's
+device is the ring's first.  The joint selector still owns the decision
+— a bucket too small to pay for the shard dispatch falls back to
+``n_shards == 1`` — and the chosen partition tag per (layer, op, bucket)
+is recorded at prewarm, so steady state stays a zero-resolution registry
+lookup (tag dict hit + shard-keyed ``get``).  A sharded plan already in
+the registry for a (scene, op) — loaded from a prewarm artifact over this
+ring — satisfies the warm with its own partition, so a restarted mesh
+server re-selects nothing.
 
 Observability: every server owns a ``MetricRegistry`` (``repro.serve.*``
 counters + queue-wait/dispatch histograms; ``stats(since=snapshot())``
@@ -73,7 +87,7 @@ from repro_torch.obs.metrics import (DEFAULT_RATIO_BUCKETS, MetricRegistry,
 from repro_torch.obs.trace import _NOOP as _NOOP_SPAN
 from repro_torch.obs.trace import Span, Tracer, default_tracer
 from repro_torch.plan import ConvOp, ConvPlan, PlanRegistry
-from repro_torch.plan.build import PolicySpec, _active_cost_model
+from repro_torch.plan.build import PolicySpec, _active_cost_model, policy_tag
 
 
 # --------------------------------------------------------------------------
@@ -226,6 +240,10 @@ class ConvServer:
     ``strict=True`` turns any post-warm plan miss into a ``RuntimeError``
     (production posture: steady state must be pure dispatch); the default
     builds the missing plan and counts it in ``stats()['plan_builds']``.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) serves over its data-axis device
+    ring (see the module docstring); it takes the place of ``device`` and
+    requires ``use_kernels=True``.
     """
 
     def __init__(self, *, registry: Optional[PlanRegistry] = None,
@@ -236,9 +254,29 @@ class ConvServer:
                  on_dispatch: Optional[Callable[[DispatchRecord], None]]
                  = None, metrics: Optional[MetricRegistry] = None,
                  tracer: Optional[Tracer] = None,
-                 drift: Optional["drift_mod.DriftMonitor"] = None):
-        self.device = resolve_device(device)
-        if registry is not None and registry.device != self.device:
+                 drift: Optional["drift_mod.DriftMonitor"] = None,
+                 mesh=None):
+        self.mesh = mesh
+        # mesh mode: the shard ring, and the chosen partition tag per
+        # (layer, op, bucket), recorded at prewarm so steady state never
+        # re-runs the joint selector
+        self._ring: Optional[Tuple[torch.device, ...]] = None
+        self._shard_tags: Dict[Tuple[str, ConvOp, int], str] = {}
+        if mesh is not None:
+            if not use_kernels:
+                raise ValueError(
+                    "mesh serving requires use_kernels=True: sharded plans "
+                    "always dispatch the kernels per shard")
+            if device is not None:
+                raise ValueError("pass device or mesh, not both: a mesh "
+                                 "server runs on its ring's first device")
+            from repro_torch.launch.mesh import data_devices
+            from repro_torch.shard.plan import device_pool
+            self._ring = device_pool(data_devices(mesh))
+            self.device = self._ring[0]
+        else:
+            self.device = resolve_device(device)
+        if registry is not None and registry.backend != self.device.type:
             raise ValueError(f"registry serves {registry.device}, the server "
                              f"{self.device}")
         self.registry = (registry if registry is not None
@@ -327,14 +365,17 @@ class ConvServer:
         traffic instead of inside the first request's latency (on the card:
         the kernel library build and first launches)."""
         if artifact and os.path.exists(artifact):
-            self.registry.load(artifact)
+            self.registry.load(artifact, devices=self._ring)
         built = 0
         with self._lock:
             families = list(self._layers.values())
         for fam in families:
-            built += self.registry.warm(
-                [fam.base], ops=fam.ops, buckets=fam.ladder,
-                policy=self.policy, use_kernels=self.use_kernels)
+            if self._ring is not None:
+                built += self._prewarm_sharded(fam)
+            else:
+                built += self.registry.warm(
+                    [fam.base], ops=fam.ops, buckets=fam.ladder,
+                    policy=self.policy, use_kernels=self.use_kernels)
         if compile:
             for fam in families:
                 for op, bucket in itertools.product(fam.ops, fam.ladder):
@@ -457,10 +498,57 @@ class ConvServer:
             self._g_queue.set(len(self._queue))
             return group
 
-    def _plan(self, fam: _Family, op: ConvOp, bucket: int) -> ConvPlan:
+    def _prewarm_sharded(self, fam: _Family) -> int:
+        """Mesh-mode warm: for every (op x bucket), the sharded plan already
+        registered over this ring (an artifact's), else one built by the
+        joint (grain x partition) selector over the mesh's data-axis ring
+        (``axes=("batch",)`` — the bucket's B axis is the coalescing axis,
+        provably safe to split); register it and pin its partition tag.
+        Like ``PlanRegistry.warm`` this bumps no hit/miss counters."""
+        built = 0
+        for op in fam.ops:
+            for bucket in fam.ladder:
+                scene = fam.base.with_batch(bucket)
+                plan = self._registered_sharded(scene, op)
+                if plan is None:
+                    plan = self._build_sharded(scene, op)
+                    built += 1
+                self.registry.put(plan)
+                with self._lock:
+                    self._shard_tags[(fam.layer, op, bucket)] = plan.shard_tag
+        return built
+
+    def _registered_sharded(self, scene: ConvScene, op: ConvOp):
+        """The most recently used sharded plan of the registry for
+        ``(scene, op)`` under this server's policy over this ring, or
+        None.  A peek: no hit/miss traffic."""
+        pol = policy_tag(self.policy)
+        found = None
+        for plan in self.registry.plans().values():
+            if (plan.shard_tag is not None and plan.op is op
+                    and plan.scene == scene and plan.policy == pol
+                    and plan.devices == self._ring[:plan.n_shards]):
+                found = plan
+        return found
+
+    def _build_sharded(self, scene: ConvScene, op: ConvOp):
+        from repro_torch.shard.plan import make_sharded_plan
+        return make_sharded_plan(scene, op, policy=self.policy,
+                                 devices=self._ring, axes=("batch",),
+                                 model=self.cost_model)
+
+    def _plan(self, fam: _Family, op: ConvOp, bucket: int):
         scene = fam.base.with_batch(bucket)
-        plan = self.registry.get(scene, op, policy=self.policy,
-                                 use_kernels=self.use_kernels)
+        if self._ring is not None:
+            with self._lock:
+                tag = self._shard_tags.get((fam.layer, op, bucket))
+            plan = (self.registry.get(scene, op, policy=self.policy,
+                                      use_kernels=self.use_kernels,
+                                      shard=tag)
+                    if tag else None)
+        else:
+            plan = self.registry.get(scene, op, policy=self.policy,
+                                     use_kernels=self.use_kernels)
         if plan is None:
             self._c_plan_misses.inc()
             if self.strict:
@@ -470,8 +558,13 @@ class ConvServer:
                     f"forbids steady-state plan builds)")
             # build + put directly: re-entering get_or_build would record
             # the same miss twice and deflate the registry's hit_rate
-            plan = self.registry._build(scene, op, self.policy,
-                                        self.use_kernels)
+            if self._ring is not None:
+                plan = self._build_sharded(scene, op)
+                with self._lock:
+                    self._shard_tags[(fam.layer, op, bucket)] = plan.shard_tag
+            else:
+                plan = self.registry._build(scene, op, self.policy,
+                                            self.use_kernels)
             self.registry.put(plan)
             self._c_plan_builds.inc()
         return plan
@@ -550,7 +643,9 @@ class ConvServer:
             if (enabled and plan.choice is not None
                     and plan.exec_scene is not None):
                 # synchronized above, so exec_s is an honest kernel
-                # wall-clock: audit the cost model with it
+                # wall-clock: audit the cost model with it (plan.predicted_s:
+                # a sharded plan predicts the whole dispatch, collective and
+                # launch terms included, which is what exec_s measures)
                 self.drift.observe(
                     drift_mod.scene_class(plan.exec_scene, plan.choice),
                     plan.predicted_s, exec_s)

@@ -192,6 +192,12 @@ class ConvScheduler(ConvServer):
     loop (``start``/``stop``) for true continuous batching."""
 
     def __init__(self, *, config: Optional[SchedConfig] = None, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise ValueError(
+                "ConvScheduler does not compose with mesh serving yet: "
+                "sub-rung flush buckets would need per-rung sharded "
+                "prewarms; use ConvServer(mesh=...) for sharded throughput "
+                "serving")
         super().__init__(**kwargs)
         self.config = config if config is not None else SchedConfig()
         self._nets: Dict[str, _NetChain] = {}

@@ -5,7 +5,10 @@ ConvPlan (port of ``repro.train.cnn``).
     metrics)`` over a ``ModelPlans`` — forward through
     ``models.cnn.cnn_forward_planned`` (activations in plan layout across
     the stack), backward through each layer's prewarmed dgrad/wgrad plans
-    (``core.autodiff.conv_with_plans``), update through
+    (``core.autodiff.conv_with_plans``; a ``ModelPlans`` built over a
+    device ring dispatches ``shard.sharded_conv_with_plans``, whose
+    sharded plans return global gradients on the ring's first device, so
+    the step is the same), update through
     ``optimizer.adamw_update``.  Microbatches accumulate in a Python loop
     (the reference's ``lax.scan``) into ``GradBuckets``, a few flat f32
     buffers rather than one per parameter.

@@ -274,9 +274,19 @@ def test_findings_name_scene_schedule_and_tile():
         assert f.message
 
 
-def test_sharded_plan_waits_for_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        V.verify_sharded_plan(None)
+def test_sharded_plan_verifies_with_no_errors():
+    """A ring-sharded plan's partition and inner launches verify clean
+    (the reference's finding codes on tampered plans:
+    tests/test_torch_shard.py)."""
+    from repro_torch.shard import make_sharded_plan, pinned_shard_spec
+    from repro_torch.shard.spec import shard_sub_scene
+    from repro_torch.core.mapping import select_schedule
+    choice = select_schedule(shard_sub_scene(DENSE, "h", 2))
+    plan = make_sharded_plan(DENSE, devices=("cpu",) * 2,
+                             spec=pinned_shard_spec(DENSE, "fprop", "h", 2,
+                                                    choice))
+    assert plan.shard_tag == "h:2"
+    assert not V.errors(V.verify_sharded_plan(plan))
 
 
 # --------------------------------------------------------------------------

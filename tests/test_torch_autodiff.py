@@ -192,8 +192,13 @@ def test_model_plans_protocol_and_prewarm():
 
 def test_unported_options_raise():
     sc = ConvScene(**_kw(2, 3, 4, 8, 3, 1, 1))
-    with pytest.raises(NotImplementedError, match="shard/"):
-        ad.make_model_plans({"a": sc}, device="cpu", devices=("d0", "d1"))
+    # sharded triples build over a device ring (repro_torch.shard; held to
+    # the reference in tests/test_torch_shard.py)
+    from repro_torch.shard import ShardedTrainingPlans
+    sharded = ad.make_model_plans({"a": sc}, devices=("cpu",) * 2)
+    assert isinstance(sharded["a"], ShardedTrainingPlans)
+    assert all(p.devices[0] == torch.device("cpu")
+               for _, _, p in sharded.plans())
     with pytest.raises(ValueError, match="TrainingPlans"):
         ad.apply_conv(torch.zeros(4, 4, 3, 2), torch.zeros(3, 3, 3, 4),
                       {"not": "plans"})

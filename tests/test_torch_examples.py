@@ -1,13 +1,17 @@
-"""The port's LM examples (``repro_torch.examples.{serve_lm,train_lm}``,
-ports of ``examples/serve_lm.py`` and ``examples/train_lm.py``) on the
-CPU at a tiny size: the engine answers every request, greedy ones the
-same on a second run; training checkpoints, and a run resumed from a
-checkpoint gives the uninterrupted run's losses bit for bit."""
+"""The port's examples (``repro_torch.examples.{serve_lm,train_lm,
+shard_conv}``, ports of ``examples/serve_lm.py``, ``examples/train_lm.py``
+and ``examples/shard_conv.py``) on the CPU at a tiny size: the engine
+answers every request, greedy ones the same on a second run; training
+checkpoints, and a run resumed from a checkpoint gives the uninterrupted
+run's losses bit for bit; the sharded conv demo holds every partition to
+the one-device plan on a ring of CPU devices."""
 import math
 import os
 import shutil
 
-from repro_torch.examples import serve_lm, train_lm
+import torch
+
+from repro_torch.examples import serve_lm, shard_conv, train_lm
 
 TINY = ["--device", "cpu", "--d-model", "64", "--layers", "2", "--batch",
         "2", "--seq", "32", "--steps", "6", "--ckpt-every", "3"]
@@ -40,3 +44,14 @@ def test_train_lm_fresh_run_ignores_old_checkpoints(tmp_path):
     a = train_lm.main(TINY + ["--ckpt-dir", str(tmp_path), "--steps", "2"])
     b = train_lm.main(TINY + ["--ckpt-dir", str(tmp_path), "--steps", "2"])
     assert a == b
+
+
+def test_shard_conv_on_a_cpu_ring():
+    got = shard_conv.main(["--device", "cpu"])
+    assert got["parity"] == {"batch:8": "bitwise", "oc:8": "bitwise",
+                             "h:4": "bitwise", "ic:4": "tolerance"}
+    assert len(got["training_tags"]) == 3
+    assert [tuple(o.shape) for o in got["outs"]] == [
+        (14, 14, 32, b) for b in (3, 5, 8)]
+    assert all(torch.isfinite(o).all() for o in got["outs"])
+    assert got["stats"]["plan_misses"] == 0

@@ -219,3 +219,24 @@ def test_meta_hooks_never_load_the_cuda_library(monkeypatch):
         .backward()
     for lib in (FA.library, CC.library, MG.library):
         assert lib.cache_info().currsize == 0
+
+
+# the conv sharding slice: each a port of the reference file named beside it
+SHARD_MODULES = {"shard": "src/repro/shard/__init__.py",
+                 "shard.spec": "src/repro/shard/spec.py",
+                 "shard.plan": "src/repro/shard/plan.py",
+                 "shard.autodiff": "src/repro/shard/autodiff.py",
+                 "examples.shard_conv": "examples/shard_conv.py"}
+
+
+@pytest.mark.parametrize("name", sorted(SHARD_MODULES))
+def test_shard_modules_are_covered(name):
+    """Each module is one of the files the guards above walk (no jax, no
+    repro, no triton), mirrors its reference file, and imports here
+    without a GPU toolchain."""
+    rel = Path(*name.split("."))
+    rel = rel / "__init__.py" if (PORT / rel).is_dir() else rel.with_suffix(
+        ".py")
+    assert PORT / rel in FILES
+    assert (ROOT / SHARD_MODULES[name]).is_file()
+    assert importlib.import_module(f"repro_torch.{name}")

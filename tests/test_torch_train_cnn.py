@@ -566,12 +566,21 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, exc", [(["--sharded", "--device", "cpu"],
-                                        NotImplementedError),
+                                        None),
                                        (["--batch", "15", "--device", "cpu"],
                                         ValueError)])
-def test_launcher_rejects_unported_or_bad_flags(argv, exc):
-    with pytest.raises(exc):
-        launcher.main(argv)
+def test_launcher_rejects_unported_or_bad_flags(argv, exc, capsys):
+    """A bad flag raises; ``--sharded`` trains on ring-sharded triples
+    over eight CPU devices and gives the unsharded run's losses."""
+    if exc is not None:
+        with pytest.raises(exc):
+            launcher.main(argv)
+        return
+    steps = ["--steps", "4"]
+    sharded = launcher.main(argv + steps)
+    assert "plan_hit_rate=nan" in capsys.readouterr().out
+    np.testing.assert_allclose(sharded, launcher.main(argv[1:] + steps),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_launcher_vgg_model():
