@@ -244,10 +244,41 @@ Phases, each of which raises (non-zero exit) on failure:
                ``SHARD_LAUNCH_OVERHEAD_S`` and ``ICI_LATENCY_S``) are read.
                No speed is claimed: the four shards share one card.
  18. train profiles  one more train step of phase 6, then one of phase
-               13, each under ``torch.profiler`` (device busy time and idle
-               share), after every timed phase, since no timed phase
-               should run after a profiler session.
- 19. dry run and roofline  traced on the meta device, last so that no
+               13's run rebuilt from its seed after one warm-up step, each
+               under ``torch.profiler`` (device busy time and idle share),
+               after every timed phase (phase 19 runs before them), since
+               no timed phase should run after a profiler session.
+ 19. LM mesh  ``parallel/ring.py`` on rings of this card (``(cuda:0,) *
+               n``; no speed is claimed, the shards share one card).  It
+               runs after phase 17 and before phase 18's profiles; phase
+               13's state is dropped first (a ring's and it do not fit on
+               the card together), and phase 18 rebuilds the run it
+               profiles.  Its times are CUDA events.  With the launch
+               counts set to 0
+               around each ring's run: full-width qwen2.5-3b (bf16, seq
+               4096) in the DP grain on a (2, 2) ring, 3 steps at global
+               batch 4, losses, gradient norms and every parameter and moment
+               bitwise the one-device step's (4 microbatches of 1), ms per
+               step of
+               both (the ring's host cost their difference), peak memory,
+               the ``repro.mesh.*`` collective bytes per step; qwen3-14b
+               at full width with its depth cut from 40 to 4 layers in the
+               TP + SP grain on a (2, 2) ring, 3 steps, losses within
+               ``TP_LOSS_TOL`` and gradient norms within ``TP_NORM_TOL``
+               relative of one device's (bf16 partial sums), flash
+               launched at the shard's 20 q heads over 4 k/v heads (64 per
+               step), and a reduced f32 copy's gradients within 1e-4 of
+               max |g| of one device's (its update within 1e-4 where the
+               gradient's sign is fixed); qwen2.5-3b served on a (1, 2)
+               ring (head-sharded cache) and a (1, 4) ring
+               (sequence-sharded), a 2 x 2048 prefill and 8 decode steps
+               within ``ORACLE_TOL`` of max |logit| of one device's, and a
+               reduced f32 copy within 1e-4; elastic restore of
+               qwen2.5-3b at full width with its depth cut to 2 layers,
+               (2, 2) -> (4, 1) -> (1, 1), bitwise; then the flash kernel
+               at the TP shard shape (q (20, 4096, 128), k/v (4, 4096,
+               128)): the ``flash_attention_fwd_tp_shard`` row.
+ 20. dry run and roofline  traced on the meta device, last so that no
                timed phase shares the host with it: qwen2.5-3b's train
                step (phase 13's seq 4096, batch 2 in 2 microbatches), its
                2 x 2048 prefill and its decode step at 2 slots (phase 10):
@@ -258,7 +289,11 @@ Phases, each of which raises (non-zero exit) on failure:
                and unavoidable bytes) beside the measured time; the
                measured fraction (traced bound / time), the model fraction
                (model bound / time) and ``roofline_fraction`` must lie in
-               (0, 1.05].  Then one JSON line per (arch x shape) cell of
+               (0, 1.05].  The dry run's model of phase 19's two train
+               rings (one representative position of a (2, 2) ``meta``
+               ring): its collective bytes per step must equal the
+               counters measured there; its per-chip peak times 4 beside
+               the card's.  Then one JSON line per (arch x shape) cell of
                the full-size grid, traced in one process per CPU core (at
                most 8), ``fits`` against this card's memory.
 
@@ -276,7 +311,9 @@ from phases 13 and 14, with ``backward_ms``; flash's f32 kernel the row
 ``flash_attention_fwd_f32`` from phase 16; each conv grain a row
 ``<name>_shard_path`` from phase 17 at its longest sub-scene launch of the
 forced partitions, its launches those of phase 17's sharded serving and
-training), the card's name and power limit, and ``{"ok": true, ...}``.
+training; flash a row ``flash_attention_fwd_tp_shard`` from phase 19 at
+the TP shard shape, its launches those of the TP ring's steps), the
+card's name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -290,6 +327,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -2093,6 +2131,39 @@ def attn_lm_path(torch, np) -> dict:
     return dense
 
 
+def kernel_row(torch, counts, errs, name, fn, plain, lib, lib_out, flops,
+               nbytes, shape, row_name=None, err_key=None, launches=None):
+    """One bf16 LM kernel row: the kernel held against its plain version,
+    then its device time, the plain version's (CUDA events) and the
+    PyTorch call's (device time), beside the bound; launches from
+    ``counts`` unless given."""
+    from repro_torch.launch import roofline as R
+    source, replaces = LM_KERNELS[name]
+    err_key = err_key or name
+    got = fn()
+    _hold(torch, name, "bfloat16", got, plain(), errs, shape)
+    lib_err = (lib_out(lib()).float() - got.float()).abs().max().item()
+    k_ms = device_ms(torch, fn)
+    p_ms = time_ms(torch, plain)
+    lib_ms = device_ms(torch, lib)
+    nbytes += got.numel() * got.element_size()
+    ops_ms = flops / R.PEAK_FLOPS_BF16 * 1e3
+    bytes_ms = nbytes / R.HBM_BW * 1e3
+    print(f"  {row_name or name} at {shape}: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms (max abs diff "
+          f"to the kernel {lib_err:.3e}), bound {max(ops_ms, bytes_ms):.4f} ms")
+    return {"name": row_name or name, "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": counts[name] if launches is None else launches,
+            "max_abs_err": errs[(err_key, "float32")],
+            "max_abs_err_bf16": errs[(err_key, "bfloat16")],
+            "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms, "shape": shape,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
 def lm_timing_phase(torch, counts, errs, dense_counts):
     """Per kernel at the LM path's prefill shapes (bf16): kernel, plain
     version and one PyTorch call computing the same function; and flash at
@@ -2114,32 +2185,8 @@ def lm_timing_phase(torch, counts, errs, dense_counts):
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to("cuda", bf)
 
-    def row(name, fn, plain, lib, lib_out, flops, nbytes, shape,
-            row_name=None, err_key=None, launches=None):
-        source, replaces = LM_KERNELS[name]
-        err_key = err_key or name
-        got = fn()
-        _hold(torch, name, "bfloat16", got, plain(), errs, shape)
-        lib_err = (lib_out(lib()).float() - got.float()).abs().max().item()
-        k_ms = device_ms(torch, fn)
-        p_ms = time_ms(torch, plain)
-        lib_ms = device_ms(torch, lib)
-        nbytes += got.numel() * got.element_size()
-        ops_ms = flops / R.PEAK_FLOPS_BF16 * 1e3
-        bytes_ms = nbytes / R.HBM_BW * 1e3
-        print(f"  {row_name or name} at {shape}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms (max abs diff "
-              f"to the kernel {lib_err:.3e}), bound {max(ops_ms, bytes_ms):.4f} ms")
-        return {"name": row_name or name, "route": "cuda",
-                "source": source, "replaces": replaces,
-                "launches": counts[name] if launches is None else launches,
-                "max_abs_err": errs[(err_key, "float32")],
-                "max_abs_err_bf16": errs[(err_key, "bfloat16")],
-                "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "library_ms": lib_ms, "shape": shape,
-                "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    def row(*args, **kwargs):
+        return kernel_row(torch, counts, errs, *args, **kwargs)
 
     x, w = rand(b, l, c), rand(k, c, scale=0.2)
     xt, wt = x.transpose(1, 2).contiguous(), w.t().contiguous()[:, None, :]
@@ -2471,6 +2518,36 @@ def flash_train_checks(torch, errs):
     torch.cuda.synchronize()
 
 
+def lm_train_run(torch) -> dict:
+    """Phase 13's qwen2.5-3b train run built from its seed: the model, its
+    state (``state_bytes`` on the card), the step with its hooks, and the
+    batch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=0, trainable=True)
+    moments = "bfloat16" if cfg.param_count() >= 30e9 else "float32"
+    state = S.init_train_state(model, moments)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100,
+                            moments_dtype=moments)
+    step, hooks = S.build_train_step(
+        cfg, make_host_mesh(), opt_cfg,
+        S.StepPlan(n_microbatches=LM_TRAIN_N_MB), model)
+    batch = S.to_device(SyntheticLM(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                    seed=0).batch_at(0), "cuda")
+    return {"model": model, "state": state, "moments": moments,
+            "state_bytes": state_bytes, "opt_cfg": opt_cfg, "step": step,
+            "hooks": hooks, "batch": batch}
+
+
 def lm_train_phase(torch, np) -> dict:
     """qwen2.5-3b at full width trained through ``train.step``: seq 4096,
     global batch 2 in 2 microbatches of 1, AdamW (f32 moments), per-layer
@@ -2482,15 +2559,12 @@ def lm_train_phase(torch, np) -> dict:
     ``LM_TRAIN_FALL`` after the warm-up.  Flash must launch twice per
     layer per microbatch (the forward and the checkpoint's recomputation)
     and its backward run once.
-    Returns the run (for ``lm_train_profile``) and its numbers."""
+    Returns the run (``lm_train_run``'s) and its numbers."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.configs.registry import get_config
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.flash_attention import FlashAttention
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.transformer import init_params
     from repro_torch.parallel import ctx
-    from repro_torch.train import optimizer as O
     from repro_torch.train import step as S
 
     cfg = get_config(LM_TRAIN_ARCH)
@@ -2499,27 +2573,19 @@ def lm_train_phase(torch, np) -> dict:
     flash_train_checks(torch, errs)
     t0 = time.perf_counter()
     base = torch.cuda.memory_allocated()
-    model = init_params(cfg, seed=0, trainable=True)
-    moments = "bfloat16" if cfg.param_count() >= 30e9 else "float32"
-    state = S.init_train_state(model, moments)
-    torch.cuda.synchronize()
-    state_bytes = torch.cuda.memory_allocated() - base
+    run = lm_train_run(torch)
+    model, state, moments = run["model"], run["state"], run["moments"]
+    state_bytes = run["state_bytes"]
+    step, hooks, batch = run["step"], run["hooks"], run["batch"]
     print(f"LM train: {_describe(cfg, model)}; checkpointing "
           f"{cfg.remat_policy}; {moments} moments; seq {LM_TRAIN_SEQ}, "
           f"global batch {LM_TRAIN_BATCH} (train_4k's "
           f"{SHAPES['train_4k']['global_batch']}, cut for one card) in "
           f"{LM_TRAIN_N_MB} "
           f"microbatches; init {time.perf_counter() - t0:.1f} s")
-    mesh = make_host_mesh()
-    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100,
-                            moments_dtype=moments)
-    plan = S.StepPlan(n_microbatches=LM_TRAIN_N_MB)
-    step, hooks = S.build_train_step(cfg, mesh, opt_cfg, plan, model)
     grads_step, _ = S.build_train_step(
-        cfg, mesh, opt_cfg, S.StepPlan(n_microbatches=LM_TRAIN_N_MB,
-                                       skip_update=True), model)
-    batch = S.to_device(SyntheticLM(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
-                                    seed=0).batch_at(0), "cuda")
+        cfg, make_host_mesh(), run["opt_cfg"],
+        S.StepPlan(n_microbatches=LM_TRAIN_N_MB, skip_update=True), model)
     # each layer's forward, and again its checkpoint's recomputation
     per_step = cfg.n_layers * LM_TRAIN_N_MB * \
         (1 if cfg.remat_policy == "none" else 2)
@@ -2671,17 +2737,23 @@ def hybrid_train_step(torch) -> dict:
             "peak_gb": peak_gb}
 
 
-def lm_train_profile(torch, train):
-    """One more qwen2.5-3b train step under ``torch.profiler`` (last, as
-    ``train_profile``); then the run is dropped."""
+def lm_train_profile(torch):
+    """One qwen2.5-3b train step of phase 13's run under
+    ``torch.profiler`` (last, as ``train_profile``).  Phase 13's own state
+    is dropped before phase 19, with whose rings it does not fit on the
+    card, so the run is rebuilt from its seed and takes one warm-up step
+    first; then it is dropped."""
     from repro_torch.parallel import ctx
 
-    with ctx.activation_sharding(train["hooks"]):
+    run = lm_train_run(torch)
+    with ctx.activation_sharding(run["hooks"]):
+        run["step"](run["state"], run["batch"])
+        torch.cuda.synchronize()
         prof = lm_profile(
-            torch, lambda: train["step"](train["state"], train["batch"]),
+            torch, lambda: run["step"](run["state"], run["batch"]),
             f"{LM_TRAIN_ARCH} train step (global batch {LM_TRAIN_BATCH} x "
             f"{LM_TRAIN_SEQ})")
-    train.clear()
+    run.clear()
     torch.cuda.empty_cache()
     return prof
 
@@ -2965,7 +3037,46 @@ def measured_steps(dense, train) -> dict:
                         "the timed decode steps")}
 
 
-def roofline_phase(measured: dict) -> None:
+def mesh_model(runs: dict) -> None:
+    """The dry run's model (``launch.dryrun``: one representative position
+    of a (2, 2) ring of ``meta`` devices traced, its counts times the
+    chips) of phase 19's two train rings: the collective bytes of a step
+    against the ``repro.mesh.*`` counters measured there (they must be
+    equal), and the predicted per-chip peak times the ring size beside the
+    peak the card allocated (four shards on one card)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+
+    meta = make_mesh_for(2, 2, devices=("meta",) * MESH_RING)
+    cells = (("dp", get_config(DENSE_ARCH), 1),
+             ("tp", dataclasses.replace(get_config(TP_ARCH),
+                                        n_layers=TP_LAYERS), 2))
+    for key, cfg, n_mb in cells:
+        r = dryrun.run_config(cfg, "train_4k", mesh=meta,
+                              batch_override=MESH_BATCH,
+                              seq_override=MESH_SEQ, n_microbatches=n_mb)
+        model = {k.replace("-", "_"): v
+                 for k, v in r["collectives"]["ring_bytes"].items()}
+        run = runs[key]
+        peak = r["memory"]["peak_bytes"]
+        print(f"mesh model: {cfg.name} {'TP + SP' if r['tp'] else 'DP'} "
+              f"grain on (2, 2): collective bytes per step, model {model}, "
+              f"measured {run['coll']}; per-chip peak predicted "
+              f"{peak / 1e9:.2f} GB x {MESH_RING} = "
+              f"{MESH_RING * peak / 1e9:.2f} GB, measured on the card "
+              f"{run['peak'] / 1e9:.2f} GB (the four shards' state on one "
+              f"card, one position's transients at a time); per-chip "
+              f"FLOPs {r['cost']['flops']:.4g}; traced in {r['trace_s']} s")
+        if model != run["coll"]:
+            raise AssertionError(f"{cfg.name}: the dry run's collective "
+                                 f"model {model} != the ring's counters "
+                                 f"{run['coll']}")
+
+
+def roofline_phase(measured: dict, mesh_runs: Optional[dict] = None
+                   ) -> None:
     """The dry run and roofline of the three steps phases 10 and 13 timed
     (qwen2.5-3b's train step, 2 x 2048 prefill and decode step at 2
     slots), traced here on the meta device after every timed phase:
@@ -3008,6 +3119,8 @@ def roofline_phase(measured: dict) -> None:
             if not 0 < f <= 1.05:
                 raise AssertionError(f"{name}: {what_} {f} outside "
                                      f"(0, 1.05]: the count is wrong")
+    if mesh_runs is not None:
+        mesh_model(mesh_runs)
     t1, n_fit = time.perf_counter(), 0
     jobs = min(len(os.sched_getaffinity(0)), GRID_JOBS)
     for cell in dryrun.run_grid(jobs=jobs):
@@ -3609,6 +3722,528 @@ def shard_phase(torch, tmp, errs):
     return rows
 
 
+# --------------------------------------------------------------------------
+# The LM path on a mesh: parallel/ring.py over rings of this one card
+# --------------------------------------------------------------------------
+MESH_RING = 4              # (cuda:0,) * 4: the (2, 2), (4, 1), (1, 4) rings
+MESH_SEQ = LM_TRAIN_SEQ    # train_4k's 4096
+MESH_BATCH = 4             # the train runs' global batch (train_4k's 256)
+MESH_STEPS = 3
+TP_ARCH = "qwen3-14b"
+TP_LAYERS = 4              # qwen3-14b's 40 layers cut to 4 for one card
+# relative, the TP grain's against one device's: its row-parallel partial
+# sums are rounded to bf16 before they are summed.  On an H100 the losses
+# read 1.16e-05 and the gradient norms 2.57e-04; a dropped or doubled
+# partial moves either far more
+TP_LOSS_TOL = 1e-3
+TP_NORM_TOL = 5e-3
+ELASTIC_LAYERS = 2         # the elastic restore's qwen2.5-3b, depth cut
+ELASTIC_SEQ = 1024         # and its sequence (its checkpoints hold 5.6 GB)
+MESH_PROMPT = 2048
+MESH_NEW = 8
+# the flash kernel at a TP shard of qwen3-14b: one microbatch, 40 / 2 q
+# heads over 8 / 2 k/v heads, seq 4096, D = 128 (bf16, causal)
+TP_FLASH = (1, MESH_SEQ, MESH_SEQ, 20, 4, 128)
+
+
+def _ring_devices(torch, n):
+    return (torch.device("cuda", 0),) * n
+
+
+def _timed_steps(torch, step, state, batches):
+    """Each batch through ``step``: (losses as floats, ms per step by CUDA
+    events, gradient norms as floats)."""
+    losses, ms, norms = [], [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        losses.append(float(m["loss"]))
+        ms.append(start.elapsed_time(end))
+        norms.append(float(m["grad_norm"]))
+    return losses, ms, norms
+
+
+def _coll_delta(before) -> dict:
+    from repro_torch.parallel import sharding as SH
+    return {k: v - before[k] for k, v in SH.collective_bytes().items()}
+
+
+def _park(torch, rstate):
+    """A ring state's global leaves: the parameters gathered on the card,
+    the moments in pinned host memory (a function, so that nothing of the
+    ring state outlives it)."""
+    glob = rstate.global_state(device="cuda")
+    params = {n: leaf() for n, leaf in glob.params.items()}
+    leaves = {(which, n): leaf for which in ("m", "v")
+              for n, leaf in getattr(glob.opt, which).items()}
+    dtype = rstate.opt[0].m[next(iter(params))].dtype
+    # one pinned buffer: one page-locking call, not one per leaf
+    flat = torch.empty(sum(math.prod(x.shape) for x in leaves.values()),
+                       dtype=dtype, pin_memory=True)
+    moments, at = {}, 0
+    for key, leaf in leaves.items():
+        n = math.prod(leaf.shape)
+        moments[key] = flat[at:at + n].view(leaf.shape).copy_(leaf())
+        at += n
+    return params, moments
+
+
+def mesh_dp(torch, np) -> dict:
+    """qwen2.5-3b at full width (bf16, seq 4096) in the DP grain on a
+    (2, 2) ring of this card: ``MESH_STEPS`` steps at global batch 4 (one
+    sequence per position) against the one-device step at global batch 4
+    in 4 microbatches of 1 from the same seeded weights.  Losses and every
+    parameter and moment after the last step must be bitwise equal.  The
+    ring runs first; its gathered parameters stay on the card and its
+    moments wait in pinned host memory while one device runs (the two
+    states and one step's transients do not fit on the card together)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ctx, ring
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    cfg = get_config(DENSE_ARCH)
+    mesh = make_mesh_for(2, 2, devices=_ring_devices(torch, MESH_RING))
+    plan = dataclasses.replace(S.default_plan(cfg, "train_4k", mesh),
+                               n_microbatches=1)
+    if plan.tp:
+        raise AssertionError(f"{cfg.name}: default_plan picked the TP grain")
+    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100)
+    data = SyntheticLM(cfg.vocab, MESH_BATCH, MESH_SEQ, seed=2)
+    batches = [S.to_device(data.batch_at(i), "cuda")
+               for i in range(MESH_STEPS)]
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=0, trainable=True)
+    rstate = ring.init_state(model, mesh, tp=False)
+    del model
+    torch.cuda.empty_cache()
+    step, hooks = S.build_train_step(cfg, mesh, opt_cfg, plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    coll0 = SH.collective_bytes()
+    with ctx.activation_sharding(hooks):
+        got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
+    counts = _lm_counts()
+    coll = {k: v // MESH_STEPS for k, v in _coll_delta(coll0).items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    if not counts["flash_attention_fwd"]:
+        raise AssertionError("the DP ring launched no flash kernel")
+    split = ring.replica_mismatches(rstate)
+    if split:
+        raise AssertionError(f"replicated leaves' copies differ on the DP "
+                             f"ring: {split[:6]}")
+    t0 = time.perf_counter()
+    params, moments = _park(torch, rstate)
+    del rstate, step
+    torch.cuda.empty_cache()
+    park_s = time.perf_counter() - t0
+    model = init_params(cfg, seed=0, trainable=True)
+    state = S.init_train_state(model)
+    step1, _ = S.build_train_step(
+        cfg, make_host_mesh(), opt_cfg,
+        dataclasses.replace(plan, n_microbatches=mesh.size), model)
+    torch.cuda.reset_peak_memory_stats()
+    want, ms1, want_norms = _timed_steps(torch, step1, state, batches)
+    peak1 = torch.cuda.max_memory_allocated() - base
+    if got != want or got_norms != want_norms:
+        raise AssertionError(f"{cfg.name} DP (2, 2) ring losses {got} and "
+                             f"gradient norms {got_norms} != one device's "
+                             f"{want} and {want_norms}")
+    t0 = time.perf_counter()
+    bad = [n for n, p in model.named_parameters()
+           if not torch.equal(params[n], p.detach())]
+    for (which, n), host in moments.items():
+        if not torch.equal(getattr(state.opt, which)[n],
+                           host.to("cuda", non_blocking=True)):
+            bad.append((which, n))
+    if bad:
+        raise AssertionError(f"{len(bad)} leaves of the DP ring differ "
+                             f"from one device's: {bad[:6]}")
+    compare_s = park_s + time.perf_counter() - t0
+    del model, state, step1, params, moments
+    torch.cuda.empty_cache()
+    one, r = float(np.median(ms1)), float(np.median(ms))
+    print(f"  {cfg.name} DP grain, (2, 2) ring of this card, global batch "
+          f"{MESH_BATCH} x {MESH_SEQ}: losses {got} and gradient norms "
+          f"{got_norms} bitwise equal to one "
+          f"device's (4 microbatches of 1), every parameter and moment "
+          f"bitwise equal after {MESH_STEPS} steps; step {r:.1f} ms "
+          f"({[round(x, 1) for x in ms]}) against one device's {one:.1f} ms "
+          f"({[round(x, 1) for x in ms1]}): ring host cost {r - one:.1f} ms "
+          f"per step; peak memory {peak / 1e9:.2f} GB (one device "
+          f"{peak1 / 1e9:.2f} GB); collective bytes per step {coll}; flash "
+          f"launched {counts['flash_attention_fwd']} times; moving the "
+          f"ring's leaves aside and comparing {compare_s:.1f} s")
+    return {"ms": r, "one_ms": one, "peak": peak, "coll": coll,
+            "launches": counts["flash_attention_fwd"]}
+
+
+def _tp_reduced_oracle(torch) -> float:
+    """Reduced qwen3-14b (f32) in the TP + SP grain on a (2, 2) ring of
+    this card: the gradients within ``LM_GRAD_TOL`` of max |g| per leaf of
+    the one-device step's, and one update within it where the gradient's
+    sign is fixed (2 lr elsewhere: Adam's first step moves each element by
+    about lr * sign(g)).  Returns the largest gradient error."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ring
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    cfg = reduced(get_config(TP_ARCH))
+    mesh = make_mesh_for(2, 2, devices=_ring_devices(torch, MESH_RING))
+    gen = torch.Generator().manual_seed(21)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=gen).cuda()
+             for k in ("tokens", "labels")}
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    plan = S.StepPlan(n_microbatches=1, tp=True)
+    model = init_params(cfg, seed=3, trainable=True)
+    rstate = ring.init_state(model, mesh, tp=True)
+    one = S.init_train_state(model)
+    gstep, _ = S.build_train_step(cfg, mesh, opt_cfg,
+                                  dataclasses.replace(plan, skip_update=True))
+    got = ring.gather_grads(rstate.params, gstep(rstate, batch)[1]["grads"],
+                            "cuda")
+    ostep, _ = S.build_train_step(cfg, make_host_mesh(), opt_cfg,
+                                  S.StepPlan(n_microbatches=2,
+                                             skip_update=True), model)
+    want = ostep(one, batch)[1]["grads"]
+    worst = 0.0
+    for n, g in want.items():
+        err = ((got[n] - g).abs().max() / g.abs().max()).item()
+        worst = max(worst, err)
+        if not err <= LM_GRAD_TOL:
+            raise AssertionError(f"TP ring gradient of {n}: {err} of max "
+                                 f"|g| (tol {LM_GRAD_TOL})")
+    step, _ = S.build_train_step(cfg, mesh, opt_cfg, plan)
+    _, m = step(rstate, batch)
+    ostep, _ = S.build_train_step(cfg, make_host_mesh(), opt_cfg,
+                                  S.StepPlan(n_microbatches=2), model)
+    ostep(one, batch)
+    lr = float(m["lr"])
+    glob = rstate.global_state(device="cuda")
+    for n, p in model.named_parameters():
+        err = (glob.params[n]() - p.detach()).abs()
+        firm = want[n].abs() > LM_GRAD_TOL * want[n].abs().max()
+        if not (err[firm].max().item() if firm.any() else 0.0) \
+                <= LM_GRAD_TOL or not err.max().item() <= 2 * lr + \
+                LM_GRAD_TOL:
+            raise AssertionError(f"TP ring update of {n} off the one-device "
+                                 f"update by {err.max().item()}")
+    return worst
+
+
+def mesh_tp(torch, np) -> dict:
+    """qwen3-14b at full width, its depth cut to ``TP_LAYERS``, in the TP +
+    SP grain (``default_plan``: d_model 5120) on a (2, 2) ring of this
+    card: ``MESH_STEPS`` steps at global batch 4 (2 per data row in 2
+    microbatches of 1) against the one-device step (4 microbatches of 1),
+    losses within ``TP_LOSS_TOL`` and gradient norms (the TP grain's:
+    per-shard sums and a scalar all-reduce) within ``TP_NORM_TOL``; the
+    flash kernel runs at the shard's
+    20 q heads over 4 k/v heads.  Then the reduced f32 copy's oracle."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ctx, ring
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+    mesh = make_mesh_for(2, 2, devices=_ring_devices(torch, MESH_RING))
+    plan = dataclasses.replace(S.default_plan(cfg, "train_4k", mesh),
+                               n_microbatches=2)
+    if not (plan.tp and plan.seq_shard_activations):
+        raise AssertionError(f"{cfg.name}: default_plan did not pick TP + SP")
+    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100)
+    data = SyntheticLM(cfg.vocab, MESH_BATCH, MESH_SEQ, seed=3)
+    batches = [S.to_device(data.batch_at(i), "cuda")
+               for i in range(MESH_STEPS)]
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=0, trainable=True)
+    state = S.init_train_state(model)
+    step1, _ = S.build_train_step(cfg, make_host_mesh(), opt_cfg,
+                                  S.StepPlan(n_microbatches=MESH_BATCH),
+                                  model)
+    want, ms1, want_norms = _timed_steps(torch, step1, state, batches)
+    del model, state, step1
+    torch.cuda.empty_cache()
+    model = init_params(cfg, seed=0, trainable=True)
+    rstate = ring.init_state(model, mesh, tp=True)
+    del model
+    torch.cuda.empty_cache()
+    step, hooks = S.build_train_step(cfg, mesh, opt_cfg, plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    coll0 = SH.collective_bytes()
+    with ctx.activation_sharding(hooks):
+        got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
+    counts = _lm_counts()
+    coll = {k: v // MESH_STEPS for k, v in _coll_delta(coll0).items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    split = ring.replica_mismatches(rstate)
+    del rstate
+    torch.cuda.empty_cache()
+    if split:
+        raise AssertionError(f"replicated leaves' copies differ on the TP "
+                             f"ring: {split[:6]}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    if not max(rel) <= TP_LOSS_TOL:
+        raise AssertionError(f"{cfg.name} TP ring losses {got} against one "
+                             f"device's {want}: {rel} (tol {TP_LOSS_TOL})")
+    rel_n = [abs(g - w) / abs(w) for g, w in zip(got_norms, want_norms)]
+    if not max(rel_n) <= TP_NORM_TOL:
+        raise AssertionError(f"{cfg.name} TP ring gradient norms "
+                             f"{got_norms} against one device's "
+                             f"{want_norms}: {rel_n} (tol {TP_NORM_TOL})")
+    # per step: 2 rows x 2 microbatches x 2 shards x the layers, each
+    # forward and its checkpoint's recomputation
+    per_step = 2 * 2 * 2 * TP_LAYERS * 2
+    if counts["flash_attention_fwd"] != per_step * MESH_STEPS:
+        raise AssertionError(f"flash launched {counts['flash_attention_fwd']}"
+                             f" times on the TP ring; expected {per_step} "
+                             f"per step")
+    oracle = _tp_reduced_oracle(torch)
+    one, r = float(np.median(ms1)), float(np.median(ms))
+    print(f"  {cfg.name} ({TP_LAYERS} of {get_config(TP_ARCH).n_layers} "
+          f"layers, full width) TP + SP "
+          f"grain, (2, 2) ring of this card, global batch {MESH_BATCH} x "
+          f"{MESH_SEQ}: losses {got} against one device's {want} (relative "
+          f"{max(rel):.2e}, tol {TP_LOSS_TOL}); gradient norms {got_norms} "
+          f"against {want_norms} (relative {max(rel_n):.2e}, tol "
+          f"{TP_NORM_TOL}); step {r:.1f} ms against one "
+          f"device's {one:.1f} ms; peak memory {peak / 1e9:.2f} GB; "
+          f"collective bytes per step {coll}; flash launched "
+          f"{counts['flash_attention_fwd']} times at the shard shape; "
+          f"reduced f32 copy: gradients within {oracle:.2e} of max |g| of "
+          f"one device's, the update within {LM_GRAD_TOL}")
+    return {"ms": r, "one_ms": one, "peak": peak, "coll": coll,
+            "launches": counts["flash_attention_fwd"]}
+
+
+def _serve_chain(torch, step_pf, step_dc, model, prompt, forced=None):
+    """A prefill of ``prompt``, then ``MESH_NEW`` decode steps fed the
+    columns of ``forced`` (the one-device run's tokens), or, without it,
+    greedy: (the last-position logits after each step, the tokens fed, ms
+    of the prefill, ms per decode step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = step_pf(model, {"tokens": prompt},
+                            max_len=prompt.shape[1] + MESH_NEW)
+    out, fed = [logits], []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for t in range(MESH_NEW):
+        tok = logits.argmax(-1)[:, None] if forced is None \
+            else forced[:, t:t + 1]
+        fed.append(tok)
+        pos = torch.full((prompt.shape[0],), prompt.shape[1] + t,
+                         device="cuda")
+        logits, cache = step_dc(model, cache, {"tokens": tok,
+                                               "position": pos})
+        out.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, torch.cat(fed, 1), (t1 - t0) * 1e3, \
+        (t2 - t1) * 1e3 / MESH_NEW
+
+
+def mesh_serve(torch, cfg, tol, label) -> dict:
+    """``build_prefill_step``/``build_decode_step`` on a (1, 2) ring
+    (head-sharded cache) and a (1, 4) ring (sequence-sharded) of this
+    card against one device: a 2 x ``MESH_PROMPT`` prefill and
+    ``MESH_NEW`` greedy steps (the rings fed the one-device run's
+    tokens), each step's logits within ``tol`` of max |logit|."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ring
+    from repro_torch.train import step as S
+
+    gen = torch.Generator().manual_seed(22)
+    model = init_params(cfg, seed=0)
+    prompt = torch.randint(0, cfg.vocab, (2, MESH_PROMPT),
+                           generator=gen).cuda()
+    host = make_host_mesh()
+    want, forced, pf_ms, dc_ms = _serve_chain(
+        torch, S.build_prefill_step(host), S.build_decode_step(host), model,
+        prompt)
+    out = {"one": (pf_ms, dc_ms)}
+    for shape in ((1, 2), (1, 4)):
+        mesh = make_mesh_for(*shape, devices=_ring_devices(torch, shape[1]))
+        mp = ring.shard_params(model, mesh, tp=True)
+        _reset_lm_counts()
+        got, _, r_pf, r_dc = _serve_chain(
+            torch, S.build_prefill_step(mesh), S.build_decode_step(mesh), mp,
+            prompt, forced)
+        counts = _lm_counts()
+        errs = [((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, want)]
+        if not max(errs) <= tol or not counts["flash_attention_fwd"]:
+            raise AssertionError(f"{label} on a {shape} ring: logits off "
+                                 f"one device's by {errs} of max |logit| "
+                                 f"(tol {tol}); flash launches {counts}")
+        grain = ring.cache_grain(cfg, mesh)
+        print(f"  {label} served on a {shape} ring ({grain}-sharded "
+              f"cache): prefill 2 x {MESH_PROMPT} and {MESH_NEW} decode "
+              f"steps within {max(errs):.2e} of max |logit| of one device's "
+              f"(tol {tol}); prefill {r_pf:.1f} ms, decode {r_dc:.2f} ms per "
+              f"step against one device's {pf_ms:.1f} ms and {dc_ms:.2f} ms; "
+              f"flash launched {counts['flash_attention_fwd']} times")
+        out[shape] = (r_pf, r_dc)
+        del mp
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_elastic(torch, tmp) -> None:
+    """qwen2.5-3b at full width, its depth cut to ``ELASTIC_LAYERS`` and
+    its sequence to ``ELASTIC_SEQ``, DP grain: a (2, 2) ring run saved
+    after step 1, restored onto (4, 1) (every gathered leaf bitwise the
+    saved one) for step 2, saved again and restored onto (1, 1) for step
+    3 in 4 microbatches: both steps' losses and the final parameters
+    bitwise the uninterrupted run's."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ring
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import ft
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), n_layers=ELASTIC_LAYERS)
+    dev = _ring_devices(torch, MESH_RING)
+    m22, m41 = make_mesh_for(2, 2, devices=dev), make_mesh_for(4, 1,
+                                                               devices=dev)
+    m11 = make_host_mesh()
+    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100)
+    data = SyntheticLM(cfg.vocab, MESH_BATCH, ELASTIC_SEQ, seed=4)
+    batches = [S.to_device(data.batch_at(i), "cuda") for i in range(3)]
+
+    def run(mesh, state, idx, n_mb=1):
+        step, _ = S.build_train_step(cfg, mesh, opt_cfg,
+                                     S.StepPlan(n_microbatches=n_mb,
+                                                tp=False))
+        return [float(step(state, batches[i])[1]["loss"]) for i in idx]
+
+    model = init_params(cfg, seed=0, trainable=True)
+    a = ring.init_state(model, m22, tp=False)
+    del model
+    want = run(m22, a, [0])
+    d = os.path.join(tmp, "elastic")
+    ckpt.save(d, 1, a, extra={"next_step": 1})
+    b = ft.elastic_restore(d, 1, a, m41)
+    ga, gb = a.global_state("cuda"), b.global_state("cuda")
+    pairs = [(ga.params, gb.params), (ga.opt.m, gb.opt.m),
+             (ga.opt.v, gb.opt.v)]
+    bad = [n for x, y in pairs for n in x if not torch.equal(x[n](), y[n]())]
+    del ga, gb, pairs
+    want += run(m22, a, [1, 2])          # the uninterrupted run
+    got = run(m41, b, [1])
+    ckpt.save(d, 2, b, extra={"next_step": 2})
+    c = ft.elastic_restore(d, 2, b, m11)
+    del b
+    got += run(m11, c, [2], n_mb=MESH_BATCH)
+    ga, gc = a.global_state("cuda"), c.global_state("cuda")
+    bad += [n for n in ga.params if not torch.equal(ga.params[n](),
+                                                    gc.params[n]())]
+    if bad or got != want[1:]:
+        raise AssertionError(f"elastic restore: leaves {bad[:6]} differ; "
+                             f"losses {got} against {want[1:]}")
+    del a, c, ga, gc
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"  elastic restore ({cfg.name}, {ELASTIC_LAYERS} of "
+          f"{get_config(DENSE_ARCH).n_layers} layers, full width, global "
+          f"batch {MESH_BATCH} x {ELASTIC_SEQ}): saved after step 1 on "
+          f"(2, 2), restored onto (4, 1) with every leaf bitwise the saved "
+          f"one, step 2 there, saved, restored onto (1, 1), step 3 in "
+          f"{MESH_BATCH} microbatches: losses {got} bitwise the "
+          f"uninterrupted run's, its parameters too; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def flash_tp_row(torch, launches: int) -> dict:
+    """The flash kernel at the TP shard shape (``TP_FLASH``: q (20, 4096,
+    128), k/v (4, 4096, 128), causal): held against its plain version in
+    f32 and bf16, then the ``flash_attention_fwd_tp_shard`` row (bf16
+    kernel, plain version, ``scaled_dot_product_attention``, bound), its
+    launches those of the TP ring's steps."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.meta import flash_flops
+
+    F = torch.nn.functional
+    b, s, _, h, hkv, d = TP_FLASH
+    gen = torch.Generator().manual_seed(23)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        q, kk, v = (torch.randn((b * n, s, d), generator=gen)
+                    .to("cuda", getattr(torch, dtype)) for n in (h, hkv, hkv))
+        _hold(torch, "flash_attention_fwd", dtype,
+              flash_attention_fwd(q, kk, v, causal=True),
+              flash_attention_plain(q, kk, v, causal=True), errs,
+              f"q {tuple(q.shape)} k {tuple(kk.shape)} (TP shard)",
+              key="flash_tp")
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, kk, v))
+    k4, v4 = (t.repeat_interleave(h // hkv, 1) for t in (k4, v4))
+    return kernel_row(
+        torch, {}, errs, "flash_attention_fwd",
+        lambda: flash_attention_fwd(q, kk, v, causal=True),
+        lambda: flash_attention_plain(q, kk, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        lambda o: o.reshape(b * h, s, d), flash_flops(b * h, s, s, d, True),
+        (q.numel() + kk.numel() + v.numel()) * 2,
+        f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads over {hkv} kv heads "
+        f"({TP_ARCH}'s TP shard at m = 2)",
+        row_name="flash_attention_fwd_tp_shard", err_key="flash_tp",
+        launches=launches)
+
+
+def lm_mesh_phase(torch, np, tmp) -> dict:
+    """Phase 19: the LM path on rings of this card (``parallel/ring.py``):
+    the DP grain bitwise, the TP + SP grain, serving in both cache grains,
+    elastic restore, and the flash kernel's row at the TP shard shape.
+    Returns the rings' measurements (for the dry run's model in phase 20)
+    and the row."""
+    from repro_torch.configs.registry import get_config, reduced
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"LM mesh phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated before it; rings of {MESH_RING} x this card (no speed "
+          f"is claimed: the shards share one card)")
+    dp = mesh_dp(torch, np)
+    tp = mesh_tp(torch, np)
+    mesh_serve(torch, get_config(DENSE_ARCH), ORACLE_TOL, DENSE_ARCH)
+    mesh_serve(torch, reduced(get_config(DENSE_ARCH)), 1e-4,
+               f"reduced {DENSE_ARCH} (f32)")
+    mesh_elastic(torch, tmp)
+    row = flash_tp_row(torch, tp["launches"])
+    print(f"LM mesh phase: {time.perf_counter() - t0:.1f} s")
+    return {"dp": dp, "tp": tp, "row": row}
+
+
 def isolate_tune_artifacts() -> str:
     """Point the tune cache and the calibration artifact at a fresh
     temporary directory before anything imports the port, so that no
@@ -3700,9 +4335,12 @@ def phases(torch, np, tmp: str, card: str) -> int:
     rows.append(examples_phase(torch, tmp))
     rows += shard_phase(torch, tmp, errs)
     measured = measured_steps(dense, lm_train)
+    lm_train.clear()
+    mesh = lm_mesh_phase(torch, np, tmp)
+    rows.append(mesh["row"])
     train_profile(torch, train_run)
-    lm_train_profile(torch, lm_train)
-    roofline_phase(measured)
+    lm_train_profile(torch)
+    roofline_phase(measured, mesh)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,7 +1,8 @@
 """Dry run of one (arch x shape) cell on one device: memory, FLOPs, bytes.
 
     python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k \\
-        [--batch 2 --seq 4096 --microbatches 2] [--out result.json]
+        [--batch 2 --seq 4096 --microbatches 2] [--multi-pod] \\
+        [--out result.json]
     python -m repro_torch.launch.dryrun --grid [--jobs 4] [--out grid.jsonl]
 
 Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
@@ -37,7 +38,23 @@ executed: it runs once per shape, and its later calls (one per layer and
 microbatch) replay the first's counts and rise of the peak
 (``CostCounter.repeat``), which gives the trace that running each gives.  The counter leaves out what a trace cannot see: the caching
 allocator's rounding, kernels' workspaces, and anything computed on the
-host.  Collectives are zero: the port drives one device.
+host.  On one device there are no collectives.
+
+On a mesh (``--multi-pod``: the reference's (2, 16, 16) production mesh;
+``run_config(mesh=...)``: any) the step is the ring's
+(``parallel/ring.py``) over ``meta`` devices.  Tracing every position of
+a 512-chip mesh would take hours, so the cell traces one representative
+position (mesh position 0: its slices of the state, its data row, its
+model shard), whose collectives are counted (``repro.mesh.*``) and not
+executed; its counts are one chip's, with ``"source": "model"`` on the
+result.  The ring's positions are symmetric, so the model of the whole
+ring is the chip's counts times the chips, plus what only one position
+does (the DP grain's gradient norm gather, ``ring.norm_gather_bytes``):
+``collectives["ring_bytes"]``, which a full trace of a small ring's
+``repro.mesh.*`` counters must equal (``tests/test_torch_mesh_lm.py``).
+A mesh train cell traces the plan's microbatches with the update (no
+probe): its FLOPs are the traced step's plus the analytic AdamW of the
+chip's slices.
 
 A cell's result keeps the reference's keys (``memory`` argument, output,
 temp and peak bytes; ``cost`` flops and bytes_accessed; ``collectives``;
@@ -328,30 +345,38 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, *,
     """The dry run of one cell (see the module docstring).
     ``batch_override``/``seq_override`` substitute the shape's global
     batch and sequence length, ``n_microbatches`` the plan's (a train cell
-    cut to what one card runs).  ``multi_pod`` raises: several devices
-    wait for ``torch.distributed`` (ROADMAP §1 item 6)."""
+    cut to what one card runs).  ``multi_pod`` traces one chip of the
+    (2, 16, 16) production mesh on ``meta`` (see the module docstring)."""
+    mesh = None
     if multi_pod:
-        raise NotImplementedError(
-            "--multi-pod needs a (2, 16, 16) mesh of devices, which waits "
-            "for torch.distributed (ROADMAP §1 item 6); this port drives "
-            "one device")
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh(multi_pod=True, device="meta")
     return dict(run_config(get_config(arch), shape,
                            batch_override=batch_override,
                            seq_override=seq_override,
-                           n_microbatches=n_microbatches), arch=arch)
+                           n_microbatches=n_microbatches, mesh=mesh),
+                arch=arch)
 
 
 def run_config(cfg, shape: str, *, batch_override: Optional[int] = None,
                seq_override: Optional[int] = None,
-               n_microbatches: Optional[int] = None) -> dict:
-    """``run_cell`` for a config (a reduced one, in tests)."""
+               n_microbatches: Optional[int] = None, mesh=None,
+               representative: bool = True) -> dict:
+    """``run_cell`` for a config (a reduced one, in tests), on one
+    ``meta`` device or on ``mesh`` (of ``meta`` devices), there one
+    representative position unless ``representative`` is False (every
+    position traced: the check of the model)."""
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import step as S
     why = skip_reason(cfg, shape)
+    multi_pod = mesh is not None and "pod" in mesh.axis_names
     if why:
-        return {"arch": cfg.name, "shape": shape, "multi_pod": False,
+        return {"arch": cfg.name, "shape": shape, "multi_pod": multi_pod,
                 "status": "skipped", "reason": why}
+    if mesh is not None and mesh.size > 1:
+        return _mesh_cell(cfg, shape, mesh, batch_override, seq_override,
+                          n_microbatches, representative)
     mesh = make_host_mesh("meta")
     kind = SHAPES[shape]["kind"]
     t0 = time.perf_counter()
@@ -391,6 +416,117 @@ def run_config(cfg, shape: str, *, batch_override: Optional[int] = None,
         "fits": mem.peak_bytes <= capacity,
         "capacity_bytes": capacity,
     }
+
+
+_KIND_NAMES = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+               "all_reduce": "all-reduce"}
+
+
+def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
+               n_microbatches, representative: bool) -> dict:
+    """A cell on a ring of ``meta`` devices (see the module docstring):
+    one chip's trace and counts, and the model of the whole ring."""
+    from repro_torch.launch import roofline
+    from repro_torch.parallel import ring, sharding
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+    kind = SHAPES[shape]["kind"]
+    positions = (0,) if representative else None
+    n_chips = mesh.size
+    base = {"arch": cfg.name, "shape": shape,
+            "multi_pod": "pod" in mesh.axis_names, "n_chips": n_chips,
+            "mesh": mesh.shape, "source": "model"}
+    plan = S.default_plan(cfg, shape, mesh)
+    if n_microbatches:
+        plan = dataclasses.replace(plan, n_microbatches=n_microbatches)
+    if kind != "train" and cfg.family not in ring.TP_FAMILIES:
+        return dict(base, status="unsupported",
+                    reason=f"serving on a mesh runs the dense family's TP "
+                           f"grain; the {cfg.family} family's waits for "
+                           f"MoE expert parallelism and Mamba2/rwkv6 TP "
+                           f"(ROADMAP §1 item 6)")
+    before = sharding.collective_bytes()
+    calls0 = sharding.collective_calls()
+    t0 = time.perf_counter()
+    extra: Dict[str, Any] = {}
+    if kind == "train":
+        moments = "bfloat16" if cfg.param_count() >= 30e9 else "float32"
+        opt_cfg = O.AdamWConfig(moments_dtype=moments)
+        mem = S.trace_train_step(cfg, shape, mesh, plan, batch_override,
+                                 seq_override=seq_override, opt_cfg=opt_cfg,
+                                 positions=positions)
+        local = _local_params(cfg, mesh, plan.tp)
+        flops = dict(mem.flops_by_dtype)
+        flops["f32"] = flops.get("f32", 0) + \
+            roofline.OPT_FLOPS_PER_PARAM * local
+        extra = {"n_microbatches": plan.n_microbatches, "tp": plan.tp,
+                 "seq_shard_activations": plan.seq_shard_activations}
+    else:
+        mem = S.trace_serve_step(cfg, shape, mesh,
+                                 batch_override=batch_override,
+                                 seq_override=seq_override,
+                                 positions=positions)
+        flops = dict(mem.flops_by_dtype)
+    after = sharding.collective_bytes()
+    counted = {k: after[k] - before[k] for k in after}
+    calls = {_KIND_NAMES[k]: v - calls0[k]
+             for k, v in sharding.collective_calls().items()}
+    if representative:
+        ring_bytes = {k: v * n_chips for k, v in counted.items()}
+        if kind == "train" and not plan.skip_update and \
+                not (plan.tp and mesh.shape["model"] > 1):
+            ring_bytes["all_gather"] += _norm_bytes(cfg, mesh, plan)
+    else:
+        ring_bytes = dict(counted)
+    chip = {k: v // n_chips for k, v in ring_bytes.items()} \
+        if not representative else counted
+    capacity = card_memory_bytes()
+    return dict(
+        base, status="ok", trace_s=round(time.perf_counter() - t0, 1),
+        batch=batch_override or SHAPES[shape]["global_batch"],
+        seq_len=seq_override or SHAPES[shape]["seq_len"], **extra,
+        memory={"argument_bytes": mem.argument_bytes,
+                "output_bytes": mem.output_bytes,
+                "temp_bytes": mem.temp_bytes,
+                "peak_bytes": mem.peak_bytes},
+        cost={"flops": float(sum(flops.values())),
+              "bytes_accessed": float(mem.bytes_accessed)},
+        flops_by_dtype={k: float(v) for k, v in flops.items()},
+        flops_traced=float(mem.flops),
+        collectives={"counts": calls,
+                     "bytes": {_KIND_NAMES[k]: v for k, v in chip.items()},
+                     "total_bytes": int(sum(chip.values())),
+                     "ring_bytes": {_KIND_NAMES[k]: v
+                                    for k, v in ring_bytes.items()}},
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        params_counted=mem.params_counted,
+        fits=mem.peak_bytes <= capacity, capacity_bytes=capacity)
+
+
+def _local_params(cfg, mesh, tp: bool) -> int:
+    """The parameters one chip holds (position 0's slices)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import ring, sharding
+    model = T.init_params(cfg, device="meta")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    specs = ring.param_specs(cfg, shapes, mesh, tp)
+    return sum(int(torch.Size(sharding.local_shape(specs[n], s, mesh))
+                   .numel()) for n, s in shapes.items())
+
+
+def _norm_bytes(cfg, mesh, plan) -> int:
+    """``ring.norm_gather_bytes`` of ``cfg`` laid out on ``mesh`` (the DP
+    grain)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import ring
+    model = T.init_params(cfg, device="meta")
+    p = ring.shard_params(model, mesh, plan.tp, positions=(0,))
+    if mesh.size * plan.n_microbatches == 1:     # the gradients as they come
+        dtype = model.dtype
+    else:
+        dtype = torch.bfloat16 if plan.grad_compression == "bf16" \
+            else torch.float32
+    return ring.norm_gather_bytes(p, dtype)
 
 
 def grid_cells() -> List[tuple]:

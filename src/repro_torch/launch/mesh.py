@@ -5,13 +5,14 @@ axis name, ``axis_names``, ``devices`` in mesh order, ``size``), so the
 sharding rules of ``parallel/sharding.py`` read it as they read a JAX
 mesh, and ``data_devices`` gives the device ring of the conv sharding
 layer (``repro_torch.shard``: ``ConvServer(mesh=)``, sharded training
-triples), which one process drives.  A mesh is laid out over a device
+triples), which one process drives, and the LM path's ring
+(``parallel/ring.py``) runs over.  A mesh is laid out over a device
 pool: every visible CUDA device by default, one given ``device``, or an
 explicit ``devices`` sequence, which may repeat a device (a ring of
-``(cuda:0,) * 4`` runs four shards on one card).  Meshes of several
-processes for the LM path (``make_production_mesh``) wait for ROADMAP
-§1 item 6.  Functions, not module constants: building a mesh resolves a
-device.
+``(cuda:0,) * 4`` runs four shards on one card).
+``make_production_mesh`` gives the reference's (16, 16) or (2, 16, 16)
+mesh over such a pool, or over ``meta`` devices for the dry run.
+Functions, not module constants: building a mesh resolves a device.
 """
 from __future__ import annotations
 
@@ -86,15 +87,29 @@ def make_mesh_for(n_data: int, n_model: int, device: DeviceSpec = None, *,
     return Mesh(("data", "model"), grid)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's (16, 16) or (2, 16, 16) mesh of the LM path: meshes
-    of several processes wait for ``torch.distributed`` (ROADMAP §1
-    item 6)."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceSpec = None,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The reference's (16, 16) ("data", "model") mesh, or its (2, 16,
+    16) ("pod", "data", "model") mesh with ``multi_pod``, over the pool of
+    ``_pool``.  ``device="meta"`` lays it over 256 or 512 ``meta``
+    devices (shapes only: the dry run); a pool smaller than the mesh
+    raises ``ValueError`` with the count it has."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise NotImplementedError(
-        f"a production mesh of {shape} devices waits for torch.distributed "
-        f"(ROADMAP §1 item 6); the LM path runs one process on one "
-        f"device")
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    if devices is None and device is not None and \
+            resolve_device(device).type == "meta":
+        pool = (torch.device("meta"),) * n
+    else:
+        pool = _pool(device, devices)
+    if len(pool) < n:
+        raise ValueError(f"a production mesh {shape} needs {n} devices; "
+                         f"the pool has {len(pool)}")
+    grid = np.empty(shape, dtype=object)
+    for i, d in enumerate(pool[:n]):
+        grid[np.unravel_index(i, shape)] = d
+    return Mesh(axes, grid)
 
 
 def make_host_mesh(device: DeviceSpec = None) -> Mesh:

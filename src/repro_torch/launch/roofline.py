@@ -141,12 +141,14 @@ def run_cell(arch: str, shape: str, *, batch_override: Optional[int] = None,
 def run_config(cfg: ArchConfig, shape: str, *,
                batch_override: Optional[int] = None,
                seq_override: Optional[int] = None,
-               n_microbatches: Optional[int] = None) -> dict:
-    """``run_cell`` for a config (a reduced one, in tests)."""
+               n_microbatches: Optional[int] = None, mesh=None) -> dict:
+    """``run_cell`` for a config (a reduced one, in tests), on ``mesh``
+    (of ``meta`` devices) when given: the per-chip terms of the dry run's
+    model, and the model's own terms per chip (over ``n_chips``)."""
     from repro_torch.launch import dryrun
     cell = dryrun.run_config(cfg, shape, batch_override=batch_override,
                              seq_override=seq_override,
-                             n_microbatches=n_microbatches)
+                             n_microbatches=n_microbatches, mesh=mesh)
     if cell["status"] != "ok":
         return {"arch": cfg.name, "shape": shape, "status": cell["status"],
                 "reason": cell["reason"]}
@@ -159,8 +161,9 @@ def run_config(cfg: ArchConfig, shape: str, *,
                      seq_override=seq_override)
     flops = cell["cost"]["flops"]
     hlo_global = flops * n_chips
-    mt = model_terms(cfg, shape, batch_override=batch_override,
-                     seq_override=seq_override)
+    mt = {k: v / n_chips for k, v in
+          model_terms(cfg, shape, batch_override=batch_override,
+                      seq_override=seq_override).items()}
     return {
         "arch": cfg.name, "shape": shape, "status": "ok", "n_chips": n_chips,
         "n_microbatches": cell.get("n_microbatches", 1),

@@ -1,14 +1,21 @@
 """LM training launcher (port of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --arch A [--smoke] [--steps N] \\
-        [--shape train_4k] [--ckpt-dir D] [--ckpt-every N] [--device cpu]
+        [--shape train_4k] [--multi-pod] [--ckpt-dir D] [--ckpt-every N] \\
+        [--device cpu]
 
 ``--smoke`` runs the reduced config at batch 8, seq 64 in 2 microbatches
-(the reference's smoke setting).  Without it the full-width config trains
-at the shape's sequence length (4096 for ``train_4k``) with the global
-batch cut to what one card holds (``FULL_WIDTH_BATCH`` in
-``FULL_WIDTH_MICROBATCHES`` microbatches: 2 of 1; the reference's 256
-needs its 256-chip mesh), and the cut is printed.  Weights are seeded
+(the reference's smoke setting) on one device.  Without it the
+full-width config trains at the shape's sequence length (4096 for
+``train_4k``) on the mesh the visible cards give (``make_mesh_for(16,
+16)`` over every CUDA device, clamped as the reference clamps it: one
+card is a 1x1 mesh, four a 1x4 ring), through ``parallel/ring.py`` when
+the mesh has more than one device, in ``default_plan``'s grain.  The
+global batch is cut to ``FULL_WIDTH_BATCH`` per data position in
+``FULL_WIDTH_MICROBATCHES`` microbatches (2 of 1 on one card; the
+reference's 256 needs its 256-chip mesh), and the cut is printed.
+``--multi-pod`` asks for the reference's (2, 16, 16) production mesh,
+which needs 512 devices: a smaller pool raises.  Weights are seeded
 (seed 0) on the device, the data is ``SyntheticLM``; moments are f32
 below 30 B parameters and bf16 above, as the reference sets them.  ``--device`` defaults to the card;
 ``--device cpu`` runs the kernels' plain versions.  Checkpoints are
@@ -25,15 +32,16 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import ALIASES, get_config, reduced
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (make_host_mesh, make_mesh_for,
+                                     make_production_mesh)
 from repro_torch.models import transformer as T
-from repro_torch.parallel import ctx
+from repro_torch.parallel import ctx, ring
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as O
 from repro_torch.train import step as S
 from repro_torch.train.ft import StragglerMonitor, restore_into
 
-# the full-width cut for one card: global batch 2 in 2 microbatches of 1
+# the full-width cut per data position: batch 2 in 2 microbatches of 1
 FULL_WIDTH_BATCH = 2
 FULL_WIDTH_MICROBATCHES = 2
 
@@ -44,6 +52,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--shape", default="train_4k",
                     choices=[k for k, v in SHAPES.items()
                              if v["kind"] == "train"])
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) production mesh (512 devices)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -58,23 +68,32 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     """Runs the launcher; returns the loss of every step it ran."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    mesh = make_host_mesh(device)
     if args.smoke:
+        mesh = make_host_mesh(device)
         cfg = reduced(get_config(args.arch))
         batch_size, seq = 8, 64
         plan = S.StepPlan(n_microbatches=2, tp=False)
     else:
         cfg = get_config(args.arch)
-        batch_size, seq = FULL_WIDTH_BATCH, SHAPES[args.shape]["seq_len"]
+        if args.multi_pod:
+            mesh = make_production_mesh(multi_pod=True, device=args.device)
+        elif device.type == "cuda":
+            mesh = make_mesh_for(16, 16)
+        else:
+            mesh = make_host_mesh(device)
         # default_plan sizes its microbatches for the shape's global batch;
         # the cut batch takes the cut's microbatches
         plan = dataclasses.replace(S.default_plan(cfg, args.shape, mesh),
                                    n_microbatches=FULL_WIDTH_MICROBATCHES)
+        n_data = ring.n_data(mesh, plan.tp)
+        batch_size = FULL_WIDTH_BATCH * n_data
+        seq = SHAPES[args.shape]["seq_len"]
         print(f"{cfg.name}: global batch cut from "
               f"{SHAPES[args.shape]['global_batch']} to {batch_size} "
-              f"({FULL_WIDTH_MICROBATCHES} microbatches of "
-              f"{batch_size // FULL_WIDTH_MICROBATCHES}) at seq {seq}, to "
-              f"fit one device")
+              f"({n_data} data positions x {FULL_WIDTH_MICROBATCHES} "
+              f"microbatches of {FULL_WIDTH_BATCH // FULL_WIDTH_MICROBATCHES})"
+              f" at seq {seq} on a {mesh.shape} mesh "
+              f"({'TP + SP' if plan.tp else 'DP'} grain)")
 
     if not cfg.embed_inputs:
         raise SystemExit(f"{cfg.name} takes embeddings, not tokens; the "
@@ -85,9 +104,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     data = SyntheticLM(cfg.vocab, batch_size, seq)
     monitor = StragglerMonitor()
     model = T.init_params(cfg, seed=0, device=device, trainable=True)
-    state = S.init_train_state(model, opt_cfg.moments_dtype)
+    if mesh.size > 1:
+        state = ring.init_state(model, mesh, plan.tp, opt_cfg.moments_dtype)
+        del model
+    else:
+        state = S.init_train_state(model, opt_cfg.moments_dtype)
     jstep, hooks, _ = S.jit_train_step(cfg, args.shape, mesh, plan, opt_cfg,
-                                       model)
+                                       model if mesh.size == 1 else None)
     start = 0
     last = ckpt.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if last is not None:

@@ -6,9 +6,15 @@ the FFN hidden), and a launcher installs hooks with
 ``activation_sharding``.  With no hooks installed ``constrain`` is the
 identity, as the reference's is.
 
-The port runs one process on one device until ``torch.distributed`` lands
-(ROADMAP §1 item 6), so ``residual_hooks`` gives identity hooks under the
-reference's names for a one-device mesh and raises for a larger one.
+``residual_hooks`` takes the reference's arguments.  On a one-device
+mesh its hooks are identities.  On a ring (``parallel/ring.py``) nothing
+constrains a tensor in place: one process holds every shard, and the
+ring module lays its tensors out itself.  There each hook records the
+layout the reference's hook gives (``layout_rules``: batch over the DP
+axes when divisible, the sequence over "model" under ``seq_shard``, the
+logits' vocabulary, the heads and the FFN hidden over "model") in the
+hooks' ``layouts``, and the ring module reads the same rules to choose
+its layout.
 """
 from __future__ import annotations
 
@@ -51,14 +57,82 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def residual_hooks(mesh) -> Dict[str, Callable]:
-    """The reference's standard hook set (residual, logits, hidden, heads,
-    moe_dispatch).  On a one-device mesh every constraint is the identity;
-    a mesh of several devices raises ``NotImplementedError`` until the
-    port shards (ROADMAP §1 item 6), which brings the reference's batch
-    axes, sequence sharding and ``tp`` arguments with it."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"activation sharding over a {mesh.shape} mesh waits for "
-            f"torch.distributed (ROADMAP §1 item 6)")
-    return {kind: _identity for kind in HOOK_KINDS}
+def _size(mesh, axes: tuple) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def layout_rules(mesh, dp: tuple = (), seq_shard: bool = True,
+                 tp: bool = True) -> Dict[str, Callable]:
+    """kind -> (shape -> spec): the ``PartitionSpec`` (a tuple) the
+    reference's hook of that kind constrains a tensor of ``shape`` to, or
+    None where it leaves the tensor alone (``repro.parallel.ctx``'s
+    ``residual_hooks``).  ``tp=False`` (the DP grain): "model" joins the
+    batch axes, no sequence sharding, vocabulary unsharded."""
+    if not tp:
+        dp = tuple(dp) + ("model",)
+        seq_shard = False
+    m = mesh.shape["model"]
+
+    def bspec(b):
+        return dp if (dp and b % _size(mesh, dp) == 0) else None
+
+    def residual(shape):
+        if len(shape) != 3:
+            return None
+        b, s, _ = shape
+        sspec = "model" if (seq_shard and s % m == 0 and s > 1) else None
+        return (bspec(b), sspec, None)
+
+    def logits(shape):
+        v = "model" if (tp and shape[-1] % m == 0) else None
+        return (bspec(shape[0]), None, v)
+
+    def hidden(shape):
+        if not tp or len(shape) != 3 or shape[-1] % m:
+            return None
+        return (bspec(shape[0]), None, "model")
+
+    def heads(shape):
+        if not tp or len(shape) != 4 or shape[2] % m:
+            return None
+        return (bspec(shape[0]), None, "model", None)
+
+    def moe_dispatch(shape):
+        if not tp or len(shape) != 3 or shape[0] % m:
+            return None
+        return ("model", None, None)
+
+    return {"residual": residual, "logits": logits, "hidden": hidden,
+            "heads": heads, "moe_dispatch": moe_dispatch}
+
+
+class RingHooks(dict):
+    """The hook set of a ring: kind -> hook, each returning its tensor
+    and recording the reference's layout for it in ``layouts`` (kind ->
+    the last spec, None for a tensor the reference leaves alone)."""
+
+    def __init__(self, rules: Dict[str, Callable]):
+        self.rules = rules
+        self.layouts: Dict[str, Optional[tuple]] = {}
+
+        def hook(kind):
+            def fn(x: torch.Tensor) -> torch.Tensor:
+                self.layouts[kind] = rules[kind](tuple(x.shape))
+                return x
+            return fn
+
+        super().__init__({kind: hook(kind) for kind in HOOK_KINDS})
+
+
+def residual_hooks(mesh, dp: tuple = (), seq_shard: bool = True,
+                   tp: bool = True) -> Dict[str, Callable]:
+    """The reference's standard hook set (residual, logits, hidden,
+    heads, moe_dispatch) for ``mesh`` with batch axes ``dp``: identities
+    on a one-device mesh, a ``RingHooks`` recording the reference's
+    layouts on a ring."""
+    if mesh.size == 1:
+        return {kind: _identity for kind in HOOK_KINDS}
+    return RingHooks(layout_rules(mesh, dp, seq_shard, tp))

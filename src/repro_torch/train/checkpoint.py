@@ -11,9 +11,13 @@
 * Trees are NamedTuples and dicts (flattened in sorted key order, as JAX
   does) over tensor or numpy leaves; a bf16 tensor is stored
   as f32 (exact) and cast back on restore.  ``restore`` places each
-  leaf on the device and in the dtype of the matching leaf of ``like``; the
-  reference's elastic re-shard (``mesh=``, ``specs=``) waits for
-  ``shard/``.
+  leaf on the device and in the dtype of the matching leaf of ``like``.
+* Global leaves whatever mesh wrote them: a state laid out on a ring
+  (``parallel.ring.MeshTrainState``) is saved through its
+  ``global_state()``, each leaf gathered only while it is written, so the
+  files are those one device writes.  ``read_leaves`` gives the leaves
+  one at a time, for a restore that lays them out on another mesh
+  (``train/ft.py``'s ``elastic_restore``).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +59,8 @@ def _rebuild(tree: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    if callable(leaf):                     # a leaf gathered when read
+        leaf = leaf()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:   # no numpy dtype: f32 is exact
             leaf = leaf.float()
@@ -67,6 +73,8 @@ def save(ckpt_dir: str, step: int, tree: Any,
     """Atomically save ``tree`` as checkpoint ``step``; returns its path."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(ckpt_dir, exist_ok=True)
+    if hasattr(tree, "global_state"):
+        tree = tree.global_state()
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
     try:
         manifest = {"step": step, "extra": extra or {}, "leaves": []}
@@ -100,31 +108,45 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, Dict]:
-    """Restore checkpoint ``step`` into the structure of ``like``: each leaf
-    takes the dtype and device of ``like``'s leaf at its path (a tensor
-    leaf; other leaves become numpy arrays).  Returns ``(tree, extra)``;
-    raises ``KeyError`` for a path the checkpoint lacks and ``ValueError``
-    for a shape that differs."""
+def read_leaves(ckpt_dir: str, step: int, like: Any
+                ) -> Tuple[Iterator[Tuple[str, Any, np.ndarray]], Dict]:
+    """``(leaves, extra)`` of checkpoint ``step``: ``leaves`` yields
+    ``(path, like's leaf, array)`` in ``like``'s flattening order, one
+    array loaded at a time; raises ``KeyError`` for a path the checkpoint
+    lacks and ``ValueError`` for a shape that differs."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+
+    def leaves():
+        for p, leaf in _flatten_with_paths(like):
+            entry = by_path.get(p)
+            if entry is None:
+                raise KeyError(f"checkpoint missing leaf {p}")
+            arr = np.load(os.path.join(path, entry["file"]))
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch at {p}: {arr.shape} vs "
+                                 f"{tuple(leaf.shape)}")
+            yield p, leaf, arr
+
+    return leaves(), manifest["extra"]
+
+
+def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, Dict]:
+    """Restore checkpoint ``step`` into the structure of ``like``: each leaf
+    takes the dtype and device of ``like``'s leaf at its path (a tensor
+    leaf; other leaves become numpy arrays).  Returns ``(tree, extra)``;
+    raises as ``read_leaves`` does."""
+    leaves, extra = read_leaves(ckpt_dir, step, like)
     out = {}
-    for p, leaf in _flatten_with_paths(like):
-        entry = by_path.get(p)
-        if entry is None:
-            raise KeyError(f"checkpoint missing leaf {p}")
-        arr = np.load(os.path.join(path, entry["file"]))
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"shape mismatch at {p}: {arr.shape} vs "
-                             f"{tuple(leaf.shape)}")
+    for p, leaf, arr in leaves:
         if isinstance(leaf, torch.Tensor):
             out[p] = torch.from_numpy(np.array(arr)).to(
                 device=leaf.device, dtype=leaf.dtype)
         else:
             out[p] = arr.astype(np.asarray(leaf).dtype)
-    return _rebuild(like, out), manifest["extra"]
+    return _rebuild(like, out), extra
 
 
 def retain(ckpt_dir: str, keep: int = 3) -> None:

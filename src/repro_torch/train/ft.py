@@ -8,11 +8,10 @@ Runtime-agnostic logic, exercised by simulating failures and stragglers:
     atomic checkpoint (``train/checkpoint.py``) after a failure, bitwise:
     the data cursor is the step in the checkpoint, and batches are a pure
     function of the step (``data/pipeline.py``).
-  * ``elastic_restore`` — reload a checkpoint onto another mesh.  The port
-    drives one device until ``torch.distributed`` lands (ROADMAP §1 item
-    6), so the new mesh is a one-device mesh and restoring onto it places
-    every tensor leaf on its device; the reference's per-leaf specs come
-    with that item.
+  * ``elastic_restore`` — reload a checkpoint onto another mesh: the
+    saved global leaves laid out by the new mesh's specs
+    (``parallel.ring.restore_state``), or, for a one-device state onto a
+    one-device mesh, written into its tensors and placed on the device.
 """
 from __future__ import annotations
 
@@ -83,23 +82,24 @@ def _place(tree: Any, device: torch.device) -> Any:
     return tree
 
 
-def _mesh_device(mesh) -> torch.device:
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"restoring onto a {mesh.shape} mesh waits for torch.distributed "
-            f"(ROADMAP §1 item 6)")
-    return data_devices(mesh)[0]
-
-
 def restore_into(ckpt_dir: str, step: int, like: Any, mesh=None) -> tuple:
     """Checkpoint ``step`` written into ``like``'s tensors in place (a
     ``TrainState`` built by ``step.init_train_state`` keeps its model's
     parameters), then placed on ``mesh``'s device when given; returns
-    ``(tree, extra)``."""
+    ``(tree, extra)``.  A ``ring.MeshTrainState`` is restored as
+    ``elastic_restore`` restores it, onto ``mesh`` (default its own)."""
+    from repro_torch.parallel import ring
+    if isinstance(like, ring.MeshTrainState):
+        new_mesh = like.params.mesh if mesh is None else mesh
+        return (ring.restore_state(ckpt_dir, step, like, new_mesh),
+                ckpt.read_leaves(ckpt_dir, step, ())[1])
+    if mesh is not None and mesh.size != 1:
+        raise ValueError(f"restore_into places one-device state; lay it "
+                         f"out on a {mesh.shape} mesh with elastic_restore")
     tree, extra = ckpt.restore(ckpt_dir, step, like)
     tree = _into(like, tree)
     if mesh is not None:
-        tree = _place(tree, _mesh_device(mesh))
+        tree = _place(tree, data_devices(mesh)[0])
     return tree, extra
 
 
@@ -154,7 +154,19 @@ def run_with_restarts(*, make_state: Callable[[], Any],
                 raise
 
 
-def elastic_restore(ckpt_dir: str, step: int, like: Any, new_mesh) -> Any:
-    """Restore checkpoint ``step`` into ``like``'s tensors, placed on
-    ``new_mesh``'s device (a one-device mesh)."""
+def elastic_restore(ckpt_dir: str, step: int, like: Any, new_mesh,
+                    new_specs=None) -> Any:
+    """Restore checkpoint ``step`` onto ``new_mesh`` (the reference's
+    signature).  A ``ring.MeshTrainState`` ``like`` (laid out on any mesh)
+    gives a ``MeshTrainState`` on ``new_mesh``, each leaf laid out by
+    ``new_specs`` (default the specs of ``like``'s config and grain on
+    ``new_mesh``); a one-device state onto a one-device mesh is written
+    into ``like``'s tensors in place and placed on its device."""
+    from repro_torch.parallel import ring
+    if isinstance(like, ring.MeshTrainState):
+        return ring.restore_state(ckpt_dir, step, like, new_mesh, new_specs)
+    if new_mesh.size != 1:
+        raise ValueError(f"a {new_mesh.shape} mesh holds a "
+                         f"ring.MeshTrainState: pass one as like "
+                         f"(ring.init_state lays a model out)")
     return restore_into(ckpt_dir, step, like, new_mesh)[0]

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,13 +86,17 @@ def clip_by_global_norm(grads: Tree, max_norm: float
     """Returns (scale, norm); the scale is applied per leaf inside the
     update, so no scaled copy of the gradient tree is ever built."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return scale, norm
+    return clip_scale(norm, max_norm), norm
 
 
-def _step_scalars(cfg: AdamWConfig, grads: Tree, state: OptState):
-    """(clip scale, grad norm, new step, lr, bias corrections 1 and 2)."""
-    scale, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _step_scalars(cfg: AdamWConfig, gnorm: torch.Tensor, state: OptState):
+    """(clip scale, grad norm, new step, lr, bias corrections 1 and 2)
+    for gradients of global norm ``gnorm``."""
+    scale = clip_scale(gnorm, cfg.clip_norm)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     step_f = step.to(F32)
@@ -119,7 +123,8 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
                  state: OptState):
     """Returns ``(new_params, new_state, metrics)``; all math f32 per
     leaf, moments stored at their own dtype, parameters at theirs."""
-    scale, gnorm, step, lr, bc1, bc2 = _step_scalars(cfg, grads, state)
+    scale, gnorm, step, lr, bc1, bc2 = _step_scalars(
+        cfg, global_norm(grads), state)
     new_p, new_m, new_v = {}, {}, {}
     for k in params:
         new_p[k], new_m[k], new_v[k] = _leaf_update(
@@ -130,12 +135,17 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
 
 
 def adamw_update_(cfg: AdamWConfig, params: Tree, grads: Tree,
-                  state: OptState) -> Dict[str, torch.Tensor]:
+                  state: OptState, gnorm: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
     """``adamw_update``'s arithmetic written into ``params`` and ``state``
     in place, one leaf at a time, so no second copy of the parameters and
     moments is ever held (a 3 B-parameter model's f32 moments alone are
-    24.7 GB).  Returns the metrics."""
-    scale, gnorm, step, lr, bc1, bc2 = _step_scalars(cfg, grads, state)
+    24.7 GB).  ``gnorm`` is the gradients' global norm where the caller
+    holds only a shard of each leaf (``parallel/ring.py``; default
+    ``global_norm(grads)``).  Returns the metrics."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    scale, gnorm, step, lr, bc1, bc2 = _step_scalars(cfg, gnorm, state)
     with torch.no_grad():
         for k, p in params.items():
             new = _leaf_update(cfg, p, grads[k], state.m[k], state.v[k],

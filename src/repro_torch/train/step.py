@@ -14,8 +14,10 @@ parameters' dtype, as the reference's ``n_mb == 1`` branch does.
 The model owns its parameters: ``TrainState.params`` is the model's own
 ``named_parameters()`` (``init_train_state``), so the step differentiates
 the model directly and checkpointed layers recompute with the updated
-weights.  The sharding hooks and specs are the reference's names at one
-device (``parallel/``).  The reference's ``lower_train_step`` and
+weights.  On a mesh of more than one position the steps run
+``parallel/ring.py`` instead, over a ``ring.MeshTrainState`` (the
+parameters and moments laid out by ``state_pspecs``) and a global batch
+split by ``sharding.batch_pspecs``; ``default_plan`` picks the grain.  The reference's ``lower_train_step`` and
 ``lower_serve_step`` lower a step for XLA's memory and cost analyses; with
 no compiler to ask, ``trace_train_step`` and ``trace_serve_step`` run the
 step on the ``meta`` device under ``launch.dryrun.CostCounter`` instead
@@ -23,8 +25,8 @@ step on the ``meta`` device under ``launch.dryrun.CostCounter`` instead
 
 Serve: ``build_prefill_step`` (last-position logits and the cache) and
 ``build_decode_step`` (one token), both without gradients and both under
-the mesh's hooks.  The reference's ``seq_shard_activations`` plan field
-waits with the hooks' sharding for ROADMAP §1 item 6.
+the mesh's hooks; on a ring they take a ``ring.MeshParams`` and a
+``ring.MeshCache`` (the dense family, TP).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.models import transformer as T
@@ -52,6 +55,7 @@ class StepPlan:
     """Per-(arch x shape) execution plan — the runtime knobs."""
     n_microbatches: int = 1
     grad_compression: Optional[str] = None   # None | "bf16"
+    seq_shard_activations: bool = True       # SP: residual over 'model'
     skip_update: bool = False                # grads only, no update
     tp: bool = True                          # False = small-scene DP grain
 
@@ -117,15 +121,24 @@ def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
 # Train step builder
 # ---------------------------------------------------------------------------
 def build_train_step(cfg: ArchConfig, mesh, opt_cfg: opt.AdamWConfig,
-                     plan: StepPlan, model: T.LM
+                     plan: StepPlan, model: Optional[T.LM] = None
                      ) -> Tuple[Callable, Dict[str, Callable]]:
     """Returns ``(train_step, hooks)``: ``train_step(state, batch) ->
     (state, metrics)`` over ``model`` (trainable, its parameters those of
     ``state.params``), the batch split into ``plan.n_microbatches``
     consecutive slices; call it under ``ctx.activation_sharding(hooks)``.
     ``metrics`` holds 0-d tensors: loss, ce_loss, moe_aux, grad_norm
-    (before clipping), lr; under ``skip_update`` only loss and grads."""
-    hooks = ctx.residual_hooks(mesh)
+    (before clipping), lr; under ``skip_update`` only loss and grads.
+
+    On a mesh of several positions, or without ``model``, the step is
+    ``parallel.ring.build_train_step``'s over a ``ring.MeshTrainState``
+    (``ring.init_state(model, mesh, plan.tp)``), ``plan.n_microbatches``
+    per data position."""
+    if mesh.size > 1 or model is None:
+        from repro_torch.parallel import ring
+        return ring.build_train_step(cfg, mesh, opt_cfg, plan)
+    hooks = ctx.residual_hooks(mesh, sharding.dp_axes(mesh),
+                               plan.seq_shard_activations, plan.tp)
     names = [k for k, _ in model.named_parameters()]
     acc_dtype = torch.bfloat16 if plan.grad_compression == "bf16" else F32
 
@@ -188,10 +201,12 @@ def jit_train_step(cfg: ArchConfig, shape_name: str, mesh, plan: StepPlan,
     donated.  Eagerly there is nothing to compile and the step already
     updates the state in place, so this returns ``build_train_step``'s
     step with its hooks and the state's specs: ``(step, hooks, sspec)``
-    (``shape_name`` is kept for the reference's signature)."""
+    (``shape_name`` is kept for the reference's signature).  On a ring
+    the step takes ``ring.init_state(model, mesh, plan.tp, ...)``."""
     if shape_name not in SHAPES:
         raise KeyError(f"unknown shape {shape_name!r}")
-    step_fn, hooks = build_train_step(cfg, mesh, opt_cfg, plan, model)
+    step_fn, hooks = build_train_step(cfg, mesh, opt_cfg, plan,
+                                      None if mesh.size > 1 else model)
     state = TrainState(dict(model.named_parameters()), None)
     return step_fn, hooks, state_pspecs(cfg, state, mesh, plan.tp)
 
@@ -199,16 +214,31 @@ def jit_train_step(cfg: ArchConfig, shape_name: str, mesh, plan: StepPlan,
 # ---------------------------------------------------------------------------
 # Serve steps
 # ---------------------------------------------------------------------------
+def _serve_hooks(mesh):
+    return ctx.residual_hooks(mesh, sharding.dp_axes(mesh))
+
+
 def build_prefill_step(mesh) -> Callable:
     """``prefill_step(model, batch) -> (last-position logits, cache)``,
-    run under ``mesh``'s hooks."""
-    hooks = ctx.residual_hooks(mesh)
+    run under ``mesh``'s hooks.  On a ring ``model`` is a
+    ``ring.MeshParams`` and the cache a ``ring.MeshCache``, of capacity
+    ``max_len`` (default the prompt's length)."""
+    hooks = _serve_hooks(mesh)
 
     @torch.no_grad()
-    def prefill_step(model: T.LM, batch):
+    def prefill_step(model, batch, max_len: Optional[int] = None):
+        if mesh.size > 1:
+            from repro_torch.parallel import ring
+            with ctx.activation_sharding(hooks):
+                return ring.prefill(model, batch, max_len)
         with ctx.activation_sharding(hooks):
             logits, cache = model.prefill(tokens=batch.get("tokens"),
                                           embeds=batch.get("embeds"))
+        if max_len is not None and "kv" in cache:
+            kv = cache["kv"]
+            pad = max_len - kv["k"].shape[2]
+            cache["kv"] = {k: F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for k, t in kv.items()}
         return logits[:, -1], cache
 
     return prefill_step
@@ -216,11 +246,16 @@ def build_prefill_step(mesh) -> Callable:
 
 def build_decode_step(mesh) -> Callable:
     """``decode_step(model, cache, batch) -> (logits, cache)``, run under
-    ``mesh``'s hooks; the cache is updated in place."""
-    hooks = ctx.residual_hooks(mesh)
+    ``mesh``'s hooks; the cache is updated in place.  On a ring ``model``
+    is a ``ring.MeshParams`` and ``cache`` a ``ring.MeshCache``."""
+    hooks = _serve_hooks(mesh)
 
     @torch.no_grad()
-    def decode_step(model: T.LM, cache, batch):
+    def decode_step(model, cache, batch):
+        if mesh.size > 1:
+            from repro_torch.parallel import ring
+            with ctx.activation_sharding(hooks):
+                return ring.decode(model, cache, batch)
         with ctx.activation_sharding(hooks):
             logits, new_cache = model.decode_step(
                 cache, batch["position"], tokens=batch.get("tokens"),
@@ -245,12 +280,15 @@ def trace_train_step(cfg: ArchConfig, shape_name: str, mesh,
                      plan: Optional[StepPlan] = None,
                      batch_override: Optional[int] = None, *,
                      seq_override: Optional[int] = None,
-                     opt_cfg: Optional[opt.AdamWConfig] = None):
+                     opt_cfg: Optional[opt.AdamWConfig] = None,
+                     positions: Optional[Tuple[int, ...]] = None):
     """One train step of ``cfg`` at ``plan`` (default ``default_plan``) on
     the ``meta`` device, counted: its ``launch.dryrun.Trace`` (arguments
     the parameters, the moments and the batch of ``input_specs``).  The
     moments are bf16 from 30 B parameters, as the reference's
-    ``lower_train_step`` sets them."""
+    ``lower_train_step`` sets them.  On a ring the state is laid out at
+    ``positions`` (default all; ``(0,)``: one representative position,
+    its collectives counted and not run)."""
     from repro_torch.configs.base import input_specs
     from repro_torch.launch.dryrun import run_traced
     plan = plan or default_plan(cfg, shape_name, mesh)
@@ -258,25 +296,36 @@ def trace_train_step(cfg: ArchConfig, shape_name: str, mesh,
         moments = "bfloat16" if cfg.param_count() >= 30e9 else "float32"
         opt_cfg = opt.AdamWConfig(moments_dtype=moments)
     model = _meta_model(cfg, trainable=True)
-    state = init_train_state(model, opt_cfg.moments_dtype)
     batch = input_specs(cfg, shape_name, batch_override,
                         seq_override=seq_override)
-    step_fn, hooks = build_train_step(cfg, mesh, opt_cfg, plan, model)
+    if mesh.size > 1:
+        from repro_torch.parallel import ring
+        state = ring.init_state(model, mesh, plan.tp, opt_cfg.moments_dtype,
+                                positions)
+        args = (state.params.shards, state.opt, batch)
+        step_fn, hooks = build_train_step(cfg, mesh, opt_cfg, plan)
+    else:
+        state = init_train_state(model, opt_cfg.moments_dtype)
+        args = (state, batch)
+        step_fn, hooks = build_train_step(cfg, mesh, opt_cfg, plan, model)
 
     def run():
         with ctx.activation_sharding(hooks):
             return step_fn(state, batch)
 
-    return run_traced(run, (state, batch), _n_params(model))
+    return run_traced(run, args, _n_params(model))
 
 
 def trace_serve_step(cfg: ArchConfig, shape_name: str, mesh, *,
                      batch_override: Optional[int] = None,
-                     seq_override: Optional[int] = None):
+                     seq_override: Optional[int] = None,
+                     positions: Optional[Tuple[int, ...]] = None):
     """The prefill or decode step of a serve cell on the ``meta`` device,
     counted: its ``launch.dryrun.Trace``.  Prefill's arguments are the
     parameters and the prompt batch; decode's also the cache of the
-    shape's length (``init_cache``), which the step updates in place."""
+    shape's length (``init_cache``), which the step updates in place.  On
+    a ring the parameters and the cache are laid out at ``positions``, as
+    ``trace_train_step`` lays them out."""
     from repro_torch.configs.base import input_specs
     from repro_torch.launch.dryrun import run_traced
     kind = SHAPES[shape_name]["kind"]
@@ -285,13 +334,24 @@ def trace_serve_step(cfg: ArchConfig, shape_name: str, mesh, *,
     model = _meta_model(cfg)
     batch = input_specs(cfg, shape_name, batch_override,
                         seq_override=seq_override)
+    b = batch_override or SHAPES[shape_name]["global_batch"]
+    seq = seq_override or SHAPES[shape_name]["seq_len"]
+    if mesh.size > 1:
+        from repro_torch.parallel import ring
+        mp = ring.shard_params(model, mesh, True, positions)
+        if kind == "prefill":
+            fn = build_prefill_step(mesh)
+            return run_traced(lambda: fn(mp, batch), (mp.shards, batch),
+                              _n_params(model))
+        cache = ring.init_cache(mp, b, seq)
+        fn = build_decode_step(mesh)
+        return run_traced(lambda: fn(mp, cache, batch),
+                          (mp.shards, cache.shards, batch), _n_params(model))
     if kind == "prefill":
         fn = build_prefill_step(mesh)
         return run_traced(lambda: fn(model, batch),
                           (dict(model.named_parameters()), batch),
                           _n_params(model))
-    b = batch_override or SHAPES[shape_name]["global_batch"]
-    seq = seq_override or SHAPES[shape_name]["seq_len"]
     cache = model.init_cache(b, seq)
     fn = build_decode_step(mesh)
     return run_traced(lambda: fn(model, cache, batch),

@@ -10,6 +10,7 @@ The reference's launch modules set ``XLA_FLAGS`` at import, so its
 never imported."""
 import ast
 import dataclasses
+import json
 import math
 from pathlib import Path
 
@@ -27,7 +28,8 @@ from repro_torch.kernels import meta
 from repro_torch.kernels.causal_conv1d import causal_conv1d
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.launch import dryrun, roofline
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_mesh_for, \
+    make_production_mesh
 from repro_torch.models.transformer import init_params
 from repro_torch.train import step as S
 
@@ -299,6 +301,24 @@ def test_train_cell_is_the_probe_times_microbatches_plus_adamw():
     assert roofline.model_fraction(r, 2 * r["model_bound_s"]) == 0.5
 
 
+def test_roofline_on_a_mesh_is_per_chip():
+    """``roofline.run_config(mesh=)`` passes the mesh to the dry run: the
+    terms are one chip's, the model's own terms the config's over the
+    chips."""
+    cfg = _dense()
+    mesh = make_mesh_for(2, 2, devices=("meta",) * 4)
+    kw = dict(batch_override=4, seq_override=32, n_microbatches=1)
+    cell = dryrun.run_config(cfg, "train_4k", mesh=mesh, **kw)
+    r = roofline.run_config(cfg, "train_4k", mesh=mesh, **kw)
+    assert (r["status"], r["n_chips"]) == ("ok", 4)
+    assert r["per_chip"]["flops"] == cell["cost"]["flops"]
+    assert r["terms_s"] == roofline.terms(cell)
+    assert r["terms_s"]["collective"] > 0
+    whole = roofline.model_terms(cfg, "train_4k", batch_override=4,
+                                 seq_override=32)
+    assert r["model_terms_s"] == {k: v / 4 for k, v in whole.items()}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_long_500k_skipped_as_the_reference(arch):
     cfg = get_config(arch)
@@ -309,12 +329,32 @@ def test_long_500k_skipped_as_the_reference(arch):
         assert roofline.run_cell(arch, "long_500k")["status"] == "skipped"
 
 
-def test_multi_pod_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dryrun.run_cell("qwen2.5-3b", "decode_32k", True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
-                     "--multi-pod"])
+def test_multi_pod_raises(tmp_path):
+    """--multi-pod traces one chip of the (2, 16, 16) mesh on meta; what
+    still raises is a production mesh over a pool too small for it."""
+    out = tmp_path / "cell.json"
+    assert dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
+                        "--multi-pod", "--out", str(out)]) == 0
+    r = json.loads(out.read_text())
+    assert (r["status"], r["source"], r["n_chips"], r["multi_pod"]) == \
+        ("ok", "model", 512, True)
+    ring = r["collectives"]["ring_bytes"]
+    assert ring["all-gather"] == 512 * r["collectives"]["bytes"]["all-gather"]
+    with pytest.raises(ValueError, match="512 devices"):
+        make_production_mesh(multi_pod=True, device="cpu")
+
+
+def test_multi_pod_train_cell_is_modelled():
+    """llama3-405b train_4k on the (2, 16, 16) mesh: one chip traced (the
+    TP + SP grain, 8 q heads per shard reading one gathered k/v head)."""
+    r = dryrun.run_cell("llama3-405b", "train_4k", True)
+    assert (r["status"], r["source"], r["n_chips"], r["tp"]) == \
+        ("ok", "model", 512, True)
+    assert r["cost"]["flops"] > 0 and r["memory"]["peak_bytes"] > 0
+    coll = r["collectives"]
+    assert coll["bytes"]["reduce-scatter"] > 0
+    assert coll["ring_bytes"]["reduce-scatter"] == \
+        512 * coll["bytes"]["reduce-scatter"]
 
 
 # one arch per family, at full width

@@ -35,6 +35,7 @@ from repro_torch.launch import mesh as TM
 from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as TT
 from repro_torch.parallel import ctx as tctx
+from repro_torch.parallel import ring as TRING
 from repro_torch.parallel import sharding as TSH
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import ft as TFT
@@ -155,9 +156,17 @@ def test_elastic_restore_onto_a_host_mesh(tmp_path):
     for k, p in model.named_parameters():
         assert restored[k] is p             # written into the model's own
         assert torch.equal(p, saved[k]) and p.device == torch.device("cpu")
-    big = TM.Mesh(("data", "model"), np.empty((2, 1), object))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # onto a ring: a one-device state is not a layout, a MeshTrainState is
+    big = TM.make_mesh_for(2, 1, devices=("cpu",) * 2)
+    with pytest.raises(ValueError, match="MeshTrainState"):
         TFT.elastic_restore(str(tmp_path), 1, state.params, big)
+    ckpt.save(str(tmp_path), 2, TS.init_train_state(model))
+    like = TRING.init_state(model, TM.make_host_mesh("cpu"), tp=False)
+    ring_state = TFT.elastic_restore(str(tmp_path), 2, like, big)
+    assert len(ring_state.params.shards) == 2
+    got = ring_state.global_state()
+    for k, p in model.named_parameters():
+        assert torch.equal(got.params[k](), saved[k])
 
 
 def test_run_with_restarts_resumes_bitexact(tmp_path):
@@ -254,11 +263,23 @@ def test_host_mesh_and_clamping():
     assert tuple(JM.make_mesh_for(8, 1).shape.values()) == (1, 1)
     with pytest.raises(ValueError):
         TM.make_mesh_for(0, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TM.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tctx.residual_hooks(TM.Mesh(("data", "model"),
-                                    np.empty((2, 2), object)))
+    # the reference's production meshes: on meta, or raising on a pool
+    # too small for them
+    assert TM.make_production_mesh(device="meta").shape == {"data": 16,
+                                                            "model": 16}
+    pod = TM.make_production_mesh(multi_pod=True, device="meta")
+    assert pod.shape == {"pod": 2, "data": 16, "model": 16}
+    assert pod.devices.reshape(-1)[511] == torch.device("meta")
+    with pytest.raises(ValueError, match="has 1"):
+        TM.make_production_mesh(device="cpu")
+    # hooks on a ring record the reference's layouts, and never constrain
+    hooks = tctx.residual_hooks(TM.make_mesh_for(2, 2, devices=("cpu",) * 4),
+                                ("data",))
+    x = torch.ones(4, 6, 8)
+    assert hooks["residual"](x) is x
+    assert hooks.layouts["residual"] == (("data",), "model", None)
+    assert hooks["logits"](x) is x and \
+        hooks.layouts["logits"] == (("data",), None, "model")
 
 
 def test_constrain_is_identity_and_hooks_install():
@@ -342,10 +363,8 @@ def test_batch_cache_specs_and_plans_match_reference(arch):
                 want = JSH.batch_pspecs(jcfg, shape, jmesh, tp)
                 got = TSH.batch_pspecs(tcfg, shape, tmesh, tp)
                 assert got == {k: tuple(v) for k, v in want.items()}
-            # the port's plan has the reference's fields but
-            # seq_shard_activations, which waits for sharding (its default)
+            # the port's plan has the reference's fields and values
             jp = dataclasses.asdict(JS.default_plan(jcfg, shape, jmesh))
-            assert jp.pop("seq_shard_activations") is True
             assert dataclasses.asdict(TS.default_plan(tcfg, shape, tmesh)) \
                 == jp
             if SHAPES[shape]["kind"] != "decode":
