@@ -278,6 +278,31 @@ Phases, each of which raises (non-zero exit) on failure:
                (2, 2) -> (4, 1) -> (1, 1), bitwise; then the flash kernel
                at the TP shard shape (q (20, 4096, 128), k/v (4, 4096,
                128)): the ``flash_attention_fwd_tp_shard`` row.
+ 19b. attention families on a mesh  ``parallel/ring.py``'s moe, vlm
+               and audio paths on rings of this card, right after phase
+               19, each ring against one device, the ``repro.mesh.*``
+               bytes of every ring step against the dry run's model of it
+               (one representative position of a ``meta`` ring, times the
+               chips: they must be equal): grok-1-314b at full width, its
+               depth cut to ``MOE_LAYERS``, served on a (1, 8) ring (one
+               expert per shard, head-sharded cache) and a (1, 16) ring
+               (TP inside the experts, the production mesh's grain;
+               sequence-sharded cache), a 2 x 2048 prefill and 8 decode
+               steps drop-free, the rings fed the one-device run's greedy
+               tokens, logits within ``MESH_TOL`` (2e-2) of max |logit|;
+               musicgen-large uncut (48 layers) served on (1, 4) on seeded
+               bf16 embeddings the same way; llava-next-mistral-7b at full
+               width, its depth cut to ``VLM_LAYERS``, trained in the TP +
+               SP grain on (2, 2), 3 steps at global batch 4 x 4096 of
+               seeded bf16 embeddings, losses within ``TP_LOSS_TOL`` and
+               gradient norms within ``TP_NORM_TOL`` relative of one
+               device's; reduced grok-1-314b and arctic-480b (f32) at
+               capacity factor 1.25 on a (2, 2) DP ring and a (1, 2) EP
+               ring, each microbatch routed as one set, loss and
+               gradients within 1e-4 of the one-device step's; then the
+               flash kernel at the (1, 16) grok shard's prefill shape
+               (q (6, 2048, 128), k/v (2, 2048, 128)): the
+               ``flash_attention_fwd_moe_shard`` row.
  20. dry run and roofline  traced on the meta device, last so that no
                timed phase shares the host with it: qwen2.5-3b's train
                step (phase 13's seq 4096, batch 2 in 2 microbatches), its
@@ -312,7 +337,9 @@ from phases 13 and 14, with ``backward_ms``; flash's f32 kernel the row
 ``<name>_shard_path`` from phase 17 at its longest sub-scene launch of the
 forced partitions, its launches those of phase 17's sharded serving and
 training; flash a row ``flash_attention_fwd_tp_shard`` from phase 19 at
-the TP shard shape, its launches those of the TP ring's steps), the
+the TP shard shape, its launches those of the TP ring's steps, and a row
+``flash_attention_fwd_moe_shard`` from phase 19b at the (1, 16) grok
+shard's prefill shape, its launches those of that ring's serving), the
 card's name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -4037,31 +4064,32 @@ def mesh_tp(torch, np) -> dict:
             "launches": counts["flash_attention_fwd"]}
 
 
-def _serve_chain(torch, step_pf, step_dc, model, prompt, forced=None):
-    """A prefill of ``prompt``, then ``MESH_NEW`` decode steps fed the
-    columns of ``forced`` (the one-device run's tokens), or, without it,
-    greedy: (the last-position logits after each step, the tokens fed, ms
-    of the prefill, ms per decode step)."""
+def _chain(torch, step_pf, step_dc, model, batch, feed, max_len: int):
+    """A prefill of ``batch`` (cache capacity ``max_len``), then
+    ``MESH_NEW`` decode steps, step t fed ``feed(t, logits)``: (the
+    last-position logits after each step, ms of the prefill, ms per decode
+    step, collective bytes of the prefill and per decode step)."""
+    from repro_torch.parallel import sharding as SH
     torch.cuda.synchronize()
+    c0 = SH.collective_bytes()
     t0 = time.perf_counter()
-    logits, cache = step_pf(model, {"tokens": prompt},
-                            max_len=prompt.shape[1] + MESH_NEW)
-    out, fed = [logits], []
+    logits, cache = step_pf(model, batch, max_len=max_len)
+    out = [logits]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    c1 = SH.collective_bytes()
+    s = next(iter(batch.values())).shape[1]
     for t in range(MESH_NEW):
-        tok = logits.argmax(-1)[:, None] if forced is None \
-            else forced[:, t:t + 1]
-        fed.append(tok)
-        pos = torch.full((prompt.shape[0],), prompt.shape[1] + t,
-                         device="cuda")
-        logits, cache = step_dc(model, cache, {"tokens": tok,
-                                               "position": pos})
+        pos = torch.full((logits.shape[0],), s + t, device="cuda")
+        logits, cache = step_dc(model, cache, dict(feed(t, logits),
+                                                   position=pos))
         out.append(logits)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return out, torch.cat(fed, 1), (t1 - t0) * 1e3, \
-        (t2 - t1) * 1e3 / MESH_NEW
+    c2 = SH.collective_bytes()
+    return out, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / MESH_NEW, \
+        {k: c1[k] - c0[k] for k in c0}, \
+        {k: (c2[k] - c1[k]) // MESH_NEW for k in c0}
 
 
 def mesh_serve(torch, cfg, tol, label) -> dict:
@@ -4080,17 +4108,24 @@ def mesh_serve(torch, cfg, tol, label) -> dict:
     prompt = torch.randint(0, cfg.vocab, (2, MESH_PROMPT),
                            generator=gen).cuda()
     host = make_host_mesh()
-    want, forced, pf_ms, dc_ms = _serve_chain(
+    fed = []
+
+    def greedy(t, logits):
+        fed.append(logits.argmax(-1)[:, None])
+        return {"tokens": fed[-1]}
+
+    max_len = prompt.shape[1] + MESH_NEW
+    want, pf_ms, dc_ms, _, _ = _chain(
         torch, S.build_prefill_step(host), S.build_decode_step(host), model,
-        prompt)
+        {"tokens": prompt}, greedy, max_len)
     out = {"one": (pf_ms, dc_ms)}
     for shape in ((1, 2), (1, 4)):
         mesh = make_mesh_for(*shape, devices=_ring_devices(torch, shape[1]))
         mp = ring.shard_params(model, mesh, tp=True)
         _reset_lm_counts()
-        got, _, r_pf, r_dc = _serve_chain(
+        got, r_pf, r_dc, _, _ = _chain(
             torch, S.build_prefill_step(mesh), S.build_decode_step(mesh), mp,
-            prompt, forced)
+            {"tokens": prompt}, lambda t, _: {"tokens": fed[t]}, max_len)
         counts = _lm_counts()
         errs = [((g - w).abs().max() / w.abs().max()).item()
                 for g, w in zip(got, want)]
@@ -4183,19 +4218,19 @@ def mesh_elastic(torch, tmp) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def flash_tp_row(torch, launches: int) -> dict:
-    """The flash kernel at the TP shard shape (``TP_FLASH``: q (20, 4096,
-    128), k/v (4, 4096, 128), causal): held against its plain version in
-    f32 and bf16, then the ``flash_attention_fwd_tp_shard`` row (bf16
-    kernel, plain version, ``scaled_dot_product_attention``, bound), its
-    launches those of the TP ring's steps."""
+def flash_shard_row(torch, shape, launches: int, row_name: str,
+                    what: str, seed: int) -> dict:
+    """The flash kernel at a ring shard's shape ``shape`` = (b, s, s, h,
+    hkv, d), causal: held against its plain version in f32 and bf16, then
+    the row ``row_name`` (bf16 kernel, plain version,
+    ``scaled_dot_product_attention``, bound), its launches the ring's."""
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
     from repro_torch.kernels.meta import flash_flops
 
     F = torch.nn.functional
-    b, s, _, h, hkv, d = TP_FLASH
-    gen = torch.Generator().manual_seed(23)
+    b, s, _, h, hkv, d = shape
+    gen = torch.Generator().manual_seed(seed)
     errs = {}
     for dtype in ("float32", "bfloat16"):
         q, kk, v = (torch.randn((b * n, s, d), generator=gen)
@@ -4203,8 +4238,8 @@ def flash_tp_row(torch, launches: int) -> dict:
         _hold(torch, "flash_attention_fwd", dtype,
               flash_attention_fwd(q, kk, v, causal=True),
               flash_attention_plain(q, kk, v, causal=True), errs,
-              f"q {tuple(q.shape)} k {tuple(kk.shape)} (TP shard)",
-              key="flash_tp")
+              f"q {tuple(q.shape)} k {tuple(kk.shape)} ({what})",
+              key=row_name)
     q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, kk, v))
     k4, v4 = (t.repeat_interleave(h // hkv, 1) for t in (k4, v4))
     return kernel_row(
@@ -4215,9 +4250,7 @@ def flash_tp_row(torch, launches: int) -> dict:
         lambda o: o.reshape(b * h, s, d), flash_flops(b * h, s, s, d, True),
         (q.numel() + kk.numel() + v.numel()) * 2,
         f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads over {hkv} kv heads "
-        f"({TP_ARCH}'s TP shard at m = 2)",
-        row_name="flash_attention_fwd_tp_shard", err_key="flash_tp",
-        launches=launches)
+        f"({what})", row_name=row_name, err_key=row_name, launches=launches)
 
 
 def lm_mesh_phase(torch, np, tmp) -> dict:
@@ -4239,9 +4272,424 @@ def lm_mesh_phase(torch, np, tmp) -> dict:
     mesh_serve(torch, reduced(get_config(DENSE_ARCH)), 1e-4,
                f"reduced {DENSE_ARCH} (f32)")
     mesh_elastic(torch, tmp)
-    row = flash_tp_row(torch, tp["launches"])
+    row = flash_shard_row(torch, TP_FLASH, tp["launches"],
+                          "flash_attention_fwd_tp_shard",
+                          f"{TP_ARCH}'s TP shard at m = 2", 23)
     print(f"LM mesh phase: {time.perf_counter() - t0:.1f} s")
     return {"dp": dp, "tp": tp, "row": row}
+
+
+# --------------------------------------------------------------------------
+# The attention-block families on a mesh: moe, vlm and audio on rings of
+# this card
+# --------------------------------------------------------------------------
+MOE_RINGS = ((1, 8), (1, 16))   # grok: one expert per shard, then TP inside
+MESH_TOL = 2e-2                 # of max |logit|, bf16 serving rings
+# a ring's bf16 roundings may flip an expert pick where one device's top
+# two router probabilities lie this close: that step's logits are then
+# another computation, and the chain is compared up to it
+FLIP_MARGIN = 2e-2
+# the (1, 16) ring's sequence-sharded cache needs a multiple of 16
+MESH_MAX_LEN = -(-(MESH_PROMPT + MESH_NEW) // 16) * 16
+AUDIO_RING = (1, 4)
+VLM_ARCH = "llava-next-mistral-7b"
+VLM_LAYERS = 8             # llava's 32 layers cut to 8: see attn_mesh_train
+ROUTED_ARCHS = ("grok-1-314b", "arctic-480b")
+ROUTED_CF = 1.25           # the full configs' capacity factor: tokens drop
+ROUTED_TOL = 1e-4
+# the flash kernel at a (1, 16) shard of grok-1-314b's prefill: 48 / 16 q
+# heads reading one k/v head, 2 x 2048, D = 128 (bf16, causal)
+MOE_FLASH = (2, MESH_PROMPT, MESH_PROMPT, 3, 1, 128)
+
+
+def _mesh_model_bytes(cfg, shape, kind: str, bsz: int, seq: int,
+                      n_mb: int = 1) -> dict:
+    """The dry run's model (one representative position of a ``meta``
+    ring of ``shape``, its counts times the chips) of one step: its
+    collective bytes by kind."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+    cell = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k"}[kind]
+    meta = make_mesh_for(*shape, devices=("meta",) * (shape[0] * shape[1]))
+    r = dryrun.run_config(cfg, cell, mesh=meta, batch_override=bsz,
+                          seq_override=seq, n_microbatches=n_mb)
+    if r["status"] != "ok" or r["source"] != "model":
+        raise AssertionError(f"{cfg.name} {cell} on {shape}: {r}")
+    return {k.replace("-", "_"): v
+            for k, v in r["collectives"]["ring_bytes"].items()}
+
+
+def _one_prefill(torch, capacity_factor):
+    """The one-device prefill step at ``capacity_factor`` (drop-free for
+    MoE, as the rings serve), its cache padded to ``max_len``."""
+    F = torch.nn.functional
+
+    @torch.no_grad()
+    def prefill(model, batch, max_len):
+        logits, cache = model.prefill(tokens=batch.get("tokens"),
+                                      embeds=batch.get("embeds"),
+                                      capacity_factor=capacity_factor)
+        pad = max_len - cache["kv"]["k"].shape[2]
+        cache["kv"] = {k: F.pad(t, (0, 0, 0, 0, 0, pad))
+                       for k, t in cache["kv"].items()}
+        return logits[:, -1], cache
+    return prefill
+
+
+class _RouteLog:
+    """Records every ``models.moe.route_topk`` call inside the ``with``
+    block: (the picks (T, k), the gap between the k-th and the next
+    router probability per token), on the host."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.route_topk
+
+        def logged(logits, top_k):
+            gates, idx = self.real(logits, top_k)
+            p = self.torch.softmax(logits.float(), -1).sort(
+                -1, descending=True).values
+            self.calls.append((idx.cpu(), (p[:, top_k - 1] - p[:, top_k])
+                               .cpu()))
+            return gates, idx
+        moe.route_topk = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_topk = self.real
+
+
+def _first_flip(one: _RouteLog, ring: _RouteLog, n_layers: int, m: int,
+                bsz: int, s: int):
+    """(the first chain step whose last-position picks differ between one
+    device and a ring of ``m`` model shards (0: the prefill), the smallest
+    one-device margin among the differing tokens), or None: a ring's
+    shard 0 routes the same tokens in the same order as one device."""
+    for step in range(1 + MESH_NEW):
+        for li in range(n_layers):
+            a_idx, a_gap = one.calls[step * n_layers + li]
+            b_idx, _ = ring.calls[(step * n_layers + li) * m]
+            rows = [b * s + s - 1 for b in range(bsz)] if step == 0 \
+                else list(range(bsz))
+            bad = [r for r in rows if not bool((a_idx[r] == b_idx[r]).all())]
+            if bad:
+                return step, min(float(a_gap[r]) for r in bad)
+    return None
+
+
+def attn_mesh_serve(torch, cfg, rings, batch, steps_in, label) -> dict:
+    """``cfg`` served on each ring of ``rings`` against one device: a
+    prefill of ``batch`` and ``MESH_NEW`` decode steps (``steps_in``: the
+    inputs of each step, or None for greedy tokens, the rings fed the
+    one-device run's), each step's logits within ``MESH_TOL`` of max
+    |logit|; the ``repro.mesh.*`` bytes of the prefill and of a decode
+    step equal to the dry run's model.  Returns each ring's times and its
+    flash launches."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.moe import drop_free_factor
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ring
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    free = None if cfg.moe is None else drop_free_factor(cfg.moe)
+    fed = []
+
+    def greedy(t, logits):
+        fed.append(logits.argmax(-1)[:, None])
+        return {"tokens": fed[-1]}
+
+    host = make_host_mesh()
+    for _ in range(2):          # the first a warm-up: its prefill is cold
+        fed.clear()
+        with _RouteLog(torch) as one_log:
+            want, pf1, dc1, _, _ = _chain(
+                torch, _one_prefill(torch, free), S.build_decode_step(host),
+                model, batch, steps_in or greedy, MESH_MAX_LEN)
+    forced = steps_in or (lambda t, _: {"tokens": fed[t]})
+    out = {"one": (pf1, dc1), "launches": {}}
+    bsz, s = next(iter(batch.values())).shape[:2]
+    for shape in rings:
+        n = shape[0] * shape[1]
+        mesh = make_mesh_for(*shape, devices=_ring_devices(torch, n))
+        mp = ring.shard_params(model, mesh, tp=True)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_lm_counts()
+        with _RouteLog(torch) as ring_log:
+            got, r_pf, r_dc, c_pf, c_dc = _chain(
+                torch, S.build_prefill_step(mesh), S.build_decode_step(mesh),
+                mp, batch, forced, MESH_MAX_LEN)
+        launches = _lm_counts()["flash_attention_fwd"]
+        peak = torch.cuda.max_memory_allocated() - base
+        errs = [((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, want)]
+        flip = None if cfg.moe is None else _first_flip(
+            one_log, ring_log, cfg.n_layers, shape[1], bsz, s)
+        held = errs if flip is None else errs[:flip[0]]
+        if flip is not None and not (flip[0] > 0
+                                     and flip[1] <= FLIP_MARGIN):
+            raise AssertionError(f"{label} on a {shape} ring: an expert "
+                                 f"pick differs from one device's at step "
+                                 f"{flip[0]}, router margin {flip[1]:.3e} "
+                                 f"(a near-tie is at most {FLIP_MARGIN})")
+        if not max(held) <= MESH_TOL or not launches:
+            raise AssertionError(f"{label} on a {shape} ring: logits off "
+                                 f"one device's by {errs} of max |logit| "
+                                 f"(tol {MESH_TOL}); flash launched "
+                                 f"{launches} times")
+        flipped = "" if flip is None else (
+            f", then at step {flip[0]} an expert pick flipped at a "
+            f"near-tie (one device's router margin {flip[1]:.2e}; that "
+            f"step's error {errs[flip[0]]:.2e} and later ones not held)")
+        m_pf = _mesh_model_bytes(cfg, shape, "prefill", bsz, s)
+        m_dc = _mesh_model_bytes(cfg, shape, "decode", bsz, MESH_MAX_LEN)
+        if m_pf != c_pf or m_dc != c_dc:
+            raise AssertionError(f"{label} on {shape}: the dry run's model "
+                                 f"{m_pf} / {m_dc} != the ring's counters "
+                                 f"{c_pf} / {c_dc}")
+        grain = ring.cache_grain(cfg, mesh)
+        moe = "" if cfg.moe is None else (
+            "expert parallelism, " if cfg.moe.n_experts >= shape[1]
+            else "TP inside the experts, ")
+        print(f"  {label} served on a {shape} ring ({moe}{grain}-sharded "
+              f"cache): prefill {bsz} x {s} and {len(held) - 1} of "
+              f"{MESH_NEW} decode steps within {max(held):.2e} of max "
+              f"|logit| of one device's (tol {MESH_TOL}){flipped}; "
+              f"prefill {r_pf:.1f} ms, decode {r_dc:.2f} ms "
+              f"per step against one device's {pf1:.1f} ms and {dc1:.2f} "
+              f"ms; peak {peak / 1e9:.2f} GB above the shards; collective "
+              f"bytes of the prefill {c_pf} and per decode step {c_dc}, "
+              f"equal to the dry run's model; flash launched {launches} "
+              f"times")
+        out[shape] = (r_pf, r_dc, peak)
+        out["launches"][shape] = launches
+        del mp
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def attn_mesh_train(torch, np) -> dict:
+    """llava-next-mistral-7b at full width, its depth cut to
+    ``VLM_LAYERS`` (a one-device train state is 14 bytes per parameter:
+    with a step's transients half the model, 16 layers, would leave no
+    room for the earlier phases' leftovers), in the TP + SP grain on a
+    (2, 2) ring of this card: ``MESH_STEPS`` steps at global batch 4 x
+    4096 of seeded bf16 embeddings (2 per data row in 2 microbatches of
+    1) against the one-device step (4 microbatches of 1), losses within
+    ``TP_LOSS_TOL`` and gradient norms within ``TP_NORM_TOL`` relative;
+    the collective bytes per step equal to the dry run's model."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ctx, ring
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    mesh = make_mesh_for(2, 2, devices=_ring_devices(torch, MESH_RING))
+    plan = dataclasses.replace(S.default_plan(cfg, "train_4k", mesh),
+                               n_microbatches=2)
+    if not (plan.tp and plan.seq_shard_activations):
+        raise AssertionError(f"{cfg.name}: default_plan did not pick TP + SP")
+    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    batches = [{"embeds": torch.randn((MESH_BATCH, MESH_SEQ, cfg.d_model),
+                                      generator=gen, device="cuda")
+                .to(torch.bfloat16),
+                "labels": torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_SEQ),
+                                        generator=gen, device="cuda")}
+               for _ in range(MESH_STEPS)]
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=0, trainable=True)
+    state = S.init_train_state(model)
+    step1, _ = S.build_train_step(cfg, make_host_mesh(), opt_cfg,
+                                  S.StepPlan(n_microbatches=MESH_BATCH),
+                                  model)
+    torch.cuda.reset_peak_memory_stats()
+    want, ms1, want_norms = _timed_steps(torch, step1, state, batches)
+    peak1 = torch.cuda.max_memory_allocated() - base
+    del model, state, step1
+    torch.cuda.empty_cache()
+    model = init_params(cfg, seed=0, trainable=True)
+    rstate = ring.init_state(model, mesh, tp=True)
+    del model
+    torch.cuda.empty_cache()
+    step, hooks = S.build_train_step(cfg, mesh, opt_cfg, plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    coll0 = SH.collective_bytes()
+    with ctx.activation_sharding(hooks):
+        got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
+    launches = _lm_counts()["flash_attention_fwd"]
+    coll = {k: v // MESH_STEPS for k, v in _coll_delta(coll0).items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    split = ring.replica_mismatches(rstate)
+    del rstate
+    torch.cuda.empty_cache()
+    if split:
+        raise AssertionError(f"replicated leaves' copies differ on the "
+                             f"{cfg.name} TP ring: {split[:6]}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    rel_n = [abs(g - w) / abs(w) for g, w in zip(got_norms, want_norms)]
+    if not (max(rel) <= TP_LOSS_TOL and max(rel_n) <= TP_NORM_TOL):
+        raise AssertionError(f"{cfg.name} TP ring losses {got} / norms "
+                             f"{got_norms} against one device's {want} / "
+                             f"{want_norms}: {rel} / {rel_n}")
+    per_step = 2 * 2 * 2 * VLM_LAYERS * 2
+    if launches != per_step * MESH_STEPS:
+        raise AssertionError(f"flash launched {launches} times on the "
+                             f"{cfg.name} ring; expected {per_step} per "
+                             f"step")
+    model_coll = _mesh_model_bytes(cfg, (2, 2), "train", MESH_BATCH,
+                                   MESH_SEQ, plan.n_microbatches)
+    if model_coll != coll:
+        raise AssertionError(f"{cfg.name}: the dry run's collective model "
+                             f"{model_coll} != the ring's counters {coll}")
+    one, r = float(np.median(ms1)), float(np.median(ms))
+    print(f"  {cfg.name} ({VLM_LAYERS} of {get_config(VLM_ARCH).n_layers} "
+          f"layers, full width, bf16 embeds) TP + SP grain, (2, 2) ring of "
+          f"this card, global batch {MESH_BATCH} x {MESH_SEQ}: losses {got} "
+          f"against one device's {want} (relative {max(rel):.2e}, tol "
+          f"{TP_LOSS_TOL}); gradient norms {got_norms} against "
+          f"{want_norms} (relative {max(rel_n):.2e}, tol {TP_NORM_TOL}); "
+          f"step {r:.1f} ms ({[round(x, 1) for x in ms]}) against one "
+          f"device's {one:.1f} ms ({[round(x, 1) for x in ms1]}); peak "
+          f"memory {peak / 1e9:.2f} GB (one device {peak1 / 1e9:.2f} GB); "
+          f"collective bytes per step {coll}, equal to the dry run's "
+          f"model; flash launched {launches} times; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"ms": r, "one_ms": one, "peak": peak, "coll": coll,
+            "launches": launches}
+
+
+def attn_mesh_routed(torch) -> None:
+    """Reduced grok-1-314b and arctic-480b (f32) at capacity factor
+    ``ROUTED_CF``, where tokens drop: the DP grain on a (2, 2) ring and
+    expert parallelism on a (1, 2) ring, each microbatch routed as one
+    set, against the one-device step with the same microbatches (the
+    reference's routing set): the loss, ``moe_aux`` and every gradient
+    within ``ROUTED_TOL`` (relative, and of max |g| per leaf); the DP
+    ring's collective bytes per step (the routing exchange among them)
+    equal to the dry run's model."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ctx, ring
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    gen = torch.Generator().manual_seed(25)
+    for arch in ROUTED_ARCHS:
+        cfg = reduced(get_config(arch))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=ROUTED_CF))
+        model = init_params(cfg, seed=5, trainable=True)
+        batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=gen)
+                 .cuda() for k in ("tokens", "labels")}
+        ostep, _ = S.build_train_step(
+            cfg, make_host_mesh(), opt_cfg,
+            S.StepPlan(n_microbatches=1, skip_update=True), model)
+        _, om = ostep(S.init_train_state(model), batch)
+        drops = []
+        for shape, tp in (((2, 2), False), ((1, 2), True)):
+            mesh = make_mesh_for(*shape, devices=_ring_devices(
+                torch, shape[0] * shape[1]))
+            plan = S.StepPlan(n_microbatches=1, tp=tp)
+            rstate = ring.init_state(model, mesh, tp=tp)
+            gstep, hooks = S.build_train_step(
+                cfg, mesh, opt_cfg, dataclasses.replace(plan,
+                                                        skip_update=True))
+            with ctx.activation_sharding(hooks):
+                _, gm = gstep(rstate, batch)
+            got = ring.gather_grads(rstate.params, gm["grads"], "cuda")
+            err_l = abs(float(gm["loss"]) - float(om["loss"])) / \
+                abs(float(om["loss"]))
+            err_g = max(((got[n] - g).abs().max() / g.abs().max()).item()
+                        for n, g in om["grads"].items())
+            if not (err_l <= ROUTED_TOL and err_g <= ROUTED_TOL):
+                raise AssertionError(f"{cfg.name} on {shape}: loss off by "
+                                     f"{err_l:.2e}, gradients by {err_g:.2e}"
+                                     f" (tol {ROUTED_TOL})")
+            step, hooks = S.build_train_step(cfg, mesh, opt_cfg, plan)
+            coll0 = SH.collective_bytes()
+            with ctx.activation_sharding(hooks):
+                _, m = step(rstate, batch)
+            coll = _coll_delta(coll0)
+            if not tp:
+                model_coll = _mesh_model_bytes(cfg, shape, "train", 4, 64)
+                if model_coll != coll:
+                    raise AssertionError(f"{cfg.name} DP ring: the dry "
+                                         f"run's model {model_coll} != "
+                                         f"the counters {coll}")
+            drops.append(f"{shape} {'EP' if tp else 'DP'}: loss "
+                         f"{float(gm['loss']):.6f} against "
+                         f"{float(om['loss']):.6f} (relative {err_l:.1e}),"
+                         f" gradients within {err_g:.1e} of max |g|, "
+                         f"moe_aux {float(m['moe_aux']):.6f}, collective "
+                         f"bytes {coll}")
+            del rstate
+        print(f"  reduced {arch} (f32, capacity factor {ROUTED_CF}), each "
+              f"microbatch routed as one set: " + "; ".join(drops))
+        del model
+    torch.cuda.empty_cache()
+    print(f"  routed MoE rings: {time.perf_counter() - t0:.1f} s")
+
+
+def attn_mesh_phase(torch, np) -> dict:
+    """Phase 19b: the moe, vlm and audio families on rings of this card:
+    grok-1-314b at full width (depth cut to ``MOE_LAYERS``) served on
+    (1, 8) and (1, 16), musicgen-large uncut served on (1, 4),
+    llava-next-mistral-7b trained in the TP + SP grain on (2, 2), the
+    reduced MoE routing sets, and the flash kernel's row at the (1, 16)
+    grok shard's shape.  Returns the row."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"attention families on a mesh: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before "
+          f"it; rings of this card (no speed is claimed: the shards share "
+          f"one card)")
+    gen = torch.Generator().manual_seed(27)
+    grok = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    prompt = torch.randint(0, grok.vocab, (2, MESH_PROMPT),
+                           generator=gen).cuda()
+    served = attn_mesh_serve(torch, grok, MOE_RINGS, {"tokens": prompt},
+                             None, f"{MOE_ARCH} ({MOE_LAYERS} of "
+                             f"{get_config(MOE_ARCH).n_layers} layers)")
+    audio = get_config(AUDIO_ARCH)
+    emb = torch.randn((2, MESH_PROMPT + MESH_NEW, audio.d_model),
+                      generator=gen).to("cuda", torch.bfloat16)
+    attn_mesh_serve(torch, audio, (AUDIO_RING,),
+                    {"embeds": emb[:, :MESH_PROMPT]},
+                    lambda t, _: {"embeds": emb[:, MESH_PROMPT + t:][:, :1]},
+                    f"{AUDIO_ARCH} (uncut, bf16 embeds)")
+    attn_mesh_train(torch, np)
+    attn_mesh_routed(torch)
+    row = flash_shard_row(torch, MOE_FLASH,
+                          served["launches"][MOE_RINGS[-1]],
+                          "flash_attention_fwd_moe_shard",
+                          f"{MOE_ARCH}'s (1, 16) shard prefill", 26)
+    print(f"attention families on a mesh: {time.perf_counter() - t0:.1f} s")
+    return row
 
 
 def isolate_tune_artifacts() -> str:
@@ -4338,6 +4786,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     lm_train.clear()
     mesh = lm_mesh_phase(torch, np, tmp)
     rows.append(mesh["row"])
+    rows.append(attn_mesh_phase(torch, np))
     train_profile(torch, train_run)
     lm_train_profile(torch)
     roofline_phase(measured, mesh)

@@ -49,7 +49,8 @@ model shard), whose collectives are counted (``repro.mesh.*``) and not
 executed; its counts are one chip's, with ``"source": "model"`` on the
 result.  The ring's positions are symmetric, so the model of the whole
 ring is the chip's counts times the chips, plus what only one position
-does (the DP grain's gradient norm gather, ``ring.norm_gather_bytes``):
+does (the DP grain's gradient norm gather, ``ring.norm_gather_bytes``;
+a serving step's f32 logits, gathered on position 0):
 ``collectives["ring_bytes"]``, which a full trace of a small ring's
 ``repro.mesh.*`` counters must equal (``tests/test_torch_mesh_lm.py``).
 A mesh train cell traces the plan's microbatches with the update (no
@@ -441,9 +442,9 @@ def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
         plan = dataclasses.replace(plan, n_microbatches=n_microbatches)
     if kind != "train" and cfg.family not in ring.TP_FAMILIES:
         return dict(base, status="unsupported",
-                    reason=f"serving on a mesh runs the dense family's TP "
-                           f"grain; the {cfg.family} family's waits for "
-                           f"MoE expert parallelism and Mamba2/rwkv6 TP "
+                    reason=f"serving on a mesh runs the TP grain of the "
+                           f"attention-block families; the {cfg.family} "
+                           f"family's waits for the Mamba2/rwkv6 TP grains "
                            f"(ROADMAP §1 item 6)")
     before = sharding.collective_bytes()
     calls0 = sharding.collective_calls()
@@ -476,6 +477,9 @@ def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
         if kind == "train" and not plan.skip_update and \
                 not (plan.tp and mesh.shape["model"] > 1):
             ring_bytes["all_gather"] += _norm_bytes(cfg, mesh, plan)
+        if kind != "train":     # the logits, gathered on position 0 alone
+            b = batch_override or SHAPES[shape]["global_batch"]
+            ring_bytes["all_gather"] -= (n_chips - 1) * b * cfg.vocab * 4
     else:
         ring_bytes = dict(counted)
     chip = {k: v // n_chips for k, v in ring_bytes.items()} \

@@ -33,7 +33,7 @@ reference drops:
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,44 +81,132 @@ def route_topk(logits: torch.Tensor, top_k: int
     return gates, idx
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig,
-            capacity_factor: Optional[float] = None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (T, d) flattened tokens -> (T, d), plus ``{"lb_loss",
-    "drop_frac"}``.  Tokens over capacity are dropped (their output is 0;
-    the residual upstream carries them through)."""
-    t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, t, capacity_factor)
+class Route(NamedTuple):
+    """Where each (token, slot) of ``T`` tokens goes (``route``)."""
 
-    logits = x.float() @ p["router"]                          # (T, E) f32
-    gates, idx = route_topk(logits, k)                        # (T, k)
+    logits: torch.Tensor      # (T, E) f32
+    gates: torch.Tensor       # (T, k) f32, renormalized
+    flat_idx: torch.Tensor    # (T*k,) expert, token-major
+    flat_pos: torch.Tensor    # (T*k,) row in its expert's buffer, 0 if dropped
+    keep: torch.Tensor        # (T*k,) kept under the capacity
+    rows: int                 # rows of each expert's buffer
+    ce: torch.Tensor          # (E,) f32 the set's kept (token, slot)s / (T*k)
+    drop_frac: torch.Tensor   # the set's share of (token, slot)s dropped
+
+
+def gates_at(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The renormalized gates of ``logits`` (T, E) at the experts ``idx``
+    (T, k): ``route_topk``'s gates where ``idx`` is its pick."""
+    gates = torch.softmax(logits.float(), -1).gather(1, idx)
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+          capacity_factor: Optional[float] = None, routing=None) -> Route:
+    """Route ``x`` (T, d).  ``routing`` None: the T tokens are the routing
+    set (the reference's ``moe_ffn``).  Otherwise they are one member's
+    share of a larger set (``parallel/ring.py``): ``routing.n_tokens`` is
+    the set's size, which sets the capacity, and ``routing.route(logits)``
+    gives ``(gates, idx, offset, total)``: the member's pick, the per-expert
+    (token, slot) counts of the members before it and of the whole set.  A
+    (token, slot)'s position in its expert is then its local cumulative
+    count plus its expert's offset, its position in the set's token-major
+    order; the buffer holds only this member's rows (``min(capacity, T)``:
+    top-k experts are distinct, so no expert gets more than ``T``), and
+    ``ce``/``drop_frac`` are the set's."""
+    t, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = x.float() @ router                               # (T, E) f32
+    if routing is None:
+        cap = capacity(cfg, t, capacity_factor)
+        gates, idx = route_topk(logits, k)                    # (T, k)
+    else:
+        cap = capacity(cfg, routing.n_tokens, capacity_factor)
+        gates, idx, offset, total = routing.route(logits)
 
     # position of each (token, slot) in its expert, token-major order
     flat_idx = idx.reshape(-1)                                # (T*k,)
     pos = F.one_hot(flat_idx, e).cumsum(0) - 1                # (T*k, E)
     flat_pos = pos.gather(1, flat_idx[:, None])[:, 0]
-    keep = flat_pos < cap
+    if routing is None:
+        keep = flat_pos < cap
+        rows = cap
+    else:
+        keep = flat_pos + offset[flat_idx] < cap
+        rows = min(cap, t)
     flat_pos = torch.where(keep, flat_pos, 0)
+    if routing is None:
+        ce = torch.zeros(e, dtype=F32, device=x.device).index_add_(
+            0, flat_idx, keep.float()) / max(t * k, 1)
+        drop = 1.0 - keep.float().mean()
+    else:
+        kept = total.clamp(max=cap).float()
+        ce = kept / max(routing.n_tokens * k, 1)
+        drop = 1.0 - kept.sum() / max(routing.n_tokens * k, 1)
+    return Route(logits, gates, flat_idx, flat_pos, keep, rows, ce, drop)
 
+
+def _local(r: Route, e0: int, e1: int, n_experts: int):
+    """(expert index within [e0, e1), kept and in that range) per (token,
+    slot); the whole range is the reference's own indices."""
+    if e0 == 0 and e1 == n_experts:
+        return r.flat_idx, r.keep
+    mine = r.keep & (r.flat_idx >= e0) & (r.flat_idx < e1)
+    return (r.flat_idx - e0).clamp(0, e1 - e0 - 1), mine
+
+
+def dispatch(x: torch.Tensor, r: Route, e0: int, e1: int) -> torch.Tensor:
+    """The ``(e1 - e0, rows, d)`` buffers of experts [e0, e1): each kept
+    token's row at its position (a dropped or foreign (token, slot) adds a
+    row of zeros at position 0)."""
+    k = r.gates.shape[1]
+    idx, mine = _local(r, e0, e1, r.logits.shape[1])
     xk = x.repeat_interleave(k, dim=0)                        # (T*k, d)
-    buf = x.new_zeros((e, cap, d))
-    buf.index_put_((flat_idx, flat_pos),
-                   torch.where(keep[:, None], xk, 0), accumulate=True)
+    buf = x.new_zeros((e1 - e0, r.rows, x.shape[1]))
+    buf.index_put_((idx, r.flat_pos),
+                   torch.where(mine[:, None], xk, 0), accumulate=True)
+    return buf
 
-    # expert SwiGLU in the IO dtype (f32 accumulation inside)
-    gate = torch.bmm(buf, p["w_gate"])
-    up = torch.bmm(buf, p["w_up"])
-    h = (F.silu(gate.float()) * up.float()).to(x.dtype)
-    out_buf = torch.bmm(h, p["w_down"]).to(x.dtype)
 
-    yk = out_buf[flat_idx, flat_pos]                          # (T*k, d)
-    yk = torch.where(keep[:, None], yk, 0)
-    y = (yk.reshape(t, k, d).float() * gates[..., None]).sum(1).to(x.dtype)
+def experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLU over ``(E, C, d)`` buffers in the IO dtype (f32
+    accumulation inside): ``(E, C, d)``."""
+    gate = torch.bmm(buf, w_gate)
+    up = torch.bmm(buf, w_up)
+    h = (F.silu(gate.float()) * up.float()).to(buf.dtype)
+    return torch.bmm(h, w_down).to(buf.dtype)
 
-    # Switch-style load-balance auxiliary loss
-    me = torch.softmax(logits, -1).mean(0)                    # (E,)
-    ce = torch.zeros(e, dtype=F32, device=x.device).index_add_(
-        0, flat_idx, keep.float()) / max(t * k, 1)
-    return y, {"lb_loss": e * (me * ce).sum(),
-               "drop_frac": 1.0 - keep.float().mean()}
+
+def combine(out_buf: torch.Tensor, r: Route, e0: int, e1: int
+            ) -> torch.Tensor:
+    """The gate-weighted sum over the slots of the outputs of experts
+    [e0, e1), f32 ``(T, d)``: the whole output over every expert, a
+    partial sum over a shard's."""
+    t, k = r.gates.shape
+    idx, mine = _local(r, e0, e1, r.logits.shape[1])
+    yk = out_buf[idx, r.flat_pos]                             # (T*k, d)
+    yk = torch.where(mine[:, None], yk, 0)
+    return (yk.reshape(t, k, -1).float() * r.gates[..., None]).sum(1)
+
+
+def lb_loss(r: Route) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss ``E * sum(me * ce)``, ``me``
+    the mean router probabilities of these tokens."""
+    me = torch.softmax(r.logits, -1).mean(0)                  # (E,)
+    return r.ce.shape[0] * (me * r.ce).sum()
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig,
+            capacity_factor: Optional[float] = None, routing=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (T, d) flattened tokens -> (T, d), plus ``{"lb_loss",
+    "drop_frac"}``.  Tokens over capacity are dropped (their output is 0;
+    the residual upstream carries them through).  ``routing`` (see
+    ``route``) makes ``x`` one member's share of a larger routing set."""
+    e = cfg.n_experts
+    r = route(x, p["router"], cfg, capacity_factor, routing)
+    out_buf = experts(dispatch(x, r, 0, e), p["w_gate"], p["w_up"],
+                      p["w_down"])
+    y = combine(out_buf, r, 0, e).to(x.dtype)
+    return y, {"lb_loss": lb_loss(r), "drop_frac": r.drop_frac}

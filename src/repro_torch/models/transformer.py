@@ -154,11 +154,14 @@ class AttnBlock(nn.Module):
     (``_apply_attn_block``).  The FFN is the MLP, or the MoE FFN
     (``models/moe.py``) plus, for arctic, a dense residual MLP beside it.
     ``forward`` returns ``(x, moe aux loss)``, the loss None without MoE
-    (the hybrid's shared block is one with an MLP)."""
+    (the hybrid's shared block is one with an MLP).  ``index`` is the
+    layer's, by which a ring's MoE routing set knows it
+    (``ctx.moe_routing``)."""
 
-    def __init__(self, cfg: ArchConfig, tree: Tree):
+    def __init__(self, cfg: ArchConfig, tree: Tree, index: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.index = index
         self.spec = attn_spec(cfg)
         self.attn_norm = _frozen(tree["attn_norm"])
         self.attn = _frozen(tree["attn"])
@@ -180,7 +183,8 @@ class AttnBlock(nn.Module):
             return x + L.apply_mlp(self.mlp, h, cfg.mlp), None
         b, s, d = h.shape
         y, stats = MOE.moe_ffn(self.moe, h.reshape(b * s, d), cfg.moe,
-                               capacity_factor=capacity_factor)
+                               capacity_factor=capacity_factor,
+                               routing=ctx.moe_routing(self.index))
         y = y.reshape(b, s, d)
         if cfg.moe.dense_residual_ff:
             y = y + L.apply_mlp(self.dense_mlp, h, cfg.mlp)
@@ -268,8 +272,8 @@ class AttnLM(_LM):
 
     def __init__(self, cfg: ArchConfig, tree: Tree):
         super().__init__(cfg, tree)
-        self.layers = nn.ModuleList(AttnBlock(cfg, lt)
-                                    for lt in tree["layers"])
+        self.layers = nn.ModuleList(AttnBlock(cfg, lt, i)
+                                    for i, lt in enumerate(tree["layers"]))
 
     def forward(self, tokens=None, embeds=None,
                 capacity_factor: Optional[float] = None

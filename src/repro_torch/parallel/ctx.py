@@ -15,6 +15,12 @@ axes when divisible, the sequence over "model" under ``seq_shard``, the
 logits' vocabulary, the heads and the FFN hidden over "model") in the
 hooks' ``layouts``, and the ring module reads the same rules to choose
 its layout.
+
+A ring also installs a MoE routing set (``moe_routing_set``): the tokens
+of one microbatch spread over several data positions, which the reference
+routes as one set.  ``moe_routing(layer)`` gives MoE layer ``layer`` its
+handle (``models.moe.route``), or None where each call routes its own
+tokens, as on one device.
 """
 from __future__ import annotations
 
@@ -51,6 +57,25 @@ def activation_sharding(hooks: Dict[str, Callable]):
         yield
     finally:
         _state.hooks = prev
+
+
+@contextlib.contextmanager
+def moe_routing_set(routing):
+    """Install ``routing`` (an object with ``handle(layer)``, see
+    ``parallel/ring.py``) for this thread inside the ``with`` block."""
+    prev = getattr(_state, "routing", None)
+    _state.routing = routing
+    try:
+        yield
+    finally:
+        _state.routing = prev
+
+
+def moe_routing(layer: int):
+    """The installed routing set's handle for MoE layer ``layer``, or
+    None without one."""
+    routing = getattr(_state, "routing", None)
+    return None if routing is None else routing.handle(layer)
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +126,11 @@ def layout_rules(mesh, dp: tuple = (), seq_shard: bool = True,
         return (bspec(shape[0]), None, "model", None)
 
     def moe_dispatch(shape):
+        # the (E, C, d|f) expert buffers: E over "model" where it divides,
+        # as a ring's expert-parallel shard j holds experts [j E / m,
+        # (j + 1) E / m) and the buffers of the row's tokens routed there;
+        # below that (TP inside the experts) every shard holds every
+        # expert's buffer and d_ff_expert / m of its hidden
         if not tp or len(shape) != 3 or shape[0] % m:
             return None
         return ("model", None, None)

@@ -5,12 +5,12 @@ The reference runs its LM path as one program under ``NamedSharding``:
 GSPMD partitions each step by the specs of ``parallel/sharding.py`` and
 inserts the collectives.  There is no such compiler here, so this module
 writes the partitioned program out, over the port's own layer functions
-(``models/layers.py``) on local parameters.  One process holds every
-shard: the ring may repeat a device (``(cuda:0,) * 4`` runs four shards'
-real kernels on one card, ``("cpu",) * 4`` runs in the tests) and runs
-unchanged on distinct cards.  The collectives are those of
-``parallel/sharding.py``: fixed member order, f32 accumulation, each one
-counted in ``repro.mesh.*``.
+(``models/layers.py``, ``models/moe.py``) on local parameters.  One
+process holds every shard: the ring may repeat a device (``(cuda:0,) *
+4`` runs four shards' real kernels on one card, ``("cpu",) * 4`` runs in
+the tests) and runs unchanged on distinct cards.  The collectives are
+those of ``parallel/sharding.py``: fixed member order, f32 accumulation,
+each one counted in ``repro.mesh.*``.
 
 Parameters are stored by ``sharding.param_pspecs`` (``MeshParams``: one
 dict of local slices per mesh position), the AdamW moments mirror them
@@ -20,39 +20,80 @@ place.  Two grains, as ``train.step.default_plan`` picks them:
   DP grain (``tp=False``, every family)  "model" joins the data axes.
       Every leaf's ``fsdp`` dim is split over all positions (FSDP).  Each
       position runs the model's own ``forward`` and the step's loss on
-      its batch slice, one microbatch after another; each layer's leaves
-      are gathered as the layer is entered (again in its checkpointed
-      recomputation) and released as it is left, the leaves outside the
-      layers once per position.  The
-      gradients reach the stored slices as an ordered sum over positions
-      (position-major, then microbatches: the order of the one-device
-      step's microbatch accumulator over the same rows), so a ring's step
-      equals the one-device step with as many microbatches bit for bit.
-  TP + SP grain (``tp=True``, the dense family)  Megatron tensor
+      its batch slice; each layer's leaves are gathered as the layer is
+      entered (again in its checkpointed recomputation) and released as
+      it is left, the leaves outside the layers once per position and
+      turn.  The gradients reach the stored slices as an ordered sum
+      over the turns.  Without MoE a position runs its rows ``[r * b /
+      n, (r + 1) * b / n)`` as consecutive microbatches, position-major:
+      the order of the one-device step's microbatch accumulator over the
+      same rows, so a ring's step equals the one-device step with ``n``
+      times the microbatches bit for bit (the reference's layout below
+      would gather the leaves outside the layers once per microbatch
+      instead).  Where the global batch does not divide over the data
+      members (256 rows on a 512-chip mesh), the reference's
+      ``batch_pspecs`` replicates it: every member then runs every row,
+      and the mean of their equal gradients is one member's.
+  TP + SP grain (``tp=True``; dense, moe, vlm, audio)  Megatron tensor
       parallelism over "model": each model shard holds ``n_heads / m`` q
-      heads, the k/v heads of those (``n_kv_heads / m`` each when that
-      divides, else the k/v projection gathered whole and the heads its q
-      heads read taken from it, as the reference's ``heads`` hook leaves
-      H unsharded then), ``d_ff / m`` of the FFN and ``V / m`` of the
-      vocabulary (the embedding looked up per vocabulary range, the
-      logits vocab-sharded under a max-then-ordered-sum cross entropy).
-      The row-parallel products (``out @ wo``, ``h @ w_down``) are
-      partial sums over the model shards, summed in shard order before
-      the residual add.  With ``seq_shard_activations`` the residual is
-      held sequence-sharded over "model" between the sub-blocks
-      (all-gather before attention and FFN, reduce-scatter after).  The
-      FSDP dim of each leaf is gathered over the data axes inside the
-      layer that uses it, so activation checkpointing (``_remat``)
-      gathers it again for the backward and nothing holds it between
-      layers; its gradient is handed, per data row, to the step's ordered
-      accumulator.
+      heads (where that does not divide, the first ``n_heads % m`` shards
+      one more, the q/o projections gathered whole over "model" and the
+      shard's columns taken from them: the reference's ``heads`` hook
+      leaves H unsharded there), the k/v heads of those (``n_kv_heads /
+      m`` each when that divides, else the k/v projection gathered whole
+      and the heads its q heads read taken from it, one per q head where
+      they straddle k/v groups), ``d_ff / m`` of the FFN and ``V / m``
+      of the vocabulary (the embedding looked up per vocabulary range,
+      the logits vocab-sharded under a max-then-ordered-sum cross
+      entropy).  vlm and audio start the residual from their ``embeds``
+      slice instead of a lookup.  The row-parallel products (``out @
+      wo``, ``h @ w_down``) are partial sums over the model shards,
+      summed in shard order before the residual add.  MoE layers take
+      the reference's two grains (``sharding._MOE_EP_RULES`` /
+      ``_MOE_TP_RULES``): with ``n_experts >= m`` shard j holds experts
+      ``[j E / m, (j + 1) E / m)`` and runs them on the row's tokens it
+      routes there (every shard has them: the residual is gathered over
+      "model" before the FFN; the router is replicated), below that each
+      shard holds ``d_ff_expert / m`` of every expert; either way the
+      shards' f32 partial outputs (plus arctic's column/row-parallel dense
+      MLP) are summed in shard order.  Tokens stay on their data row, as
+      the reference's GSPMD keeps them (``moe.py:73-77``): no all-to-all.
+      With ``seq_shard_activations`` the residual is held
+      sequence-sharded over "model" between the sub-blocks (all-gather
+      before attention and FFN, reduce-scatter after).  The FSDP dim of
+      each leaf is gathered over the data axes inside the layer that
+      uses it, so activation checkpointing (``_remat``) gathers it again
+      for the backward and nothing holds it between layers; its gradient
+      is handed, per data row, to the step's ordered accumulator.
 
-Serving (``prefill``, ``decode``; the dense family, TP) lays the KV cache
-out by ``sharding.cache_pspecs``: head-sharded where the k/v heads divide
-over "model" (attention stays local), else sequence-sharded (each shard
-holds ``T / m`` positions of every k/v head, and decode attention merges
-the shards' partial softmaxes in shard order; a shard holding no valid
-position yet weighs 0).
+MoE routing set.  The reference's microbatch ``i`` is rows ``[i * b /
+n_mb, (i + 1) * b / n_mb)`` of the global batch, run as one program over
+the data axes, so ``moe_ffn``'s capacity, each (token, slot)'s position
+in its expert and the load-balance loss's ``me``/``ce`` are the whole
+microbatch's.  For the moe family both grains therefore give data member
+``r`` (a position in the DP grain, a data row in TP) block ``i * n + r``
+of ``n * n_mb`` and run the microbatch's members as one routing set
+(``_RoutingSet``, installed through ``ctx.moe_routing_set``): a
+(token, slot)'s position is its local cumulative count plus the
+per-expert counts of the members before it, exchanged in member order
+(one all-gather of ``n * E`` counts per MoE layer and position, counted).
+The loss's gradient at a member needs the set's ``ce``, which depends on
+members that run after it, so each microbatch runs twice: a forward pass
+without gradients, member after member, that fixes every member's pick
+and counts (it holds one member's activations at a time and, per layer
+and member, ``T * k`` expert indices), then the pass with gradients,
+which replays those picks (the gates recomputed from its own logits)
+with the set's totals.  That costs one more forward per microbatch and
+no more activation memory; a single data member needs neither.
+
+Serving (``prefill``, ``decode``; the TP grain) lays the KV cache out by
+``sharding.cache_pspecs``: head-sharded where the k/v heads divide over
+"model" (attention stays local), else sequence-sharded (each shard holds
+``T / m`` positions of every k/v head, and decode attention merges the
+shards' partial softmaxes in shard order; a shard holding no valid
+position yet weighs 0).  MoE layers serve drop-free (capacity factor
+``E / k``, as ``serve.engine`` does), so no row's routing depends on
+another's.
 
 A ring may hold one representative position (``positions=(0,)``): the
 dry run (``launch/dryrun.py``) traces one position of a 256- or 512-chip
@@ -74,6 +115,7 @@ from torch.utils.checkpoint import set_checkpoint_early_stop
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.parallel import ctx
 from repro_torch.parallel import sharding as SH
@@ -81,11 +123,13 @@ from repro_torch.train import optimizer as opt
 
 F32 = torch.float32
 Tensor = torch.Tensor
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe", "vlm", "audio")
 # leaves a TP shard must hold split over "model" (the dims are heads, the
-# FFN hidden or the vocabulary); k/v may be gathered whole instead
+# FFN hidden, the experts or the vocabulary); q/o and k/v may be gathered
+# whole instead, where their heads do not divide
 _TP_SPLIT = ("wq", "bq", "wo", "w_up", "w_gate", "w_down", "embed",
              "lm_head")
+_Q = ("wq", "bq", "wo")
 _KV = ("wk", "wv", "bk", "bv")
 
 
@@ -186,9 +230,10 @@ def param_specs(cfg: ArchConfig, shapes: Mapping[str, Tuple[int, ...]],
     specs = SH.param_pspecs(cfg, leaves, mesh, tp)
     flat = {n: specs[n] for n in shapes}
     if tp and mesh.shape["model"] > 1:
+        whole = _Q if cfg.n_heads % mesh.shape["model"] else ()
         for n, spec in flat.items():
             leaf = n.rsplit(".", 1)[-1]
-            if leaf in _TP_SPLIT and "model" not in [
+            if leaf in _TP_SPLIT and leaf not in whole and "model" not in [
                     a for e in spec for a in SH.spec_axes(e)]:
                 raise ValueError(
                     f"{n}: shape {tuple(shapes[n])} does not divide over "
@@ -226,22 +271,18 @@ def init_state(model: T.LM, mesh, tp: bool,
 
 def check_tp(cfg: ArchConfig, mesh) -> None:
     """Raises ``ValueError`` where the TP grain cannot run ``cfg`` on
-    ``mesh``: a family without it, or heads that do not divide."""
+    ``mesh``: a family without it, or fewer q heads than model shards
+    (``param_specs`` raises for a split dim that does not divide)."""
     m = mesh.shape["model"]
     if cfg.family not in TP_FAMILIES:
         raise ValueError(
             f"{cfg.name}: the {cfg.family} family has no TP grain on a "
-            f"ring (MoE expert parallelism and Mamba2/rwkv6 TP are queued, "
-            f"ROADMAP §1 item 6); train it with tp=False")
-    if cfg.n_heads % m:
+            f"ring (the Mamba2 and rwkv6 TP grains are queued, ROADMAP §1 "
+            f"item 6); train it with tp=False")
+    if cfg.n_heads < m:
         raise ValueError(f"{cfg.name}: layers.*.attn.wq: {cfg.n_heads} "
-                         f"heads do not divide over mesh axis 'model' ({m})")
-    if cfg.n_kv_heads % m:
-        hl, g = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-        if hl % g and g % hl:
-            raise ValueError(
-                f"{cfg.name}: layers.*.attn.wk: {hl} q heads per shard "
-                f"straddle k/v head groups of {g} (mesh axis 'model' = {m})")
+                         f"heads leave shards of mesh axis 'model' ({m}) "
+                         f"without one")
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +315,14 @@ def _rows(batch: Mapping[str, Tensor], mesh, tp: bool, d: int
     return out
 
 
+def _divides(batch: Mapping[str, Tensor], mesh, tp: bool) -> bool:
+    """Whether every leaf's batch divides over the data members: where it
+    does not, the reference's ``batch_pspecs`` replicates the batch, and
+    every member runs every row."""
+    n = n_data(mesh, tp)
+    return all(v.shape[0] % n == 0 for v in batch.values())
+
+
 def _microbatches(batch: Mapping[str, Tensor], n_mb: int
                   ) -> List[Dict[str, Tensor]]:
     for k, v in batch.items():
@@ -283,6 +332,95 @@ def _microbatches(batch: Mapping[str, Tensor], n_mb: int
                              f"microbatches")
     return [{k: v.reshape(n_mb, v.shape[0] // n_mb, *v.shape[1:])[i]
              for k, v in batch.items()} for i in range(n_mb)]
+
+
+def _routed_rows(batch: Mapping[str, Tensor], mesh, tp: bool, n_mb: int,
+                 i: int, d: int) -> Dict[str, Tensor]:
+    """Data member ``d``'s share of the reference's microbatch ``i``: rows
+    ``[i * b / n_mb, (i + 1) * b / n_mb)`` of the global batch, split over
+    the data members in mesh order (block ``i * n + d`` of ``n * n_mb``)."""
+    n = n_data(mesh, tp)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % (n * n_mb) or not v.shape[0]:
+            raise ValueError(f"{k}: batch {v.shape[0]} does not split into "
+                             f"{n_mb} microbatches over mesh axes "
+                             f"{_dp_axes(mesh, tp)} ({n})")
+        size = v.shape[0] // (n * n_mb)
+        out[k] = v[(i * n + d) * size:(i * n + d + 1) * size]
+    return out
+
+
+class _RoutingSet:
+    """One microbatch's MoE routing set over its ``n`` data members (see
+    the module docstring), installed with ``ctx.moe_routing_set``; MoE
+    layer ``li`` reaches it through ``handle(li)`` (``models.moe.route``).
+    ``member`` is the member now running.  While ``recording`` (the pass
+    without gradients, members in order) each (layer, member) picks its
+    experts once and keeps the pick and its per-expert counts; every call
+    then counts the exchange, one all-gather of the members' counts
+    received by the calling position.  Afterwards each call replays the
+    pick, its gates taken from the caller's own logits, with the set's
+    totals.  In a representative trace only the held members' counts
+    exist: the offsets and totals are theirs (shapes only, on ``meta``)."""
+
+    COUNT_DTYPE = torch.int64
+
+    def __init__(self, cfg: ArchConfig, n_tokens: int, n_members: int):
+        self.moe = cfg.moe
+        self.n_tokens = n_tokens
+        self.n_members = n_members
+        self.member = 0
+        self.recording = True
+        self.picks: Dict[Tuple[int, int], Tensor] = {}
+        self.counts: Dict[Tuple[int, int], Tensor] = {}
+
+    def handle(self, layer: int) -> "_RouteHandle":
+        return _RouteHandle(self, layer)
+
+    def route(self, layer: int, logits: Tensor):
+        e, k = self.moe.n_experts, self.moe.top_k
+        key = (layer, self.member)
+        dev = logits.device
+        if key not in self.picks:
+            if not self.recording:
+                raise KeyError(f"MoE layer {layer} of member {self.member} "
+                               f"was not routed in the pass without "
+                               f"gradients")
+            gates, idx = MOE.route_topk(logits, k)
+            flat = idx.reshape(-1)
+            self.picks[key] = idx
+            self.counts[key] = torch.zeros(
+                e, dtype=self.COUNT_DTYPE, device=dev).index_add_(
+                    0, flat, torch.ones_like(flat))
+        else:
+            idx = self.picks[key].to(dev)
+            gates = MOE.gates_at(logits, idx)
+        if self.recording:
+            SH.record("all_gather", self.n_members * e *
+                      torch.empty((), dtype=self.COUNT_DTYPE).element_size())
+        held = [(r, c) for (li, r), c in sorted(self.counts.items())
+                if li == layer]
+        offset = torch.zeros(e, dtype=self.COUNT_DTYPE, device=dev)
+        total = torch.zeros(e, dtype=self.COUNT_DTYPE, device=dev)
+        for r, c in held:
+            c = c.to(dev)
+            if r < self.member:
+                offset = offset + c
+            total = total + c
+        return gates, idx, offset, total
+
+
+class _RouteHandle:
+    """What ``models.moe.route`` calls: one MoE layer's view of a
+    ``_RoutingSet``."""
+
+    def __init__(self, routing: _RoutingSet, layer: int):
+        self.routing, self.layer = routing, layer
+        self.n_tokens = routing.n_tokens
+
+    def route(self, logits: Tensor):
+        return self.routing.route(self.layer, logits)
 
 
 def _to(batch: Mapping[str, Tensor], device) -> Dict[str, Tensor]:
@@ -468,19 +606,50 @@ def build_train_step(cfg: ArchConfig, mesh, opt_cfg: opt.AdamWConfig, plan
         dtype = acc_dtype if n_total > 1 else None
         accum = _Accumulator(p, dtype)
         losses, stats = [], []
-        for d in data:
-            mbs = _microbatches(_rows(batch, mesh, tp, d), n_mb)
+
+        def turn(d, mb, grad=True):
             if tp:
-                for mb in mbs:
-                    loss = _tp_train_turn(p, hooks, d, mb, accum)
-                    losses.append(loss.to(dev0))
-                    stats.append({"ce_loss": losses[-1],
-                                  "moe_aux": torch.zeros((), dtype=F32,
-                                                         device=dev0)})
-            else:
-                for loss, st in _dp_train_turns(p, skeleton, d, mbs, accum):
-                    losses.append(loss.to(dev0))
-                    stats.append({k: v.to(dev0) for k, v in st.items()})
+                return _tp_train_turn(p, hooks, d, mb, accum, grad)
+            return list(_dp_train_turns(p, skeleton, d, [mb], accum,
+                                        grad))[0]
+
+        def keep(loss, st):
+            losses.append(loss.to(dev0))
+            stats.append({k: v.to(dev0) for k, v in st.items()})
+
+        split = _divides(batch, mesh, tp)
+        if cfg.moe is None:
+            for d in data:
+                rows = _rows(batch, mesh, tp, d) if split else batch
+                mbs = _microbatches(rows, n_mb)
+                if tp:
+                    for mb in mbs:
+                        keep(*turn(d, mb))
+                else:
+                    for loss, st in _dp_train_turns(p, skeleton, d, mbs,
+                                                    accum):
+                        keep(loss, st)
+        else:
+            n = n_data(mesh, tp)
+            whole = None if split else _microbatches(batch, n_mb)
+            for i in range(n_mb):
+                mbs = {d: _routed_rows(batch, mesh, tp, n_mb, i, d)
+                       if split else whole[i] for d in data}
+                rs = None
+                if n > 1 and split:
+                    first = next(iter(mbs[data[0]].values()))
+                    rs = _RoutingSet(cfg, n * first.shape[0]
+                                     * first.shape[1], n)
+                    with ctx.moe_routing_set(rs):
+                        for d in data:
+                            rs.member = d
+                            turn(d, mbs[d], grad=False)
+                    rs.recording = False
+                with ctx.moe_routing_set(rs):
+                    for d in data:
+                        if rs is not None:
+                            rs.member = d
+                        keep(*turn(d, mbs[d]))
         grads = accum.finish(n_total, n_mb)
         if n_total > 1:
             l_acc = 0.0
@@ -568,7 +737,8 @@ def _fsdp_hooks(p: MeshParams, model: nn.Module, d: int, sink: Callable,
 
 
 def _dp_train_turns(p: MeshParams, skeleton: T.LM, d: int,
-                    mbs: List[Dict[str, Tensor]], accum: _Accumulator):
+                    mbs: List[Dict[str, Tensor]], accum: _Accumulator,
+                    grad: bool = True):
     """DP grain, data position ``d`` (a mesh position): FSDP over the
     model's own ``forward``.  The leaves outside the layers are gathered
     there once; each layer's are gathered as the layer runs and released
@@ -577,7 +747,8 @@ def _dp_train_turns(p: MeshParams, skeleton: T.LM, d: int,
     backward leaves the layer, the others' after it; yields (loss,
     stats).  A gradient reaches a leaf here as autograd would sum it into
     the one-device step's parameter, and each leaf gets one per
-    microbatch, so the values are the same bit for bit."""
+    microbatch, so the values are the same bit for bit.  ``grad`` False:
+    the forward alone (a routing set's first pass), yielding None."""
     from repro_torch.train.step import loss_fn
     dev = SH.device_of(p.mesh, d)
     anchor = torch.zeros((), device=dev, requires_grad=True)
@@ -588,6 +759,11 @@ def _dp_train_turns(p: MeshParams, skeleton: T.LM, d: int,
     leaves = [skeleton.get_parameter(n) for n in top]
     try:
         for mb in mbs:
+            if not grad:
+                with torch.no_grad():
+                    loss_fn(skeleton, _to(mb, dev))
+                yield None
+                continue
             # a recomputation runs to its layer's end, where the layer's
             # gathered leaves are released
             with torch.enable_grad(), set_checkpoint_early_stop(False):
@@ -652,10 +828,14 @@ class _Shards:
         return SH.device_of(self.p.mesh, self.pos(j))
 
     def whole_over_model(self, name: str) -> bool:
-        """Whether a shard needs the leaf whole over "model": k/v where
-        the k/v heads do not divide over it."""
+        """Whether a shard needs the leaf whole over "model": q/o where
+        the q heads do not divide over it, k/v where the k/v heads do
+        not."""
         leaf = name.rsplit(".", 1)[-1]
-        return leaf in _KV and self.p.cfg.n_kv_heads % self.m != 0
+        cfg = self.p.cfg
+        if leaf in _KV:
+            return cfg.n_kv_heads % self.m != 0
+        return leaf in _Q and cfg.n_heads % self.m != 0
 
     def param(self, name: str, j: int) -> Tensor:
         axes = self.p.mesh.axis_names if self.whole_over_model(name) \
@@ -672,32 +852,82 @@ class _Shards:
         return {n.rsplit(".", 1)[1]: self.param(n, j)
                 for n in self.p.children(prefix)}
 
+    def q_heads(self, j: int) -> Tuple[int, int]:
+        """The q heads [h0, h1) of shard j: ``n_heads / m`` each where that
+        divides, else one more on each of the first ``n_heads % m``."""
+        base, extra = divmod(self.p.cfg.n_heads, self.m)
+        h0 = j * base + min(j, extra)
+        return h0, h0 + base + (j < extra)
+
     def kv_heads(self, j: int) -> Tuple[int, int]:
         """The k/v heads [k0, k1) shard j's q heads read."""
         cfg = self.p.cfg
         if cfg.n_kv_heads % self.m == 0:
             kl = cfg.n_kv_heads // self.m
             return j * kl, (j + 1) * kl
-        hl, g = cfg.n_heads // self.m, cfg.n_heads // cfg.n_kv_heads
-        return (j * hl) // g, ((j + 1) * hl - 1) // g + 1
+        h0, h1 = self.q_heads(j)
+        g = cfg.n_heads // cfg.n_kv_heads
+        return h0 // g, (h1 - 1) // g + 1
 
-    def attn(self, prefix: str, j: int, all_kv: bool = False
-             ) -> Tuple[Dict[str, Tensor], L.AttnSpec]:
-        """Shard j's attention parameters and their ``AttnSpec``: its q
-        heads, the k/v heads they read (every k/v head with ``all_kv``,
-        for a sequence-sharded cache), its rows of ``wo``."""
+    def kv_take(self, j: int) -> Optional[List[int]]:
+        """None where shard j's q heads group evenly onto its k/v heads
+        [k0, k1) (grouped-query attention runs on them as they are), else
+        the k/v head (from k0) each q head reads: they straddle k/v
+        groups, and the shard runs one k/v head per q head."""
         cfg = self.p.cfg
+        h0, h1 = self.q_heads(j)
+        k0, k1 = self.kv_heads(j)
+        g = cfg.n_heads // cfg.n_kv_heads
+        take = [h // g - k0 for h in range(h0, h1)]
+        hl, kl = h1 - h0, k1 - k0
+        if hl % kl == 0 and take == [i // (hl // kl) for i in range(hl)]:
+            return None
+        return take
+
+    def attn(self, prefix: str, j: int, all_kv: bool = False,
+             all_q: bool = False) -> Tuple[Dict[str, Tensor], L.AttnSpec]:
+        """Shard j's attention parameters and their ``AttnSpec``: its q
+        heads (every q head with ``all_q``, from q/o gathered whole), the
+        k/v heads they read (every k/v head with ``all_kv``, for a
+        sequence-sharded cache), its rows of ``wo``."""
+        cfg = self.p.cfg
+        dh = cfg.d_head
         p = self.tree(prefix, j)
+        h0, h1 = (0, cfg.n_heads) if all_q else self.q_heads(j)
+        if self.whole_over_model(prefix + ".wq"):
+            for n in ("wq", "bq"):
+                if n in p:
+                    p[n] = p[n][..., h0 * dh:h1 * dh]
+            p["wo"] = p["wo"][h0 * dh:h1 * dh]
         k0, k1 = (0, cfg.n_kv_heads) if all_kv else self.kv_heads(j)
         if self.whole_over_model(prefix + ".wk"):
-            dh = cfg.d_head
             for n in _KV:
                 if n in p:
                     p[n] = p[n][..., k0 * dh:k1 * dh]
-        spec = dataclasses.replace(T.attn_spec(cfg),
-                                   n_heads=cfg.n_heads // self.m,
-                                   n_kv_heads=k1 - k0)
+        n_kv = k1 - k0
+        take = None if all_kv or all_q else self.kv_take(j)
+        if take is not None:
+            cols = (torch.tensor(take, device=p["wk"].device)[:, None] * dh
+                    + torch.arange(dh, device=p["wk"].device)).reshape(-1)
+            for n in _KV:
+                if n in p:
+                    p[n] = p[n].index_select(-1, cols)
+            n_kv = len(take)
+        spec = dataclasses.replace(T.attn_spec(cfg), n_heads=h1 - h0,
+                                   n_kv_heads=n_kv)
         return p, spec
+
+    def local_kv(self, j: int, k: Tensor, v: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+        """Of (B, S, Hkv, D) k/v over every k/v head, the heads shard j's
+        q heads read (as ``attn`` lays them out)."""
+        k0, k1 = self.kv_heads(j)
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+        take = self.kv_take(j)
+        if take is not None:
+            idx = torch.tensor(take, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        return k, v
 
     def seq_sharded(self, b: int, s: int) -> bool:
         lay = self.rules["residual"]((b, s, self.p.cfg.d_model))
@@ -732,6 +962,35 @@ def _embed(sh: _Shards, tokens: Tensor, sp: bool) -> List[Tensor]:
         e = F.embedding((tok - j * vl).clamp(0, vl - 1), table)
         out.append(torch.where(inside[..., None], e, e.new_zeros(())))
     return _combine(sh, out, sp)
+
+
+def _inputs(sh: _Shards, rows: Mapping[str, Tensor], sp: bool,
+            position: Optional[List[Tensor]] = None) -> List[Tensor]:
+    """The residual stream's start on each shard (``_LM.embed_inputs``):
+    the vocab-parallel embedding of ``rows["tokens"]``, or the
+    ``rows["embeds"]`` slice in the model dtype (vlm, audio), its
+    sequence block under SP; for ``pos == "sin"`` plus the sinusoidal
+    embedding of its positions (of ``position``, per shard, decoding)."""
+    cfg = sh.p.cfg
+    if cfg.embed_inputs:
+        xs = _embed(sh, rows["tokens"], sp)
+    else:
+        emb = rows["embeds"]
+        xs = [SH._split(emb, 1, sh.m, j) if sp else emb
+              for j in sh.members]
+        xs = [x.to(sh.dev(j), torch_dtype(cfg.dtype))
+              for j, x in zip(sh.members, xs)]
+    if cfg.pos != "sin":
+        return xs
+    out = []
+    for i, (j, x) in enumerate(zip(sh.members, xs)):
+        if position is not None:
+            pos = position[i][:, None]
+        else:
+            s = x.shape[1]
+            pos = torch.arange(s, device=x.device) + (j * s if sp else 0)
+        out.append(x + L.sin_embedding(pos, cfg.d_model).to(x.dtype))
+    return out
 
 
 def _head(sh: _Shards, xs: List[Tensor], sp: bool) -> List[Tensor]:
@@ -770,7 +1029,9 @@ def _cross_entropy(sh: _Shards, logits: List[Tensor], labels: Tensor
 
 def _tp_block(sh: _Shards, li: int, sp: bool, *xs: Tensor
               ) -> Tuple[Tensor, ...]:
-    """One attention block over the row's model shards (training)."""
+    """One attention block over the row's model shards (training): the
+    new residual per shard, then, with MoE, the layer's load-balance
+    loss."""
     cfg = sh.p.cfg
     pre = f"layers.{li}"
     h = [L.apply_norm(sh.tree(pre + ".attn_norm", j), x, cfg.norm)
@@ -782,18 +1043,66 @@ def _tp_block(sh: _Shards, li: int, sp: bool, *xs: Tensor
         y.append(L.attention_train(p, hj, spec, q_chunk=cfg.q_chunk,
                                    kv_chunk=cfg.kv_chunk))
     xs = [x + yj for x, yj in zip(xs, _combine(sh, y, sp))]
-    return _tp_mlp(sh, pre, sp, xs)
+    xs, aux = _tp_ffn(sh, li, sp, xs)
+    return tuple(xs) + (() if aux is None else (aux,))
 
 
-def _tp_mlp(sh: _Shards, pre: str, sp: bool, xs: List[Tensor]
-            ) -> Tuple[Tensor, ...]:
+def _tp_ffn(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
+            capacity_factor: Optional[float] = None
+            ) -> Tuple[List[Tensor], Optional[Tensor]]:
+    """norm -> FFN -> residual over the row's model shards: the
+    column/row-parallel MLP, or the MoE FFN (``_tp_moe``) with arctic's
+    dense MLP beside it.  Returns (the residual per shard, the MoE
+    load-balance loss or None)."""
     cfg = sh.p.cfg
+    pre = f"layers.{li}"
     h = [L.apply_norm(sh.tree(pre + ".mlp_norm", j), x, cfg.norm)
          for j, x in zip(sh.members, xs)]
     h = _gather_seq(sh, h, sp)
-    z = [L.apply_mlp(sh.tree(pre + ".mlp", j), hj, cfg.mlp)
-         for j, hj in zip(sh.members, h)]
-    return tuple(x + zj for x, zj in zip(xs, _combine(sh, z, sp)))
+    if cfg.moe is None:
+        z = [L.apply_mlp(sh.tree(pre + ".mlp", j), hj, cfg.mlp)
+             for j, hj in zip(sh.members, h)]
+        return [x + zj for x, zj in zip(xs, _combine(sh, z, sp))], None
+    z, aux = _tp_moe(sh, li, h, capacity_factor)
+    if cfg.moe.dense_residual_ff:
+        z = [zj + L.apply_mlp(sh.tree(pre + ".dense_mlp", j), hj,
+                              cfg.mlp).float()
+             for j, zj, hj in zip(sh.members, z, h)]
+    return [x + yj.to(x.dtype) for x, yj in zip(xs, _combine(sh, z, sp))], \
+        aux
+
+
+def _tp_moe(sh: _Shards, li: int, h: List[Tensor],
+            capacity_factor: Optional[float]
+            ) -> Tuple[List[Tensor], Tensor]:
+    """MoE layer ``li`` on the row's model shards, each holding the row's
+    tokens ``h`` (B, S, d): every shard routes them (the router is
+    replicated; under a routing set with the set's offsets), then runs
+    its experts (expert parallelism, ``n_experts >= m``) or its
+    ``d_ff_expert / m`` of every expert (TP inside the experts) on the
+    tokens kept there.  Returns (each shard's f32 partial output, to be
+    summed over the shards; the load-balance loss, the first shard's)."""
+    cfg = sh.p.cfg
+    moe = cfg.moe
+    pre = f"layers.{li}.moe"
+    routing = ctx.moe_routing(li)
+    ep = moe.n_experts >= sh.m
+    el = moe.n_experts // sh.m if ep else moe.n_experts
+    out, aux = [], None
+    for j, hj in zip(sh.members, h):
+        b, s, d = hj.shape
+        x = hj.reshape(b * s, d)
+        r = MOE.route(x, sh.param(pre + ".router", j), moe, capacity_factor,
+                      routing)
+        e0 = j * el if ep else 0
+        buf = MOE.dispatch(x, r, e0, e0 + el)
+        ob = MOE.experts(buf, sh.param(pre + ".w_gate", j),
+                         sh.param(pre + ".w_up", j),
+                         sh.param(pre + ".w_down", j))
+        out.append(MOE.combine(ob, r, e0, e0 + el).reshape(b, s, d))
+        if aux is None:
+            aux = MOE.lb_loss(r)
+    return out, aux
 
 
 def _members(p: MeshParams, row: int) -> List[int]:
@@ -802,32 +1111,41 @@ def _members(p: MeshParams, row: int) -> List[int]:
 
 
 def _tp_train_turn(p: MeshParams, hooks, row: int, mb: Dict[str, Tensor],
-                   accum: _Accumulator) -> Tensor:
+                   accum: _Accumulator, grad: bool = True):
     """TP grain: one microbatch of data row ``row`` over its model
     shards; its gradients added to the accumulator in shard order.
-    Returns the loss."""
+    Returns (loss, {"ce_loss", "moe_aux"}); ``grad`` False: the layers'
+    forward alone (a routing set's first pass), returning None."""
     cfg = p.cfg
     sink: Dict = {}
     members = _members(p, row)
     dev0 = SH.device_of(p.mesh, row * p.mesh.shape["model"] + members[0])
     anchor = torch.zeros((), device=dev0, requires_grad=True)
-    sh = _Shards(p, row, members, hooks.rules, _collect(sink), anchor)
-    tokens, labels = mb["tokens"], mb["labels"]
-    b, s = tokens.shape
+    sh = _Shards(p, row, members, hooks.rules,
+                 _collect(sink) if grad else None, anchor)
+    labels = mb["labels"]
+    b, s = labels.shape
     sp = sh.seq_sharded(b, s)
+    aux = torch.zeros((), dtype=F32, device=dev0)
     # a checkpointed layer's recomputation runs to its end: stopping
     # early (at the last saved tensor) would recompute the final
     # products of every shard but the last, which no chip of a
     # multi-chip ring does, and a representative trace would not count
-    with torch.enable_grad(), set_checkpoint_early_stop(False):
-        xs = _embed(sh, tokens, sp)
+    with torch.set_grad_enabled(grad), set_checkpoint_early_stop(False):
+        xs = _inputs(sh, mb, sp)
         for li in range(cfg.n_layers):
-            xs = list(T._remat(functools.partial(_tp_block, sh, li, sp),
-                               cfg)(*xs))
-        loss = _cross_entropy(sh, _head(sh, xs, sp), labels)
+            out = T._remat(functools.partial(_tp_block, sh, li, sp),
+                           cfg)(*xs)
+            xs = list(out[:len(xs)])
+            if cfg.moe is not None:
+                aux = aux + out[-1].to(dev0)
+        if not grad:        # the routing is fixed: the head is not needed
+            return None
+        ce = _cross_entropy(sh, _head(sh, xs, sp), labels)
+        loss = ce + T.AUX_LOSS_WEIGHT * aux
         torch.autograd.grad(loss, [anchor])
     _sink_into(sh, sink, accum)
-    return loss.detach()
+    return loss.detach(), {"ce_loss": ce.detach(), "moe_aux": aux.detach()}
 
 
 def _sink_into(sh: _Shards, sink: Dict, accum: _Accumulator) -> None:
@@ -855,7 +1173,7 @@ def _sink_into(sh: _Shards, sink: Dict, accum: _Accumulator) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Serving (dense family, TP)
+# Serving (the TP grain)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(eq=False)
 class MeshCache:
@@ -929,24 +1247,39 @@ def _logits_out(p: MeshParams, parts: Dict[int, Tensor], bsz: int
 @torch.no_grad()
 def prefill(p: MeshParams, batch: Mapping[str, Tensor],
             max_len: Optional[int] = None) -> Tuple[Tensor, MeshCache]:
-    """The prompt ``batch["tokens"]`` (B, S) through the ring: (the
-    last position's global f32 logits (B, V), the ``MeshCache`` of
-    capacity ``max_len`` (default S) holding its K and V)."""
+    """The prompt ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B,
+    S, d) for vlm and audio, through the ring: (the last position's
+    global f32 logits (B, V), the ``MeshCache`` of capacity ``max_len``
+    (default S) holding its K and V)."""
     cfg = p.cfg
-    tokens = torch.as_tensor(batch["tokens"]).long()
-    bsz, s = tokens.shape
+    inputs = _serve_inputs(cfg, batch)
+    bsz, s = next(iter(inputs.values())).shape[:2]
     cache = init_cache(p, bsz, max_len or s)
     logits = {}
     for row in _rows_of(p):
         sh = _serve_shards(p, row)
-        toks = _rows({"t": tokens}, p.mesh, True, row)["t"]
-        sp = sh.seq_sharded(toks.shape[0], s)
-        xs = _embed(sh, toks, sp)
+        rows = _rows(inputs, p.mesh, True, row)
+        sp = sh.seq_sharded(bsz // n_data(p.mesh, True), s)
+        xs = _inputs(sh, rows, sp)
         for li in range(cfg.n_layers):
             xs = _prefill_block(sh, li, sp, xs, cache)
         for j, lg in zip(sh.members, _head(sh, xs, sp)):
             logits[sh.pos(j)] = lg[:, -1]
     return _logits_out(p, logits, bsz), cache
+
+
+def _serve_inputs(cfg: ArchConfig, batch: Mapping[str, Any]
+                  ) -> Dict[str, Tensor]:
+    """The model input of a serving batch: ``{"tokens"}`` (int64) or
+    ``{"embeds"}``."""
+    if cfg.embed_inputs:
+        return {"tokens": torch.as_tensor(batch["tokens"]).long()}
+    return {"embeds": torch.as_tensor(batch["embeds"])}
+
+
+def _serve_cf(cfg: ArchConfig) -> Optional[float]:
+    """MoE layers serve drop-free (``E / k``), as ``serve.engine`` does."""
+    return None if cfg.moe is None else MOE.drop_free_factor(cfg.moe)
 
 
 def _cache_slot(cache: MeshCache, pos: int) -> Dict[str, Tensor]:
@@ -974,9 +1307,7 @@ def _prefill_block(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
             if hi > lo:
                 slot["k"][li, :, :hi - lo] = k[:, lo:hi]
                 slot["v"][li, :, :hi - lo] = v[:, lo:hi]
-            k0, k1 = sh.kv_heads(j)
-            k, v = k[:, :, k0:k1], v[:, :, k0:k1]
-            spec = dataclasses.replace(spec, n_kv_heads=k1 - k0)
+            k, v = sh.local_kv(j, k, v)
         else:
             slot["k"][li, :, :s] = k
             slot["v"][li, :, :s] = v
@@ -985,26 +1316,25 @@ def _prefill_block(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
         out = out.reshape(b, s, spec.n_heads * spec.d_head)
         y.append((out @ p["wo"]).to(hj.dtype))
     xs = [x + yj for x, yj in zip(xs, _combine(sh, y, sp))]
-    return list(_tp_mlp(sh, pre, sp, xs))
+    return _tp_ffn(sh, li, sp, xs, _serve_cf(cfg))[0]
 
 
 @torch.no_grad()
 def decode(p: MeshParams, cache: MeshCache, batch: Mapping[str, Tensor]
            ) -> Tuple[Tensor, MeshCache]:
-    """One token per sequence (``batch["tokens"]`` (B, 1) at
-    ``batch["position"]`` (B,)) through the ring: (global f32 logits
-    (B, V), the cache, written in place)."""
+    """One token per sequence (``batch["tokens"]`` (B, 1), or
+    ``batch["embeds"]`` (B, 1, d), at ``batch["position"]`` (B,)) through
+    the ring: (global f32 logits (B, V), the cache, written in place)."""
     cfg = p.cfg
-    tokens = torch.as_tensor(batch["tokens"]).long()
-    position = torch.as_tensor(batch["position"])
-    bsz = tokens.shape[0]
+    inputs = _serve_inputs(cfg, batch)
+    inputs["position"] = torch.as_tensor(batch["position"])
+    bsz = inputs["position"].shape[0]
     logits = {}
     for row in _rows_of(p):
         sh = _serve_shards(p, row)
-        rows = _rows({"t": tokens, "p": position}, p.mesh, True, row)
-        toks = rows["t"]
-        pos = [rows["p"].long().to(sh.dev(j)) for j in sh.members]
-        xs = _embed(sh, toks, False)
+        rows = _rows(inputs, p.mesh, True, row)
+        pos = [rows["position"].long().to(sh.dev(j)) for j in sh.members]
+        xs = _inputs(sh, rows, False, pos)
         for li in range(cfg.n_layers):
             xs = _decode_block(sh, li, xs, pos, cache)
         for j, lg in zip(sh.members, _head(sh, xs, False)):
@@ -1029,7 +1359,7 @@ def _decode_block(sh: _Shards, li: int, xs: List[Tensor],
     else:
         y = _decode_attn_seq(sh, li, h, pos, cache)
     xs = [x + yj for x, yj in zip(xs, _combine(sh, y, False))]
-    return list(_tp_mlp(sh, pre, False, xs))
+    return _tp_ffn(sh, li, False, xs, _serve_cf(cfg))[0]
 
 
 def _decode_attn_seq(sh: _Shards, li: int, h: List[Tensor],
@@ -1038,15 +1368,20 @@ def _decode_attn_seq(sh: _Shards, li: int, h: List[Tensor],
     the new K/V where it holds the position, scores every q head against
     its positions, and the shards' partial softmaxes (max, sum of
     exponentials, weighted values) merge in shard order.  A shard whose
-    positions all lie past the token's has max -inf and weight 0."""
+    positions all lie past the token's has max -inf and weight 0.  Every
+    shard needs every q head: its own, all-gathered, or, where the q heads
+    do not divide (q/o gathered whole), all of them projected there."""
     cfg = sh.p.cfg
     pre = f"layers.{li}.attn"
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = hq // hkv
-    qs, parts = [], []
+    even = hq % sh.m == 0
+    qs, parts, wos = [], [], []
     for j, hj, pj in zip(sh.members, h, pos):
-        p, spec = sh.attn(pre, j, all_kv=True)
+        p, spec = sh.attn(pre, j, all_kv=True, all_q=not even)
         q, k, v = L._project_qkv(p, hj, spec, pj[:, None])
+        h0, h1 = sh.q_heads(j)
+        wos.append(p["wo"] if even else p["wo"][h0 * dh:h1 * dh])
         slot = _cache_slot(cache, sh.pos(j))
         kc, vc = slot["k"][li], slot["v"][li]
         tl = kc.shape[1]
@@ -1060,7 +1395,7 @@ def _decode_attn_seq(sh: _Shards, li: int, h: List[Tensor],
         vc[bidx, idx] = torch.where(mine, v[:, 0], vc[bidx, idx])
         qs.append(q)
         parts.append((kc, vc, j * tl + torch.arange(tl, device=hj.device)))
-    q_all = SH.all_gather(qs, 2, sh.m)              # (b, 1, Hq, D) each
+    q_all = SH.all_gather(qs, 2, sh.m) if even else qs  # (b, 1, Hq, D)
     ms, ls, os_ = [], [], []
     for (kc, vc, tpos), qa, pj in zip(parts, q_all, pos):
         b = qa.shape[0]
@@ -1079,9 +1414,8 @@ def _decode_attn_seq(sh: _Shards, li: int, h: List[Tensor],
     ms = SH.all_gather(ms, 0, sh.m)
     ls = SH.all_gather(ls, 0, sh.m)
     os_ = SH.all_gather(os_, 0, sh.m)
-    hl = hq // sh.m
     y = []
-    for j, mj, lj, oj, hj in zip(sh.members, ms, ls, os_, h):
+    for j, mj, lj, oj, hj, wo in zip(sh.members, ms, ls, os_, h, wos):
         big = mj.max(0).values
         num = torch.zeros_like(oj[0])
         den = torch.zeros_like(lj[0])
@@ -1090,8 +1424,8 @@ def _decode_attn_seq(sh: _Shards, li: int, h: List[Tensor],
             num = num + wc[..., None] * oj[c]
             den = den + wc * lj[c]
         out = (num / den[..., None]).reshape(hj.shape[0], hq, dh)
-        out = out[:, j * hl:(j + 1) * hl].reshape(hj.shape[0], 1, hl * dh)
-        wo = sh.param(pre + ".wo", j)
+        h0, h1 = sh.q_heads(j)
+        out = out[:, h0:h1].reshape(hj.shape[0], 1, (h1 - h0) * dh)
         y.append((out.to(hj.dtype) @ wo).to(hj.dtype))
     return y
 

@@ -339,7 +339,11 @@ def test_multi_pod_raises(tmp_path):
     assert (r["status"], r["source"], r["n_chips"], r["multi_pod"]) == \
         ("ok", "model", 512, True)
     ring = r["collectives"]["ring_bytes"]
-    assert ring["all-gather"] == 512 * r["collectives"]["bytes"]["all-gather"]
+    # the chip's counts times the chips, less the f32 logits (128 x V)
+    # that only position 0 receives
+    logits = 128 * get_config("qwen2.5-3b").vocab * 4
+    assert ring["all-gather"] == \
+        512 * r["collectives"]["bytes"]["all-gather"] - 511 * logits
     with pytest.raises(ValueError, match="512 devices"):
         make_production_mesh(multi_pod=True, device="cpu")
 
@@ -383,3 +387,28 @@ def test_full_width_cell_per_family(family):
         # hybrid's formulas leave parts out (the shared block)
         assert math.isclose(r["params_counted"], cfg.param_count(),
                             rel_tol=0.01)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_reduced_moe_and_vlm_cells_on_a_meta_mesh(arch, shape):
+    """A reduced moe and vlm cell on a (2, 2) ring of ``meta`` devices:
+    one representative position traced (the DP grain's routing set for
+    the moe train cell, the TP grain's serving for the others)."""
+    cfg = reduced(get_config(arch))
+    mesh = make_mesh_for(2, 2, devices=("meta",) * 4)
+    r = dryrun.run_config(cfg, shape, mesh=mesh, batch_override=4,
+                          seq_override=64, n_microbatches=1)
+    assert (r["status"], r["source"], r["n_chips"]) == ("ok", "model", 4)
+    assert r["fits"] and r["cost"]["flops"] > 0
+    assert 0 < r["memory"]["argument_bytes"] <= r["memory"]["peak_bytes"]
+    assert sum(r["collectives"]["ring_bytes"].values()) > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_hybrid_and_ssm_serving_on_a_mesh_is_unsupported(arch):
+    mesh = make_mesh_for(1, 2, devices=("meta",) * 2)
+    r = dryrun.run_config(reduced(get_config(arch)), "decode_32k", mesh=mesh,
+                          batch_override=2, seq_override=64)
+    assert r["status"] == "unsupported"
+    assert "Mamba2/rwkv6 TP" in r["reason"] and "item 6" in r["reason"]

@@ -4,12 +4,17 @@ one-device port and to the JAX reference.
 * ``sharding.shard_tree``/``gather_tree`` round-trip every leaf of every
   family bitwise, each local slice of the spec's division.
 * DP grain: a (2, 1) and a (2, 2) ring's steps of reduced qwen2.5-3b
-  (dense), zamba2-7b (hybrid, causal_conv1d's plain version), rwkv6-3b
-  (ssm) and grok-1-314b (moe) are bitwise equal to the one-device step
-  with 2x / 4x the microbatches: losses, every parameter and both
-  moments, with gradient clipping engaged.  With checkpointing on, each
-  layer's leaves are gathered as the layer runs and again in its
-  recomputation, and no other checkpointed unit's are alive then.
+  (dense), zamba2-7b (hybrid, causal_conv1d's plain version) and
+  rwkv6-3b (ssm) are bitwise equal to the one-device step with 2x / 4x
+  the microbatches: losses, every parameter and both moments, with
+  gradient clipping engaged.  grok-1-314b (moe) routes each microbatch
+  as one set, as the reference does, so its ring is held within 1e-4 to
+  the one-device step with the same microbatches
+  (``tests/test_torch_mesh_moe.py`` holds it to the reference).  With
+  checkpointing on, each layer's leaves are gathered as the layer runs
+  and again in its recomputation, and no other checkpointed unit's are
+  alive then.  A batch that does not divide over the positions is
+  replicated, as the reference's ``batch_pspecs`` replicates it.
 * TP + SP grain (reduced qwen3-14b, f32) on (1, 2) and (2, 2): the
   gradients within 1e-5 of max |g| of the one-device port's, their norm
   from per-shard sums and a scalar all-reduce within 1e-6, and one
@@ -109,15 +114,16 @@ def test_indivisible_spec_raises_naming_leaf_and_axis():
     with pytest.raises(ValueError, match=r"w: dim 0 .* \('data', 'model'\)"):
         SH.shard_leaf(torch.zeros(6, 4), (("data", "model"), None), mesh,
                       name="w")
+    # fewer q heads than model shards: nothing runs
     cfg = dataclasses.replace(treg.reduced(treg.get_config("qwen3-14b")),
-                              n_heads=6, n_kv_heads=2)
+                              n_heads=2, n_kv_heads=2)
     model = T.init_params(cfg, device="cpu")
-    with pytest.raises(ValueError, match="wq: 6 heads .* 'model' \\(4\\)"):
+    with pytest.raises(ValueError, match="wq: 2 heads .* 'model' \\(4\\)"):
         ring.shard_params(model, _ring(1, 4), tp=True)
-    moe = T.init_params(treg.reduced(treg.get_config("grok-1-314b")),
-                        device="cpu")
-    with pytest.raises(ValueError, match="moe family has no TP grain"):
-        ring.shard_params(moe, _ring(1, 2), tp=True)
+    hybrid = T.init_params(treg.reduced(treg.get_config("zamba2-7b")),
+                           device="cpu")
+    with pytest.raises(ValueError, match="hybrid family has no TP grain"):
+        ring.shard_params(hybrid, _ring(1, 2), tp=True)
 
 
 def _steps(step, state, cfg, b, s, seeds):
@@ -137,21 +143,62 @@ def test_dp_grain_bitwise_equals_one_device(arch, shape):
     with ctx.activation_sharding(hooks):
         got = _steps(step, state, cfg, 4, 16, range(2))
     one = S.init_train_state(model)
-    step1, _ = S.build_train_step(cfg, make_host_mesh("cpu"), OPT,
-                                  S.StepPlan(n_microbatches=mesh.size),
-                                  model)
+    # a routed microbatch is the reference's: the oracle takes the plan's
+    # one microbatch, and agrees within rounding (the ring sums per
+    # position); without MoE each position's rows are the one-device
+    # step's microbatches, bit for bit
+    routed = cfg.moe is not None
+    step1, _ = S.build_train_step(
+        cfg, make_host_mesh("cpu"), OPT,
+        S.StepPlan(n_microbatches=1 if routed else mesh.size), model)
     want = _steps(step1, one, cfg, 4, 16, range(2))
+
+    def same(a, b, what):
+        if routed:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL,
+                                       atol=TOL, err_msg=what)
+        else:
+            assert torch.equal(a, b), what
+
     for g, w in zip(got, want):
         for k in ("loss", "grad_norm", "lr", "ce_loss", "moe_aux"):
-            assert torch.equal(g[k], w[k]), k
+            same(g[k], w[k], k)
     assert float(want[0]["grad_norm"]) > OPT.clip_norm
     glob = state.global_state()
     for n, p in model.named_parameters():
-        assert torch.equal(glob.params[n](), p.detach()), n
-        assert torch.equal(glob.opt.m[n](), one.opt.m[n]), n
-        assert torch.equal(glob.opt.v[n](), one.opt.v[n]), n
+        same(glob.params[n](), p.detach(), n)
+        same(glob.opt.m[n](), one.opt.m[n], n)
+        same(glob.opt.v[n](), one.opt.v[n], n)
     assert all(int(o.step) == 2 for o in state.opt)
     assert ring.replica_mismatches(state) == []
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "grok-1-314b"])
+def test_dp_grain_replicates_a_batch_that_does_not_divide(arch):
+    """2 rows on a (2, 2) ring: every position runs both, as the
+    reference's ``batch_pspecs`` replicate them (a 512-chip mesh's 256
+    rows), and the step is the one-device step's within rounding."""
+    cfg = treg.reduced(treg.get_config(arch))
+    model = T.init_params(cfg, device="cpu", trainable=True)
+    mesh = _ring(2, 2)
+    assert SH.batch_pspecs(cfg, "train_4k", mesh, tp=False)["tokens"] == \
+        (("data", "model"), None)
+    state = ring.init_state(model, mesh, tp=False)
+    step, _ = S.build_train_step(cfg, mesh, OPT,
+                                 S.StepPlan(n_microbatches=1, tp=False))
+    got = _steps(step, state, cfg, 2, 16, range(2))
+    one = S.init_train_state(model)
+    step1, _ = S.build_train_step(cfg, make_host_mesh("cpu"), OPT,
+                                  S.StepPlan(n_microbatches=1), model)
+    want = _steps(step1, one, cfg, 2, 16, range(2))
+    for g, w in zip(got, want):
+        for k in ("loss", "grad_norm", "ce_loss", "moe_aux"):
+            np.testing.assert_allclose(float(g[k]), float(w[k]), rtol=TOL,
+                                       err_msg=k)
+    glob = state.global_state()
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(glob.params[n]().numpy(),
+                                   p.detach().numpy(), atol=TOL, err_msg=n)
 
 
 @pytest.mark.parametrize("arch", DP_ARCHS)
@@ -187,17 +234,28 @@ def test_dp_grain_gathers_each_layer_as_it_runs(arch, monkeypatch):
     # attn_every Mamba2 layers, whose backward holds them all
     unit = cfg.attn_every if cfg.family == "hybrid" else 1
     assert max(len(s) for s in seen) <= unit
-    # 2 data positions x 2 microbatches x (forward + recomputation)
-    assert set(gathers.values()) == {8}
+    # 2 data positions x 2 microbatches x (forward + recomputation), and
+    # for a routed microbatch its pass without gradients
+    routed = cfg.moe is not None
+    assert set(gathers.values()) == {12 if routed else 8}
     one = S.init_train_state(model)
-    step1, _ = S.build_train_step(cfg, make_host_mesh("cpu"), OPT,
-                                  S.StepPlan(n_microbatches=4), model)
+    step1, _ = S.build_train_step(
+        cfg, make_host_mesh("cpu"), OPT,
+        S.StepPlan(n_microbatches=2 if routed else 4), model)
     want = _steps(step1, one, cfg, 4, 16, range(1))
+
+    def same(a, b, what):
+        if routed:      # the reference's microbatches, within rounding
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL,
+                                       atol=TOL, err_msg=what)
+        else:
+            assert torch.equal(a, b), what
+
     for k in ("loss", "grad_norm"):
-        assert torch.equal(got[0][k], want[0][k]), k
+        same(got[0][k], want[0][k], k)
     glob = state.global_state()
     for n, p in model.named_parameters():
-        assert torch.equal(glob.params[n](), p.detach()), n
+        same(glob.params[n](), p.detach(), n)
 
 
 def _ref_pair(arch):
