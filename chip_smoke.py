@@ -4303,17 +4303,18 @@ MOE_FLASH = (2, MESH_PROMPT, MESH_PROMPT, 3, 1, 128)
 
 
 def _mesh_model_bytes(cfg, shape, kind: str, bsz: int, seq: int,
-                      n_mb: int = 1) -> dict:
+                      n_mb: int = 1, tp=None) -> dict:
     """The dry run's model (one representative position of a ``meta``
     ring of ``shape``, its counts times the chips) of one step: its
-    collective bytes by kind."""
+    collective bytes by kind (a train step in the grain ``tp``, default
+    ``default_plan``'s)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh_for
     cell = {"train": "train_4k", "prefill": "prefill_32k",
-            "decode": "decode_32k"}[kind]
+            "decode": "decode_32k", "long": "long_500k"}[kind]
     meta = make_mesh_for(*shape, devices=("meta",) * (shape[0] * shape[1]))
     r = dryrun.run_config(cfg, cell, mesh=meta, batch_override=bsz,
-                          seq_override=seq, n_microbatches=n_mb)
+                          seq_override=seq, n_microbatches=n_mb, tp=tp)
     if r["status"] != "ok" or r["source"] != "model":
         raise AssertionError(f"{cfg.name} {cell} on {shape}: {r}")
     return {k.replace("-", "_"): v
@@ -4325,16 +4326,26 @@ def _one_prefill(torch, capacity_factor):
     MoE, as the rings serve), its cache padded to ``max_len``."""
     F = torch.nn.functional
 
+    kw = {} if capacity_factor is None else {
+        "capacity_factor": capacity_factor}
+
     @torch.no_grad()
     def prefill(model, batch, max_len):
         logits, cache = model.prefill(tokens=batch.get("tokens"),
-                                      embeds=batch.get("embeds"),
-                                      capacity_factor=capacity_factor)
-        pad = max_len - cache["kv"]["k"].shape[2]
-        cache["kv"] = {k: F.pad(t, (0, 0, 0, 0, 0, pad))
-                       for k, t in cache["kv"].items()}
+                                      embeds=batch.get("embeds"), **kw)
+        if "kv" in cache:
+            pad = max_len - cache["kv"]["k"].shape[2]
+            cache["kv"] = {k: F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for k, t in cache["kv"].items()}
         return logits[:, -1], cache
     return prefill
+
+
+def _ring_kernels(cfg) -> tuple:
+    """The kernels a family's ring path launches: flash in every
+    attention block, causal_conv1d in every Mamba2 layer; rwkv6 none."""
+    return {"hybrid": ("causal_conv1d", "flash_attention_fwd"),
+            "ssm": ()}.get(cfg.family, ("flash_attention_fwd",))
 
 
 class _RouteLog:
@@ -4381,14 +4392,16 @@ def _first_flip(one: _RouteLog, ring: _RouteLog, n_layers: int, m: int,
     return None
 
 
-def attn_mesh_serve(torch, cfg, rings, batch, steps_in, label) -> dict:
+def ring_serve(torch, cfg, rings, batch, steps_in, label,
+               tol=MESH_TOL) -> dict:
     """``cfg`` served on each ring of ``rings`` against one device: a
     prefill of ``batch`` and ``MESH_NEW`` decode steps (``steps_in``: the
     inputs of each step, or None for greedy tokens, the rings fed the
-    one-device run's), each step's logits within ``MESH_TOL`` of max
-    |logit|; the ``repro.mesh.*`` bytes of the prefill and of a decode
-    step equal to the dry run's model.  Returns each ring's times and its
-    flash launches."""
+    one-device run's), each step's logits within ``tol`` of max |logit|
+    (None: the gap printed, not held);
+    the ``repro.mesh.*`` bytes of the prefill and of a decode step equal
+    to the dry run's model; each kernel of the family's path launched.
+    Returns each ring's times and launches by kernel."""
     from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
     from repro_torch.models.moe import drop_free_factor
     from repro_torch.models.transformer import init_params
@@ -4425,7 +4438,8 @@ def attn_mesh_serve(torch, cfg, rings, batch, steps_in, label) -> dict:
             got, r_pf, r_dc, c_pf, c_dc = _chain(
                 torch, S.build_prefill_step(mesh), S.build_decode_step(mesh),
                 mp, batch, forced, MESH_MAX_LEN)
-        launches = _lm_counts()["flash_attention_fwd"]
+        launches = {k: v for k, v in _lm_counts().items()
+                    if k in _ring_kernels(cfg)}
         peak = torch.cuda.max_memory_allocated() - base
         errs = [((g - w).abs().max() / w.abs().max()).item()
                 for g, w in zip(got, want)]
@@ -4438,11 +4452,11 @@ def attn_mesh_serve(torch, cfg, rings, batch, steps_in, label) -> dict:
                                  f"pick differs from one device's at step "
                                  f"{flip[0]}, router margin {flip[1]:.3e} "
                                  f"(a near-tie is at most {FLIP_MARGIN})")
-        if not max(held) <= MESH_TOL or not launches:
+        if not (tol is None or max(held) <= tol) or \
+                not all(launches.values()):
             raise AssertionError(f"{label} on a {shape} ring: logits off "
                                  f"one device's by {errs} of max |logit| "
-                                 f"(tol {MESH_TOL}); flash launched "
-                                 f"{launches} times")
+                                 f"(tol {tol}); launches {launches}")
         flipped = "" if flip is None else (
             f", then at step {flip[0]} an expert pick flipped at a "
             f"near-tie (one device's router margin {flip[1]:.2e}; that "
@@ -4454,19 +4468,22 @@ def attn_mesh_serve(torch, cfg, rings, batch, steps_in, label) -> dict:
                                  f"{m_pf} / {m_dc} != the ring's counters "
                                  f"{c_pf} / {c_dc}")
         grain = ring.cache_grain(cfg, mesh)
+        grain = "no k/v, the state by head" if grain is None \
+            else f"{grain}-sharded cache"
         moe = "" if cfg.moe is None else (
             "expert parallelism, " if cfg.moe.n_experts >= shape[1]
             else "TP inside the experts, ")
-        print(f"  {label} served on a {shape} ring ({moe}{grain}-sharded "
-              f"cache): prefill {bsz} x {s} and {len(held) - 1} of "
+        print(f"  {label} served on a {shape} ring ({moe}{grain}): "
+              f"prefill {bsz} x {s} and {len(held) - 1} of "
               f"{MESH_NEW} decode steps within {max(held):.2e} of max "
-              f"|logit| of one device's (tol {MESH_TOL}){flipped}; "
+              f"|logit| of one device's (by step "
+              f"{[f'{e:.2e}' for e in errs]}) "
+              f"({'not held' if tol is None else f'tol {tol}'}){flipped}; "
               f"prefill {r_pf:.1f} ms, decode {r_dc:.2f} ms "
               f"per step against one device's {pf1:.1f} ms and {dc1:.2f} "
               f"ms; peak {peak / 1e9:.2f} GB above the shards; collective "
               f"bytes of the prefill {c_pf} and per decode step {c_dc}, "
-              f"equal to the dry run's model; flash launched {launches} "
-              f"times")
+              f"equal to the dry run's model; launches {launches}")
         out[shape] = (r_pf, r_dc, peak)
         out["launches"][shape] = launches
         del mp
@@ -4481,29 +4498,21 @@ def attn_mesh_train(torch, np) -> dict:
     """llava-next-mistral-7b at full width, its depth cut to
     ``VLM_LAYERS`` (a one-device train state is 14 bytes per parameter:
     with a step's transients half the model, 16 layers, would leave no
-    room for the earlier phases' leftovers), in the TP + SP grain on a
-    (2, 2) ring of this card: ``MESH_STEPS`` steps at global batch 4 x
-    4096 of seeded bf16 embeddings (2 per data row in 2 microbatches of
-    1) against the one-device step (4 microbatches of 1), losses within
-    ``TP_LOSS_TOL`` and gradient norms within ``TP_NORM_TOL`` relative;
-    the collective bytes per step equal to the dry run's model."""
+    room for the earlier phases' leftovers), in the TP + SP grain
+    (``default_plan``'s at d_model 4096) on a (2, 2) ring of this card:
+    ``ring_train`` at global batch 4 x 4096 of seeded bf16 embeddings (2
+    per data row in 2 microbatches of 1)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
-    from repro_torch.models.transformer import init_params
-    from repro_torch.parallel import ctx, ring
-    from repro_torch.parallel import sharding as SH
-    from repro_torch.train import optimizer as O
+    from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.train import step as S
 
-    t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
     mesh = make_mesh_for(2, 2, devices=_ring_devices(torch, MESH_RING))
     plan = dataclasses.replace(S.default_plan(cfg, "train_4k", mesh),
                                n_microbatches=2)
     if not (plan.tp and plan.seq_shard_activations):
         raise AssertionError(f"{cfg.name}: default_plan did not pick TP + SP")
-    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100)
     gen = torch.Generator(device="cuda").manual_seed(24)
     batches = [{"embeds": torch.randn((MESH_BATCH, MESH_SEQ, cfg.d_model),
                                       generator=gen, device="cuda")
@@ -4511,12 +4520,39 @@ def attn_mesh_train(torch, np) -> dict:
                 "labels": torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_SEQ),
                                         generator=gen, device="cuda")}
                for _ in range(MESH_STEPS)]
+    return ring_train(torch, np, cfg, mesh, plan, batches,
+                      f"{cfg.name} ({VLM_LAYERS} of "
+                      f"{get_config(VLM_ARCH).n_layers} layers, full width, "
+                      f"bf16 embeds)")
+
+
+def ring_train(torch, np, cfg, mesh, plan, batches, label,
+               held_steps=None) -> dict:
+    """``cfg`` trained in ``plan``'s TP + SP grain on ``mesh``, a ring of
+    this card, against one device, from the same seeded weights: one step
+    per batch of ``batches`` (``plan.n_microbatches`` per data row; one
+    device runs a microbatch per row), the first ``held_steps`` (default
+    all) steps' losses within ``TP_LOSS_TOL`` and gradient norms within
+    ``TP_NORM_TOL`` relative, later ones printed; the collective bytes
+    per step equal to the dry run's model; each kernel of the family's
+    path launched as often as its layers, rows, microbatches and shards
+    and the checkpoint's recomputation make it.  One device runs first
+    and is freed before the ring's state is laid out."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ctx, ring
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    opt_cfg = O.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=1, total_steps=100)
+    bsz, seq = batches[0]["labels"].shape
     base = torch.cuda.memory_allocated()
     model = init_params(cfg, seed=0, trainable=True)
     state = S.init_train_state(model)
     step1, _ = S.build_train_step(cfg, make_host_mesh(), opt_cfg,
-                                  S.StepPlan(n_microbatches=MESH_BATCH),
-                                  model)
+                                  S.StepPlan(n_microbatches=bsz), model)
     torch.cuda.reset_peak_memory_stats()
     want, ms1, want_norms = _timed_steps(torch, step1, state, batches)
     peak1 = torch.cuda.max_memory_allocated() - base
@@ -4533,8 +4569,9 @@ def attn_mesh_train(torch, np) -> dict:
     coll0 = SH.collective_bytes()
     with ctx.activation_sharding(hooks):
         got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
-    launches = _lm_counts()["flash_attention_fwd"]
-    coll = {k: v // MESH_STEPS for k, v in _coll_delta(coll0).items()}
+    launches = {k: v for k, v in _lm_counts().items()
+                if k in _ring_kernels(cfg)}
+    coll = {k: v // len(batches) for k, v in _coll_delta(coll0).items()}
     peak = torch.cuda.max_memory_allocated() - base
     split = ring.replica_mismatches(rstate)
     del rstate
@@ -4544,32 +4581,40 @@ def attn_mesh_train(torch, np) -> dict:
                              f"{cfg.name} TP ring: {split[:6]}")
     rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
     rel_n = [abs(g - w) / abs(w) for g, w in zip(got_norms, want_norms)]
-    if not (max(rel) <= TP_LOSS_TOL and max(rel_n) <= TP_NORM_TOL):
+    held = held_steps or len(batches)
+    if not (max(rel[:held]) <= TP_LOSS_TOL
+            and max(rel_n[:held]) <= TP_NORM_TOL):
         raise AssertionError(f"{cfg.name} TP ring losses {got} / norms "
                              f"{got_norms} against one device's {want} / "
                              f"{want_norms}: {rel} / {rel_n}")
-    per_step = 2 * 2 * 2 * VLM_LAYERS * 2
-    if launches != per_step * MESH_STEPS:
-        raise AssertionError(f"flash launched {launches} times on the "
-                             f"{cfg.name} ring; expected {per_step} per "
-                             f"step")
-    model_coll = _mesh_model_bytes(cfg, (2, 2), "train", MESH_BATCH,
-                                   MESH_SEQ, plan.n_microbatches)
+    # forward and checkpoint recomputation, per unit, data row,
+    # microbatch and model shard
+    per_unit = 2 * mesh.shape["data"] * plan.n_microbatches * \
+        mesh.shape["model"]
+    kinds = [kind for kind, _, _ in ring._units(cfg)]
+    expect = {"flash_attention_fwd": kinds.count("attn") * per_unit,
+              "causal_conv1d": kinds.count("mamba") * per_unit}
+    expect = {k: expect[k] * len(batches) for k in launches}
+    if launches != expect:
+        raise AssertionError(f"{cfg.name} ring launches {launches}; "
+                             f"expected {expect}")
+    model_coll = _mesh_model_bytes(cfg, mesh.devices.shape, "train", bsz,
+                                   seq, plan.n_microbatches, tp=True)
     if model_coll != coll:
         raise AssertionError(f"{cfg.name}: the dry run's collective model "
                              f"{model_coll} != the ring's counters {coll}")
     one, r = float(np.median(ms1)), float(np.median(ms))
-    print(f"  {cfg.name} ({VLM_LAYERS} of {get_config(VLM_ARCH).n_layers} "
-          f"layers, full width, bf16 embeds) TP + SP grain, (2, 2) ring of "
-          f"this card, global batch {MESH_BATCH} x {MESH_SEQ}: losses {got} "
-          f"against one device's {want} (relative {max(rel):.2e}, tol "
-          f"{TP_LOSS_TOL}); gradient norms {got_norms} against "
-          f"{want_norms} (relative {max(rel_n):.2e}, tol {TP_NORM_TOL}); "
-          f"step {r:.1f} ms ({[round(x, 1) for x in ms]}) against one "
-          f"device's {one:.1f} ms ({[round(x, 1) for x in ms1]}); peak "
-          f"memory {peak / 1e9:.2f} GB (one device {peak1 / 1e9:.2f} GB); "
-          f"collective bytes per step {coll}, equal to the dry run's "
-          f"model; flash launched {launches} times; "
+    print(f"  {label} TP + SP grain, {tuple(mesh.devices.shape)} ring of "
+          f"this card, global batch {bsz} x {seq}: losses {got} against one "
+          f"device's {want} (relative {[f'{x:.2e}' for x in rel]}, the "
+          f"first {held} held at {TP_LOSS_TOL}); gradient norms "
+          f"{got_norms} against {want_norms} (relative "
+          f"{[f'{x:.2e}' for x in rel_n]}, held at {TP_NORM_TOL}); step "
+          f"{r:.1f} ms "
+          f"({[round(x, 1) for x in ms]}) against one device's {one:.1f} ms "
+          f"({[round(x, 1) for x in ms1]}); peak memory {peak / 1e9:.2f} GB "
+          f"(one device {peak1 / 1e9:.2f} GB); collective bytes per step "
+          f"{coll}, equal to the dry run's model; launches {launches}; "
           f"{time.perf_counter() - t0:.1f} s")
     return {"ms": r, "one_ms": one, "peak": peak, "coll": coll,
             "launches": launches}
@@ -4672,24 +4717,271 @@ def attn_mesh_phase(torch, np) -> dict:
     grok = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     prompt = torch.randint(0, grok.vocab, (2, MESH_PROMPT),
                            generator=gen).cuda()
-    served = attn_mesh_serve(torch, grok, MOE_RINGS, {"tokens": prompt},
-                             None, f"{MOE_ARCH} ({MOE_LAYERS} of "
-                             f"{get_config(MOE_ARCH).n_layers} layers)")
+    served = ring_serve(torch, grok, MOE_RINGS, {"tokens": prompt},
+                        None, f"{MOE_ARCH} ({MOE_LAYERS} of "
+                        f"{get_config(MOE_ARCH).n_layers} layers)")
     audio = get_config(AUDIO_ARCH)
     emb = torch.randn((2, MESH_PROMPT + MESH_NEW, audio.d_model),
                       generator=gen).to("cuda", torch.bfloat16)
-    attn_mesh_serve(torch, audio, (AUDIO_RING,),
-                    {"embeds": emb[:, :MESH_PROMPT]},
-                    lambda t, _: {"embeds": emb[:, MESH_PROMPT + t:][:, :1]},
-                    f"{AUDIO_ARCH} (uncut, bf16 embeds)")
+    ring_serve(torch, audio, (AUDIO_RING,),
+               {"embeds": emb[:, :MESH_PROMPT]},
+               lambda t, _: {"embeds": emb[:, MESH_PROMPT + t:][:, :1]},
+               f"{AUDIO_ARCH} (uncut, bf16 embeds)")
     attn_mesh_train(torch, np)
     attn_mesh_routed(torch)
     row = flash_shard_row(torch, MOE_FLASH,
-                          served["launches"][MOE_RINGS[-1]],
+                          served["launches"][MOE_RINGS[-1]][
+                              "flash_attention_fwd"],
                           "flash_attention_fwd_moe_shard",
                           f"{MOE_ARCH}'s (1, 16) shard prefill", 26)
     print(f"attention families on a mesh: {time.perf_counter() - t0:.1f} s")
     return row
+
+
+# --------------------------------------------------------------------------
+# The recurrent families on a mesh: zamba2-7b (Mamba2 layers and a shared
+# attention block) and rwkv6-3b on rings of this card
+# --------------------------------------------------------------------------
+HYBRID_RING = (1, 4)       # zamba2-7b uncut: 28 Mamba2, 8 q and 8 k/v heads
+HYBRID_CUT = 15            # 2 groups of 6 + 3 tail layers (of 81)
+HYBRID_CUT_RING = (1, 16)  # 7 Mamba2 heads a shard, 2 k/v heads
+SSM_RING = (1, 4)          # rwkv6-3b uncut: 10 heads a shard
+SSM_UNEVEN_RING = (1, 16)  # 40 heads over 16: 3 or 2 a shard, the
+SSM_UNEVEN_LAYERS = 8      # projections gathered whole (host-bound: 32
+#                            layers took 46 s of a budget of 150)
+LONG_RING = (4, 4)         # long_500k: batch 1 on every data row
+LONG_LEN = 524288          # its cache, 131 072 positions a data row
+LONG_STEPS = 4             # zamba2's; rwkv6's decode 2 (its state is the
+SSM_LONG_STEPS = 2         # same size at any position)
+SSM_TRAIN_LAYERS = 8       # rwkv6-3b's 32 layers cut to 8 for training
+RECURRENT_BATCH = 2        # the train runs' global batch (train_4k's 256)
+# flash at zamba2-7b's (1, 4) head shard: 32 / 4 q heads over as many k/v
+# heads, 2 x 2048, D = 112 (bf16, causal)
+HYBRID_FLASH = (2, MESH_PROMPT, MESH_PROMPT, 8, 8, 112)
+
+
+def conv_shard_row(torch, m: int, launches: int, seed: int) -> dict:
+    """causal_conv1d at zamba2-7b's Mamba2 shard of ``m`` model shards,
+    x [2, 2048, 7168 / m + 128], K = 4: held against its plain version in
+    f32 and bf16, then its row (bf16 kernel, plain version, depthwise
+    ``F.conv1d``, bound), its launches the ring's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_plain)
+    from repro_torch.kernels.meta import causal_conv1d_flops
+
+    F = torch.nn.functional
+    ssm = get_config(LM_ARCH).ssm
+    c = ssm.expand * get_config(LM_ARCH).d_model // m \
+        + 2 * ssm.n_groups * ssm.state
+    b, l, k = PREFILL_B, MESH_PROMPT, ssm.conv_kernel
+    name = f"causal_conv1d_mamba_shard_{m}"
+    gen = torch.Generator().manual_seed(seed)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        x = torch.randn((b, l, c), generator=gen).to("cuda",
+                                                    getattr(torch, dtype))
+        w = (torch.randn((k, c), generator=gen) * 0.2).to(x)
+        _hold(torch, "causal_conv1d", dtype, causal_conv1d(x, w),
+              causal_conv1d_plain(x, w), errs, f"x {(b, l, c)} K={k}",
+              key=name)
+    xt, wt = x.transpose(1, 2).contiguous(), w.t().contiguous()[:, None, :]
+    return kernel_row(
+        torch, {}, errs, "causal_conv1d", lambda: causal_conv1d(x, w),
+        lambda: causal_conv1d_plain(x, w),
+        lambda: F.conv1d(xt, wt, padding=k - 1, groups=c)[..., :l],
+        lambda y: y.transpose(1, 2), causal_conv1d_flops(b, l, c, k),
+        (x.numel() + w.numel()) * 2,
+        f"x [{b}, {l}, {c}] bf16, K={k} ({LM_ARCH}'s Mamba2 shard at "
+        f"m = {m})", row_name=name, err_key=name, launches=launches)
+
+
+def long_decode(torch, cfg, label, tol=MESH_TOL, steps=LONG_STEPS) -> dict:
+    """``long_500k``'s grain: ``cfg`` on a ``LONG_RING`` ring of this
+    card, its batch of 1 on every data row, against one device on the
+    same seeded cache of ``LONG_LEN`` positions (the k/v's sequence over
+    "data", its heads over "model"; the recurrent states replicated over
+    the data rows): ``steps`` decode steps at the cache's last
+    positions, each step's logits within ``tol`` of max |logit|; the
+    first step's collective bytes equal to the dry run's model; at the
+    last step every data row's logits equal."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import ctx, ring
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    n = LONG_RING[0] * LONG_RING[1]
+    mesh = make_mesh_for(*LONG_RING, devices=_ring_devices(torch, n))
+    model = init_params(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    tree = model.init_cache(1, LONG_LEN)
+    for _, leaf in SH._flat_items(tree):
+        leaf.normal_(generator=gen)
+    mp = ring.shard_params(model, mesh, tp=True)
+    cache = ring.shard_cache(mp, tree)
+    if cache.split or (cfg.family == "hybrid"
+                       and cache.seq_axes != ("data",)):
+        raise AssertionError(f"{label}: the long_500k cache is laid out "
+                             f"{cache.spec} (split {cache.split})")
+    held = sum(t.numel() * t.element_size() for sh in cache.shards
+               for t in sh.values())
+    toks = torch.randint(0, cfg.vocab, (steps, 1, 1), generator=gen,
+                         device="cuda")
+    one, ring_dc = S.build_decode_step(make_host_mesh()), \
+        S.build_decode_step(mesh)
+    errs, ms, ms1, coll = [], [], [], None
+    for t in range(steps):
+        batch = {"tokens": toks[t],
+                 "position": torch.full((1,), LONG_LEN - steps + t,
+                                        device="cuda")}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want, _ = one(model, tree, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c0 = SH.collective_bytes()
+        if t < steps - 1:
+            got, _ = ring_dc(mp, cache, batch)
+        else:       # the same step, every data row's logits kept
+            with torch.no_grad(), ctx.activation_sharding(
+                    ctx.residual_hooks(mesh, SH.dp_axes(mesh))):
+                rows, _ = ring.decode(mp, cache, batch, per_row=True)
+            got = rows[0]
+            if not all(torch.equal(r, got) for r in rows[1:]):
+                raise AssertionError(f"{label}: the data rows' logits "
+                                     f"differ on the replicated batch")
+        torch.cuda.synchronize()
+        ms1.append((t2 - t1) * 1e3)
+        ms.append((time.perf_counter() - t2) * 1e3)
+        if t == 0:
+            coll = _coll_delta(c0)
+        errs.append(((got - want).abs().max() / want.abs().max()).item())
+    model_coll = _mesh_model_bytes(cfg, LONG_RING, "long", 1, LONG_LEN)
+    if model_coll != coll:
+        raise AssertionError(f"{label}: the dry run's model {model_coll} "
+                             f"!= the ring's counters {coll}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"{label} long_500k on {LONG_RING}: logits "
+                             f"off one device's by {errs} (tol {tol})")
+    print(f"  {label} long_500k on a {LONG_RING} ring (batch 1 on every "
+          f"data row, cache {cache.spec} of {LONG_LEN} positions, "
+          f"{held / 1e9:.2f} GB on the ring): {steps} decode steps at "
+          f"positions {LONG_LEN - steps}..{LONG_LEN - 1} within "
+          f"{max(errs):.2e} of max |logit| of one device's (by step "
+          f"{[f'{e:.2e}' for e in errs]}; tol {tol}); "
+          f"every data row's logits equal; decode "
+          f"{[round(x, 1) for x in ms]} ms a step against one device's "
+          f"{[round(x, 1) for x in ms1]}; collective bytes of a step {coll},"
+          f" equal to the dry run's model (a decode step launches no "
+          f"kernel: its conv window and attention are torch ops); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del mp, cache, tree, model
+    torch.cuda.empty_cache()
+    return {"ms": ms, "one_ms": ms1, "errs": errs, "coll": coll}
+
+
+def self_gap(torch, cfg, tokens) -> float:
+    """One device's f32 prefill of ``tokens`` against itself with its
+    embedding table nudged by at most one ulp (scaled by 1 + 2^-23): the
+    model's own amplification of one rounding, beside which a ring's gap
+    is read (of max |logit|)."""
+    from repro_torch.models.transformer import init_params
+
+    model = init_params(cfg, seed=0)
+    with torch.no_grad():
+        a = model.prefill(tokens=tokens)[0][:, -1]
+        model.embed.mul_(1 + 2.0 ** -23)
+        b = model.prefill(tokens=tokens)[0][:, -1]
+    del model
+    torch.cuda.empty_cache()
+    return ((a - b).abs().max() / a.abs().max()).item()
+
+
+def recurrent_mesh_phase(torch, np) -> list:
+    """Phase 19c: the hybrid and ssm families on rings of this card.
+    bf16 roundings decide how close a ring comes to one device: a TP
+    split rounds other partial products, and zamba2-7b's 81 layers carry
+    that over like its decode-vs-forward roundings (so its bf16 rings
+    are held to ``ORACLE_TOL``, the bound reasoned for those), rwkv6-3b
+    amplifies it whatever the precision (ROADMAP §3; its f32 copies are
+    held to ``MESH_TOL``, its bf16 gap read in PERF.md).  So:
+    zamba2-7b served uncut (bf16) on ``HYBRID_RING`` and, as an f32 copy
+    cut to ``HYBRID_CUT`` layers, on ``HYBRID_CUT_RING``; rwkv6-3b (f32
+    copy) uncut on ``SSM_RING`` and cut to ``SSM_UNEVEN_LAYERS`` on
+    ``SSM_UNEVEN_RING``, beside its own gap under a one-ulp nudge
+    (``self_gap``); ``long_500k``'s replicated-batch decode of zamba2
+    (cut, bf16, its cache of ``LONG_LEN`` positions) and rwkv6 (f32) on
+    ``LONG_RING``; both trained (bf16) in the TP + SP grain on (2, 2),
+    rwkv6's first step held (its later steps carry the first's roundings
+    through Adam into a model that amplifies them); the rows of
+    causal_conv1d and flash at the slice's shard shapes.  Returns the
+    rows."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"recurrent families on a mesh: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before "
+          f"it; rings of this card (no speed is claimed: the shards share "
+          f"one card)")
+    gen = torch.Generator().manual_seed(31)
+    zamba = get_config(LM_ARCH)
+    cut = dataclasses.replace(zamba, n_layers=HYBRID_CUT)
+    rwkv = get_config(SSM_ARCH)
+    rwkv32 = dataclasses.replace(rwkv, dtype="float32")
+    prompt = torch.randint(0, zamba.vocab, (2, MESH_PROMPT),
+                           generator=gen).cuda()
+    served = ring_serve(torch, zamba, (HYBRID_RING,), {"tokens": prompt},
+                        None, f"{LM_ARCH} (uncut)", tol=ORACLE_TOL)
+    served_cut = ring_serve(
+        torch, dataclasses.replace(cut, dtype="float32"),
+        (HYBRID_CUT_RING,), {"tokens": prompt}, None,
+        f"{LM_ARCH} ({HYBRID_CUT} of {zamba.n_layers} layers, f32 copy)")
+    prompt = torch.randint(0, rwkv.vocab, (2, MESH_PROMPT),
+                           generator=gen).cuda()
+    print(f"  {SSM_ARCH} (uncut, f32 copy) against itself with its "
+          f"embedding nudged by one ulp: {self_gap(torch, rwkv32, prompt):.2e}"
+          f" of max |logit|")
+    ring_serve(torch, rwkv32, (SSM_RING,), {"tokens": prompt}, None,
+               f"{SSM_ARCH} (uncut, f32 copy)")
+    ring_serve(torch, dataclasses.replace(rwkv32,
+                                          n_layers=SSM_UNEVEN_LAYERS),
+               (SSM_UNEVEN_RING,), {"tokens": prompt}, None,
+               f"{SSM_ARCH} ({SSM_UNEVEN_LAYERS} of {rwkv.n_layers} layers, "
+               f"f32 copy)")
+    long_decode(torch, cut, f"{LM_ARCH} ({HYBRID_CUT} layers)",
+                tol=ORACLE_TOL)
+    long_decode(torch, rwkv32, f"{SSM_ARCH} (uncut, f32 copy)",
+                steps=SSM_LONG_STEPS)
+    mesh = make_mesh_for(2, 2, devices=_ring_devices(torch, MESH_RING))
+    plan = S.StepPlan(n_microbatches=1, tp=True)
+    for cfg, held, label in (
+            (cut, None, f"{LM_ARCH} ({HYBRID_CUT} layers)"),
+            (dataclasses.replace(rwkv, n_layers=SSM_TRAIN_LAYERS), 1,
+             f"{SSM_ARCH} ({SSM_TRAIN_LAYERS} of {rwkv.n_layers} layers)")):
+        g = torch.Generator(device="cuda").manual_seed(32)
+        batches = [{k: torch.randint(0, cfg.vocab, (RECURRENT_BATCH,
+                                                    MESH_SEQ),
+                                     generator=g, device="cuda")
+                    for k in ("tokens", "labels")}
+                   for _ in range(MESH_STEPS)]
+        ring_train(torch, np, cfg, mesh, plan, batches, label, held)
+    rows = [conv_shard_row(torch, shape[1], launches["causal_conv1d"], 33)
+            for shape, launches in
+            ((HYBRID_RING, served["launches"][HYBRID_RING]),
+             (HYBRID_CUT_RING, served_cut["launches"][HYBRID_CUT_RING]))]
+    rows.append(flash_shard_row(
+        torch, HYBRID_FLASH,
+        served["launches"][HYBRID_RING]["flash_attention_fwd"],
+        "flash_attention_fwd_hybrid_shard",
+        f"{LM_ARCH}'s {HYBRID_RING} head shard prefill", 34))
+    print(f"recurrent families on a mesh: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def isolate_tune_artifacts() -> str:
@@ -4787,6 +5079,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     mesh = lm_mesh_phase(torch, np, tmp)
     rows.append(mesh["row"])
     rows.append(attn_mesh_phase(torch, np))
+    rows += recurrent_mesh_phase(torch, np)
     train_profile(torch, train_run)
     lm_train_profile(torch)
     roofline_phase(measured, mesh)

@@ -362,11 +362,14 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, *,
 def run_config(cfg, shape: str, *, batch_override: Optional[int] = None,
                seq_override: Optional[int] = None,
                n_microbatches: Optional[int] = None, mesh=None,
-               representative: bool = True) -> dict:
+               representative: bool = True, tp: Optional[bool] = None
+               ) -> dict:
     """``run_cell`` for a config (a reduced one, in tests), on one
     ``meta`` device or on ``mesh`` (of ``meta`` devices), there one
     representative position unless ``representative`` is False (every
-    position traced: the check of the model)."""
+    position traced: the check of the model).  ``tp`` sets a mesh train
+    cell's grain (default ``default_plan``'s: the TP + SP grain from
+    d_model 4096)."""
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import step as S
@@ -377,7 +380,7 @@ def run_config(cfg, shape: str, *, batch_override: Optional[int] = None,
                 "status": "skipped", "reason": why}
     if mesh is not None and mesh.size > 1:
         return _mesh_cell(cfg, shape, mesh, batch_override, seq_override,
-                          n_microbatches, representative)
+                          n_microbatches, representative, tp)
     mesh = make_host_mesh("meta")
     kind = SHAPES[shape]["kind"]
     t0 = time.perf_counter()
@@ -424,11 +427,12 @@ _KIND_NAMES = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
 
 
 def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
-               n_microbatches, representative: bool) -> dict:
+               n_microbatches, representative: bool,
+               tp: Optional[bool] = None) -> dict:
     """A cell on a ring of ``meta`` devices (see the module docstring):
     one chip's trace and counts, and the model of the whole ring."""
     from repro_torch.launch import roofline
-    from repro_torch.parallel import ring, sharding
+    from repro_torch.parallel import sharding
     from repro_torch.train import optimizer as O
     from repro_torch.train import step as S
     kind = SHAPES[shape]["kind"]
@@ -440,12 +444,8 @@ def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
     plan = S.default_plan(cfg, shape, mesh)
     if n_microbatches:
         plan = dataclasses.replace(plan, n_microbatches=n_microbatches)
-    if kind != "train" and cfg.family not in ring.TP_FAMILIES:
-        return dict(base, status="unsupported",
-                    reason=f"serving on a mesh runs the TP grain of the "
-                           f"attention-block families; the {cfg.family} "
-                           f"family's waits for the Mamba2/rwkv6 TP grains "
-                           f"(ROADMAP §1 item 6)")
+    if tp is not None:
+        plan = dataclasses.replace(plan, tp=tp)
     before = sharding.collective_bytes()
     calls0 = sharding.collective_calls()
     t0 = time.perf_counter()
@@ -478,8 +478,8 @@ def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
                 not (plan.tp and mesh.shape["model"] > 1):
             ring_bytes["all_gather"] += _norm_bytes(cfg, mesh, plan)
         if kind != "train":     # the logits, gathered on position 0 alone
-            b = batch_override or SHAPES[shape]["global_batch"]
-            ring_bytes["all_gather"] -= (n_chips - 1) * b * cfg.vocab * 4
+            ring_bytes["all_gather"] -= (n_chips - 1) * _logits_bytes(
+                cfg, mesh, batch_override or SHAPES[shape]["global_batch"])
     else:
         ring_bytes = dict(counted)
     chip = {k: v // n_chips for k, v in ring_bytes.items()} \
@@ -505,6 +505,15 @@ def _mesh_cell(cfg, shape: str, mesh, batch_override, seq_override,
         params=cfg.param_count(), active_params=cfg.active_param_count(),
         params_counted=mem.params_counted,
         fits=mem.peak_bytes <= capacity, capacity_bytes=capacity)
+
+
+def _logits_bytes(cfg, mesh, b: int) -> int:
+    """The all-gather bytes of a serving step's f32 logits (``ring.
+    _logits_out``): over every position where the batch splits over the
+    data rows, else over the first row's model shards (none with one)."""
+    from repro_torch.parallel import ring
+    spans = mesh.size if ring._batch_split(mesh, b) else mesh.shape["model"]
+    return b * cfg.vocab * 4 if spans > 1 else 0
 
 
 def _local_params(cfg, mesh, tp: bool) -> int:

@@ -135,13 +135,21 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_head: torch.Tensor,
     return y, s_run
 
 
-def mamba2_block(p: Params, x: torch.Tensor, cfg: SSMConfig, *,
-                 return_state: bool = False):
-    """x: (B, L, d_model) -> (B, L, d_model) [, serving state]."""
-    bsz, l, d_model = x.shape
-    di = cfg.expand * d_model
-    nh = di // cfg.head_dim
-    g, s = cfg.n_groups, cfg.state
+def _dims(p: Params, cfg: SSMConfig) -> Tuple[int, int, int, int]:
+    """(inner width, heads, groups, state) of the heads ``p`` holds: every
+    head on one device, a TP shard's own on a ring (``parallel/ring.py``
+    cuts ``p`` to them in the one-device layout)."""
+    nh = p["A_log"].shape[0]
+    return nh * cfg.head_dim, nh, cfg.n_groups, cfg.state
+
+
+def mamba2_mix(p: Params, x: torch.Tensor, cfg: SSMConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The block up to its gated RMSNorm, over the heads of ``p``: (y *
+    silu(z) (B, L, di) f32, the conv input [x | B C] (B, L, C), the final
+    SSM state (B, H, S, P) f32)."""
+    bsz, l, _ = x.shape
+    di, nh, g, s = _dims(p, cfg)
 
     zxbcdt = (x @ p["in_proj"]).to(x.dtype)
     z = zxbcdt[..., :di]
@@ -159,17 +167,41 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: SSMConfig, *,
                            chunk=min(cfg.chunk, l))
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(bsz, l, di)
-    # gated RMSNorm (Mamba2's NormGated)
-    y = y * F.silu(z.float())
-    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-5)
-    y = (y * p["norm_scale"].float()).to(x.dtype)
-    out = (y @ p["out_proj"]).to(x.dtype)
+    return y * F.silu(z.float()), conv_in, s_fin
+
+
+def gated_norm_out(p: Params, y: torch.Tensor, ms: torch.Tensor, dtype,
+                   partial: bool = False) -> torch.Tensor:
+    """Mamba2's NormGated on the gated ``y`` given ``ms``, the mean of
+    squares over every head's channels (a TP shard's ``y`` holds its own
+    heads; the mean is the ring's), then ``out_proj``: the output in
+    ``dtype``, or with ``partial`` the f32 product of the rounded normed
+    ``y`` (a row-parallel part the ring sums before rounding once)."""
+    y = y * torch.rsqrt(ms + 1e-5)
+    y = (y * p["norm_scale"].float()).to(dtype)
+    if partial:
+        return y.float() @ p["out_proj"].float()
+    return (y @ p["out_proj"]).to(dtype)
+
+
+def conv_state(conv_in: torch.Tensor, kc: int) -> torch.Tensor:
+    """The serving conv state after a sequence: its last ``kc - 1`` conv
+    inputs (B, K-1, C), zeros before its start."""
+    bsz, l, c = conv_in.shape
+    pad = conv_in.new_zeros(bsz, max(0, kc - 1 - l), c)
+    return torch.cat([pad, conv_in[:, max(0, l - (kc - 1)):]], 1)
+
+
+def mamba2_block(p: Params, x: torch.Tensor, cfg: SSMConfig, *,
+                 return_state: bool = False):
+    """x: (B, L, d_model) -> (B, L, d_model) [, serving state]."""
+    y, conv_in, s_fin = mamba2_mix(p, x, cfg)
+    # gated RMSNorm (Mamba2's NormGated) over every head
+    out = gated_norm_out(p, y, (y * y).mean(-1, keepdim=True), x.dtype)
     if not return_state:
         return out
-    kc = p["conv_w"].shape[0]
-    pad = conv_in.new_zeros(bsz, max(0, kc - 1 - l), conv_in.shape[-1])
-    conv_state = torch.cat([pad, conv_in[:, max(0, l - (kc - 1)):]], 1)
-    return out, {"conv": conv_state, "ssm": s_fin}
+    return out, {"conv": conv_state(conv_in, p["conv_w"].shape[0]),
+                 "ssm": s_fin}
 
 
 # ---------------------------------------------------------------------------
@@ -188,14 +220,14 @@ def mamba2_init_state(bsz: int, d_model: int, cfg: SSMConfig, dtype,
     }
 
 
-def mamba2_step(p: Params, x: torch.Tensor, state: Mapping[str, torch.Tensor],
-                cfg: SSMConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, 1, d_model); O(1) per-token state update.  Returns the output
-    and the new state (the given state is left as it was)."""
-    bsz, _, d_model = x.shape
-    di = cfg.expand * d_model
-    nh = di // cfg.head_dim
-    g, s = cfg.n_groups, cfg.state
+def mamba2_mix_step(p: Params, x: torch.Tensor,
+                    state: Mapping[str, torch.Tensor], cfg: SSMConfig
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token up to the gated RMSNorm, over the heads of ``p``: (y *
+    silu(z) (B, di) f32, the new state; the given state is left as it
+    was)."""
+    bsz = x.shape[0]
+    di, nh, g, s = _dims(p, cfg)
 
     # f32 accumulation, one rounding to the IO dtype (the reference's
     # preferred_element_type=F32 then astype)
@@ -219,8 +251,14 @@ def mamba2_step(p: Params, x: torch.Tensor, state: Mapping[str, torch.Tensor],
         (bh * dt[..., None])[..., :, None] * xh[..., None, :]
     y = torch.einsum("bhs,bhsp->bhp", ch, ssm) + p["D"][None, :, None] * xh
     y = y.reshape(bsz, di)
-    y = y * F.silu(z.float())
-    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-5)
-    y = (y * p["norm_scale"].float()).to(x.dtype)
-    out = (y @ p["out_proj"]).to(x.dtype)[:, None]
-    return out, {"conv": window[:, 1:].to(state["conv"].dtype), "ssm": ssm}
+    return y * F.silu(z.float()), {
+        "conv": window[:, 1:].to(state["conv"].dtype), "ssm": ssm}
+
+
+def mamba2_step(p: Params, x: torch.Tensor, state: Mapping[str, torch.Tensor],
+                cfg: SSMConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, d_model); O(1) per-token state update.  Returns the output
+    and the new state (the given state is left as it was)."""
+    y, new = mamba2_mix_step(p, x, state, cfg)
+    out = gated_norm_out(p, y, (y * y).mean(-1, keepdim=True), x.dtype)
+    return out[:, None], new

@@ -112,10 +112,14 @@ def _head_split(t: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv6_timemix_scan(p: Params, x: torch.Tensor, x_prev_tail: torch.Tensor,
-                       s0: torch.Tensor
+                       s0: torch.Tensor, partial: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Baseline: a loop over time.  x: (B, L, D); s0: (B, H, N, N) f32.
-    Returns (out (B, L, D) in x's dtype, final state f32)."""
+    """Baseline: a loop over time.  x: (B, L, D); s0: (B, H, N, N) f32,
+    H the heads of ``p`` (every head, or a TP shard's own: ``wr``/``wk``/
+    ``wv``/``wg``/``w0``/``w_lora_B`` cut to their columns, ``u``,
+    ``ln_x_scale`` and ``wo`` to their rows).  Returns (out (B, L, D) in
+    x's dtype, or the f32 product with ``partial`` (``_finish_timemix``),
+    final state f32)."""
     xs = _token_shift(x.float(), x_prev_tail.float())
     r, k, v, g, w, _ = _project_rkvwg(p, x, xs)
     r, k, v, w = map(_head_split, (r, k, v, w))
@@ -126,24 +130,25 @@ def rwkv6_timemix_scan(p: Params, x: torch.Tensor, x_prev_tail: torch.Tensor,
         ys.append(torch.einsum("bhn,bhnm->bhm", r[:, t], s + u * kv))
         s = w[:, t, :, :, None] * s + kv
     y = torch.stack(ys, 1)                                  # (B, L, H, N)
-    return _finish_timemix(p, x, y, g), s
+    return _finish_timemix(p, x, y, g, partial), s
 
 
 def rwkv6_timemix_chunked(p: Params, x: torch.Tensor,
                           x_prev_tail: torch.Tensor, s0: torch.Tensor,
-                          chunk: int = CHUNK
+                          chunk: int = CHUNK, partial: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GLA-style chunked matmul form; L must be a multiple of
-    ``chunk``.  Every exponent is a backward decay segment (<= 0); the
-    intra-chunk pairwise decay uses the segment directly (never the
-    exp(+cum) factoring, which overflows), masked to -inf above the
-    strict diagonal before ``exp``."""
-    b, l, d = x.shape
+    ``chunk``; the heads and ``partial`` as ``rwkv6_timemix_scan``'s.
+    Every exponent is a backward decay segment (<= 0); the intra-chunk
+    pairwise decay uses the segment directly (never the exp(+cum)
+    factoring, which overflows), masked to -inf above the strict
+    diagonal before ``exp``."""
+    b, l, _ = x.shape
     if l % chunk != 0:
         raise ValueError(f"L {l} not divisible by chunk {chunk}")
-    nc, h = l // chunk, d // HEAD_SIZE
     xs = _token_shift(x.float(), x_prev_tail.float())
     r, k, v, g, w, logw = _project_rkvwg(p, x, xs)
+    nc, h = l // chunk, r.shape[-1] // HEAD_SIZE
     u = p["u"]
 
     def chunked(t):
@@ -176,20 +181,22 @@ def rwkv6_timemix_chunked(p: Params, x: torch.Tensor,
     y_inter = torch.einsum("bncho,bnhov->bnchv", r_dec,
                            torch.stack(s_prev, 1))
     y = (y_intra + y_inter).reshape(b, l, h, HEAD_SIZE)
-    return _finish_timemix(p, x, y, g), s_run
+    return _finish_timemix(p, x, y, g, partial), s_run
 
 
 def _finish_timemix(p: Params, x: torch.Tensor, y: torch.Tensor,
-                    g: torch.Tensor) -> torch.Tensor:
+                    g: torch.Tensor, partial: bool = False) -> torch.Tensor:
     """Per-head group norm (epsilon 64e-5), silu(g) gate, output
-    projection."""
+    projection, rounded to x's dtype (with ``partial`` left in f32: a TP
+    shard's row-parallel part, which the ring sums before rounding)."""
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, unbiased=False)
     y = (y - mu) * torch.rsqrt(var + 64e-5)[..., None]
     b, l = x.shape[0], x.shape[1]
     y = y.reshape(b, l, -1) * p["ln_x_scale"].float()
     y = y * F.silu(g)
-    return (y @ p["wo"].float()).to(x.dtype)
+    out = y @ p["wo"].float()
+    return out if partial else out.to(x.dtype)
 
 
 def rwkv6_channelmix(p: Params, x: torch.Tensor, x_prev_tail: torch.Tensor

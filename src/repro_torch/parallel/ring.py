@@ -34,7 +34,7 @@ place.  Two grains, as ``train.step.default_plan`` picks them:
       members (256 rows on a 512-chip mesh), the reference's
       ``batch_pspecs`` replicates it: every member then runs every row,
       and the mean of their equal gradients is one member's.
-  TP + SP grain (``tp=True``; dense, moe, vlm, audio)  Megatron tensor
+  TP + SP grain (``tp=True``; every family)  Megatron tensor
       parallelism over "model": each model shard holds ``n_heads / m`` q
       heads (where that does not divide, the first ``n_heads % m`` shards
       one more, the q/o projections gathered whole over "model" and the
@@ -58,9 +58,24 @@ place.  Two grains, as ``train.step.default_plan`` picks them:
       shards' f32 partial outputs (plus arctic's column/row-parallel dense
       MLP) are summed in shard order.  Tokens stay on their data row, as
       the reference's GSPMD keeps them (``moe.py:73-77``): no all-to-all.
-      With ``seq_shard_activations`` the residual is held
-      sequence-sharded over "model" between the sub-blocks (all-gather
-      before attention and FFN, reduce-scatter after).  The FSDP dim of
+      The hybrid's Mamba2 layers (zamba2-7b) split by head: shard j holds
+      heads ``[j nh / m, (j + 1) nh / m)`` (they must divide), the z, x
+      and dt columns of them and every B/C column of ``in_proj`` and the
+      x and B/C channels of ``conv_w`` (both gathered whole over "model"
+      and cut: their storage blocks are not heads), its rows of
+      ``out_proj``; the gated RMSNorm's mean of squares over every head
+      is an all-reduce of the shards' f32 sums in shard order, and the
+      out_proj partials are summed in f32 and rounded once.  Its shared
+      attention block runs as the attention families' blocks do, once
+      per group.  rwkv6 splits its time mix by head (``d_model / 64``;
+      where they do not divide, the first ``h % m`` shards one more, the
+      head-split projections gathered whole and cut), each shard
+      computing the token-shift ddlerp whole; the channel mix is
+      column-parallel over d_ff into a row-parallel ``cm_wv``, and
+      ``cm_wr``'s sigmoid is gathered over "model".  With
+      ``seq_shard_activations`` the residual is held sequence-sharded
+      over "model" between the sub-blocks (all-gather before attention,
+      FFN, Mamba2 and either mix, reduce-scatter after).  The FSDP dim of
       each leaf is gathered over the data axes inside the layer that
       uses it, so activation checkpointing (``_remat``) gathers it again
       for the backward and nothing holds it between layers; its gradient
@@ -91,9 +106,14 @@ Serving (``prefill``, ``decode``; the TP grain) lays the KV cache out by
 "model" (attention stays local), else sequence-sharded (each shard holds
 ``T / m`` positions of every k/v head, and decode attention merges the
 shards' partial softmaxes in shard order; a shard holding no valid
-position yet weighs 0).  MoE layers serve drop-free (capacity factor
-``E / k``, as ``serve.engine`` does), so no row's routing depends on
-another's.
+position yet weighs 0).  A batch that does not divide over the data rows
+(``long_500k``'s 1) runs whole on every row, and the k/v's sequence is
+split over "data" too (over ("data", "model") in the sequence grain);
+the partial softmaxes then merge over the data rows, data-major, and
+every row computes the same recurrent step.  The recurrent states are
+held by head, not by the specs' storage blocks (``MeshCache``).  MoE
+layers serve drop-free (capacity factor ``E / k``, as ``serve.engine``
+does), so no row's routing depends on another's.
 
 A ring may hold one representative position (``positions=(0,)``): the
 dry run (``launch/dryrun.py``) traces one position of a 256- or 512-chip
@@ -115,7 +135,9 @@ from torch.utils.checkpoint import set_checkpoint_early_stop
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models import transformer as T
 from repro_torch.parallel import ctx
 from repro_torch.parallel import sharding as SH
@@ -123,14 +145,21 @@ from repro_torch.train import optimizer as opt
 
 F32 = torch.float32
 Tensor = torch.Tensor
-TP_FAMILIES = ("dense", "moe", "vlm", "audio")
 # leaves a TP shard must hold split over "model" (the dims are heads, the
-# FFN hidden, the experts or the vocabulary); q/o and k/v may be gathered
-# whole instead, where their heads do not divide
+# FFN hidden, the experts, the vocabulary, Mamba2's out_proj rows or the
+# rwkv6 channel mix); q/o and k/v, and rwkv6's time-mix heads, may be
+# gathered whole instead, where their heads do not divide
 _TP_SPLIT = ("wq", "bq", "wo", "w_up", "w_gate", "w_down", "embed",
-             "lm_head")
+             "lm_head", "out_proj", "cm_wk", "cm_wv", "cm_wr")
 _Q = ("wq", "bq", "wo")
 _KV = ("wk", "wv", "bk", "bv")
+# Mamba2 leaves whose storage blocks over "model" are not a shard's heads
+# ([z | x | B C | dt] columns, [x | B C] channels): gathered whole
+_MAMBA_WHOLE = ("in_proj", "conv_w")
+# rwkv6's time-mix leaves: the head-split projections, then the rest
+_RWKV_HEADS = ("wr", "wk", "wv", "wg", "wo")
+_RWKV_TM = _RWKV_HEADS + ("mu_base", "mu", "lora_A", "lora_B", "w0",
+                          "w_lora_A", "w_lora_B", "u", "ln_x_scale")
 
 
 # ---------------------------------------------------------------------------
@@ -269,16 +298,50 @@ def init_state(model: T.LM, mesh, tp: bool,
                                    for sh in params.shards])
 
 
+def mamba_heads(cfg: ArchConfig) -> int:
+    """A hybrid config's Mamba2 heads: expand * d_model / head_dim."""
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+
+def rwkv_heads(cfg: ArchConfig) -> int:
+    """An ssm config's rwkv6 time-mix heads: d_model / ``HEAD_SIZE``."""
+    return cfg.d_model // R6.HEAD_SIZE
+
+
+def _split_range(n: int, m: int, j: int) -> Tuple[int, int]:
+    """The items [a, b) of shard j when ``n`` split over ``m`` shards:
+    ``n / m`` each where that divides, else one more on each of the first
+    ``n % m``."""
+    base, extra = divmod(n, m)
+    a = j * base + min(j, extra)
+    return a, a + base + (j < extra)
+
+
 def check_tp(cfg: ArchConfig, mesh) -> None:
     """Raises ``ValueError`` where the TP grain cannot run ``cfg`` on
-    ``mesh``: a family without it, or fewer q heads than model shards
-    (``param_specs`` raises for a split dim that does not divide)."""
+    ``mesh``: heads that leave a model shard without one (q heads, the
+    hybrid's Mamba2 heads, which must also divide, and rwkv6's time-mix
+    heads), each with its own message (``param_specs`` raises for a
+    split dim that does not divide)."""
     m = mesh.shape["model"]
-    if cfg.family not in TP_FAMILIES:
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family has no TP grain on a "
-            f"ring (the Mamba2 and rwkv6 TP grains are queued, ROADMAP §1 "
-            f"item 6); train it with tp=False")
+    if cfg.family == "ssm":
+        h = rwkv_heads(cfg)
+        if h < m:
+            raise ValueError(f"{cfg.name}: layers.*.mix.wr: {h} rwkv6 heads "
+                             f"(d_model / {R6.HEAD_SIZE}) leave shards of "
+                             f"mesh axis 'model' ({m}) without one")
+        return
+    if cfg.family == "hybrid":
+        nh = mamba_heads(cfg)
+        if nh < m:
+            raise ValueError(f"{cfg.name}: *.mamba.in_proj: {nh} Mamba2 "
+                             f"heads (expand * d_model / head_dim) leave "
+                             f"shards of mesh axis 'model' ({m}) without one")
+        if nh % m:
+            raise ValueError(f"{cfg.name}: *.mamba.in_proj: {nh} Mamba2 "
+                             f"heads do not divide over mesh axis 'model' "
+                             f"({m}): out_proj's rows and the SSM state "
+                             f"split by head")
     if cfg.n_heads < m:
         raise ValueError(f"{cfg.name}: layers.*.attn.wq: {cfg.n_heads} "
                          f"heads leave shards of mesh axis 'model' ({m}) "
@@ -830,9 +893,14 @@ class _Shards:
     def whole_over_model(self, name: str) -> bool:
         """Whether a shard needs the leaf whole over "model": q/o where
         the q heads do not divide over it, k/v where the k/v heads do
-        not."""
+        not, Mamba2's in_proj and conv_w always, rwkv6's head-split
+        projections where its heads do not divide."""
         leaf = name.rsplit(".", 1)[-1]
         cfg = self.p.cfg
+        if cfg.family == "hybrid" and leaf in _MAMBA_WHOLE:
+            return True
+        if cfg.family == "ssm":
+            return leaf in _RWKV_HEADS and rwkv_heads(cfg) % self.m != 0
         if leaf in _KV:
             return cfg.n_kv_heads % self.m != 0
         return leaf in _Q and cfg.n_heads % self.m != 0
@@ -855,9 +923,56 @@ class _Shards:
     def q_heads(self, j: int) -> Tuple[int, int]:
         """The q heads [h0, h1) of shard j: ``n_heads / m`` each where that
         divides, else one more on each of the first ``n_heads % m``."""
-        base, extra = divmod(self.p.cfg.n_heads, self.m)
-        h0 = j * base + min(j, extra)
-        return h0, h0 + base + (j < extra)
+        return _split_range(self.p.cfg.n_heads, self.m, j)
+
+    def mamba(self, pre: str, j: int) -> Dict[str, Tensor]:
+        """Shard j's Mamba2 parameters (``pre`` a layer's ``.mamba``) in
+        the one-device layout over its heads [h0, h1): in_proj's z, x and
+        dt columns of them and every B/C column ([z_j | x_j | B C |
+        dt_j], n_groups B/C groups read by every head), conv_w's x
+        channels of them and the B/C channels, their ``A_log``, ``D``,
+        ``dt_bias`` and ``norm_scale`` entries, and its rows of out_proj
+        (stored so).  in_proj and conv_w are gathered whole over "model":
+        their storage blocks are not heads."""
+        cfg = self.p.cfg
+        ssm = cfg.ssm
+        di = ssm.expand * cfg.d_model
+        bc = 2 * ssm.n_groups * ssm.state
+        h0, h1 = _split_range(mamba_heads(cfg), self.m, j)
+        x0, x1 = h0 * ssm.head_dim, h1 * ssm.head_dim
+        w = self.param(pre + ".in_proj", j)
+        cw = self.param(pre + ".conv_w", j)
+        dt0 = 2 * di + bc
+        return {
+            "in_proj": torch.cat([w[:, x0:x1], w[:, di + x0:di + x1],
+                                  w[:, 2 * di:dt0],
+                                  w[:, dt0 + h0:dt0 + h1]], 1),
+            "conv_w": torch.cat([cw[:, x0:x1], cw[:, di:]], 1),
+            "A_log": self.param(pre + ".A_log", j)[h0:h1],
+            "D": self.param(pre + ".D", j)[h0:h1],
+            "dt_bias": self.param(pre + ".dt_bias", j)[h0:h1],
+            "norm_scale": self.param(pre + ".norm_scale", j)[x0:x1],
+            "out_proj": self.param(pre + ".out_proj", j)}
+
+    def rwkv(self, pre: str, j: int) -> Dict[str, Tensor]:
+        """Shard j's rwkv6 time-mix parameters (``pre`` a layer's
+        ``.mix``) over its heads [h0, h1) (uneven where they do not
+        divide, the head-split projections then gathered whole and cut):
+        the columns of wr/wk/wv/wg, w0 and w_lora_B, the rows of wo, u and
+        ln_x_scale; the token-shift leaves (mu, the LoRAs) whole, so every
+        shard computes the ddlerp whole."""
+        h0, h1 = _split_range(rwkv_heads(self.p.cfg), self.m, j)
+        c0, c1 = h0 * R6.HEAD_SIZE, h1 * R6.HEAD_SIZE
+        t = {n: self.param(f"{pre}.{n}", j) for n in _RWKV_TM}
+        if self.whole_over_model(pre + ".wr"):
+            for n in ("wr", "wk", "wv", "wg"):
+                t[n] = t[n][:, c0:c1]
+            t["wo"] = t["wo"][c0:c1]
+        t["u"] = t["u"][h0:h1]
+        t["w0"] = t["w0"][c0:c1]
+        t["ln_x_scale"] = t["ln_x_scale"][c0:c1]
+        t["w_lora_B"] = t["w_lora_B"][:, c0:c1]
+        return t
 
     def kv_heads(self, j: int) -> Tuple[int, int]:
         """The k/v heads [k0, k1) shard j's q heads read."""
@@ -1027,13 +1142,12 @@ def _cross_entropy(sh: _Shards, logits: List[Tensor], labels: Tensor
     return (lse - picked[0]).mean()
 
 
-def _tp_block(sh: _Shards, li: int, sp: bool, *xs: Tensor
+def _tp_block(sh: _Shards, pre: str, li: int, sp: bool, *xs: Tensor
               ) -> Tuple[Tensor, ...]:
-    """One attention block over the row's model shards (training): the
-    new residual per shard, then, with MoE, the layer's load-balance
-    loss."""
+    """The attention block ``pre`` (``layers.{li}``, or the hybrid's
+    ``shared``) over the row's model shards (training): the new residual
+    per shard, then, with MoE, the layer's load-balance loss."""
     cfg = sh.p.cfg
-    pre = f"layers.{li}"
     h = [L.apply_norm(sh.tree(pre + ".attn_norm", j), x, cfg.norm)
          for j, x in zip(sh.members, xs)]
     h = _gather_seq(sh, h, sp)
@@ -1043,19 +1157,18 @@ def _tp_block(sh: _Shards, li: int, sp: bool, *xs: Tensor
         y.append(L.attention_train(p, hj, spec, q_chunk=cfg.q_chunk,
                                    kv_chunk=cfg.kv_chunk))
     xs = [x + yj for x, yj in zip(xs, _combine(sh, y, sp))]
-    xs, aux = _tp_ffn(sh, li, sp, xs)
+    xs, aux = _tp_ffn(sh, pre, li, sp, xs)
     return tuple(xs) + (() if aux is None else (aux,))
 
 
-def _tp_ffn(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
+def _tp_ffn(sh: _Shards, pre: str, li: int, sp: bool, xs: List[Tensor],
             capacity_factor: Optional[float] = None
             ) -> Tuple[List[Tensor], Optional[Tensor]]:
-    """norm -> FFN -> residual over the row's model shards: the
-    column/row-parallel MLP, or the MoE FFN (``_tp_moe``) with arctic's
-    dense MLP beside it.  Returns (the residual per shard, the MoE
-    load-balance loss or None)."""
+    """norm -> FFN -> residual of block ``pre`` (layer ``li``) over the
+    row's model shards: the column/row-parallel MLP, or the MoE FFN
+    (``_tp_moe``) with arctic's dense MLP beside it.  Returns (the
+    residual per shard, the MoE load-balance loss or None)."""
     cfg = sh.p.cfg
-    pre = f"layers.{li}"
     h = [L.apply_norm(sh.tree(pre + ".mlp_norm", j), x, cfg.norm)
          for j, x in zip(sh.members, xs)]
     h = _gather_seq(sh, h, sp)
@@ -1063,7 +1176,7 @@ def _tp_ffn(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
         z = [L.apply_mlp(sh.tree(pre + ".mlp", j), hj, cfg.mlp)
              for j, hj in zip(sh.members, h)]
         return [x + zj for x, zj in zip(xs, _combine(sh, z, sp))], None
-    z, aux = _tp_moe(sh, li, h, capacity_factor)
+    z, aux = _tp_moe(sh, pre, li, h, capacity_factor)
     if cfg.moe.dense_residual_ff:
         z = [zj + L.apply_mlp(sh.tree(pre + ".dense_mlp", j), hj,
                               cfg.mlp).float()
@@ -1072,7 +1185,7 @@ def _tp_ffn(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
         aux
 
 
-def _tp_moe(sh: _Shards, li: int, h: List[Tensor],
+def _tp_moe(sh: _Shards, pre: str, li: int, h: List[Tensor],
             capacity_factor: Optional[float]
             ) -> Tuple[List[Tensor], Tensor]:
     """MoE layer ``li`` on the row's model shards, each holding the row's
@@ -1084,7 +1197,7 @@ def _tp_moe(sh: _Shards, li: int, h: List[Tensor],
     summed over the shards; the load-balance loss, the first shard's)."""
     cfg = sh.p.cfg
     moe = cfg.moe
-    pre = f"layers.{li}.moe"
+    pre = pre + ".moe"
     routing = ctx.moe_routing(li)
     ep = moe.n_experts >= sh.m
     el = moe.n_experts // sh.m if ep else moe.n_experts
@@ -1103,6 +1216,145 @@ def _tp_moe(sh: _Shards, li: int, h: List[Tensor],
         if aux is None:
             aux = MOE.lb_loss(r)
     return out, aux
+
+
+def _mean_square(sh: _Shards, ys: List[Tensor], width: int
+                 ) -> List[Tensor]:
+    """Mamba2's gated-norm mean of squares over every head: each shard's
+    f32 sum of squares over its heads' channels, all-reduced in shard
+    order, over ``width`` (the whole inner width).  Each shard's own
+    mean would normalise by its heads alone."""
+    sums = SH.all_reduce([(y * y).sum(-1, keepdim=True) for y in ys], sh.m)
+    return [t / width for t in sums]
+
+
+def _mamba_layer(sh: _Shards, pre: str, sp: bool, xs: List[Tensor],
+                 state: Optional[tuple] = None) -> List[Tensor]:
+    """norm -> Mamba2 -> residual of layer ``pre`` over the row's model
+    shards, each running its heads (``_Shards.mamba``; ``causal_conv1d``
+    on its [x_j | B C] channels) over the whole sequence (gathered under
+    SP): the gated norm's mean of squares over every head
+    (``_mean_square``), out_proj row-parallel, its f32 partials summed in
+    shard order (reduce-scattered under SP) and rounded once.  ``state``
+    (prefill): (cache, conv key, ssm key, index) to write each shard's
+    serving state into."""
+    cfg = sh.p.cfg
+    h = [L.apply_norm(sh.tree(pre + ".norm", j), x, cfg.norm)
+         for j, x in zip(sh.members, xs)]
+    h = _gather_seq(sh, h, sp)
+    ps, ys = [], []
+    for j, hj in zip(sh.members, h):
+        p = sh.mamba(pre + ".mamba", j)
+        y, conv_in, s_fin = M2.mamba2_mix(p, hj, cfg.ssm)
+        if state is not None:
+            cache, kc, ks, idx = state
+            slot = _cache_slot(cache, sh.pos(j))
+            slot[kc][idx] = M2.conv_state(conv_in, p["conv_w"].shape[0])
+            slot[ks][idx] = s_fin
+        ps.append(p)
+        ys.append(y)
+    ms = _mean_square(sh, ys, cfg.ssm.expand * cfg.d_model)
+    parts = [M2.gated_norm_out(p, y, m, hj.dtype, partial=True)
+             for p, y, m, hj in zip(ps, ys, ms, h)]
+    return [x + y.to(x.dtype) for x, y in zip(xs, _combine(sh, parts, sp))]
+
+
+def _tp_mamba(sh: _Shards, pre: str, sp: bool, *xs: Tensor
+              ) -> Tuple[Tensor, ...]:
+    return tuple(_mamba_layer(sh, pre, sp, list(xs)))
+
+
+def _rwkv_layer(sh: _Shards, pre: str, sp: bool, xs: List[Tensor],
+                state: Optional[tuple] = None) -> List[Tensor]:
+    """One rwkv6 layer ``pre`` over the row's model shards: the time mix
+    on each shard's heads (``_Shards.rwkv``: the ddlerp whole, the
+    per-head group norm on its own heads) over the whole sequence
+    (gathered under SP), wo row-parallel with f32 partials summed in
+    shard order and rounded once; then the channel mix
+    (``_rwkv_channel_mix``).  ``state`` (prefill): (cache, layer) to write
+    each shard's serving state into."""
+    cfg = sh.p.cfg
+    h = [L.apply_norm(sh.tree(pre + ".ln1", j), x, cfg.norm)
+         for j, x in zip(sh.members, xs)]
+    h = _gather_seq(sh, h, sp)
+    parts = []
+    for j, hj in zip(sh.members, h):
+        p = sh.rwkv(pre + ".mix", j)
+        b, l, d = hj.shape
+        s0 = torch.zeros(b, p["u"].shape[0], R6.HEAD_SIZE, R6.HEAD_SIZE,
+                         dtype=F32, device=hj.device)
+        timemix = R6.rwkv6_timemix_chunked if l % T.RWKV_CHUNKED == 0 \
+            else R6.rwkv6_timemix_scan
+        y, s_fin = timemix(p, hj, hj.new_zeros(b, 1, d), s0, partial=True)
+        parts.append(y)
+        if state is not None:
+            slot = _cache_slot(state[0], sh.pos(j))
+            slot["s"][state[1]] = s_fin
+            slot["tm_x"][state[1]] = hj[:, -1:]
+    xs = [x + y.to(x.dtype) for x, y in zip(xs, _combine(sh, parts, sp))]
+    h = [L.apply_norm(sh.tree(pre + ".ln2", j), x, cfg.norm)
+         for j, x in zip(sh.members, xs)]
+    h = _gather_seq(sh, h, sp)
+    if state is not None:
+        for j, hj in zip(sh.members, h):
+            _cache_slot(state[0], sh.pos(j))["cm_x"][state[1]] = hj[:, -1:]
+    tails = [hj.new_zeros(hj.shape[0], 1, hj.shape[2]) for hj in h]
+    return _rwkv_channel_mix(sh, pre + ".mix", sp, xs, h, tails)
+
+
+def _tp_rwkv(sh: _Shards, pre: str, sp: bool, *xs: Tensor
+             ) -> Tuple[Tensor, ...]:
+    return tuple(_rwkv_layer(sh, pre, sp, list(xs)))
+
+
+def _rwkv_channel_mix(sh: _Shards, pre: str, sp: bool, xs: List[Tensor],
+                      h: List[Tensor], tails: List[Tensor]) -> List[Tensor]:
+    """rwkv6's channel mix (``models.rwkv6.rwkv6_channelmix``) of the
+    normed ``h`` (token shift from ``tails``) plus the residual ``xs``
+    over the row's model shards: cm_wk column-parallel over d_ff, cm_wv
+    row-parallel (f32 partials summed in shard order, reduce-scattered
+    over the sequence under SP), cm_wr column-parallel over d_model, its
+    sigmoid all-gathered over "model" (each shard then takes its
+    sequence block under SP)."""
+    parts, rs = [], []
+    for j, hj, tail in zip(sh.members, h, tails):
+        w = {n: sh.param(f"{pre}.{n}", j).float()
+             for n in ("cm_mu_k", "cm_mu_r", "cm_wk", "cm_wv", "cm_wr")}
+        xf = hj.float()
+        shifted = R6._token_shift(xf, tail.float())
+        xk = xf + (shifted - xf) * w["cm_mu_k"]
+        xr = xf + (shifted - xf) * w["cm_mu_r"]
+        parts.append(torch.square(torch.relu(xk @ w["cm_wk"])) @ w["cm_wv"])
+        rs.append(torch.sigmoid(xr @ w["cm_wr"]))
+    v = _combine(sh, parts, sp)
+    r = SH.all_gather(rs, 2, sh.m)
+    out = []
+    for j, x, rj, vj in zip(sh.members, xs, r, v):
+        if sp:
+            rj = SH._split(rj, 1, sh.m, j)
+        out.append(x + (rj * vj).to(x.dtype))
+    return out
+
+
+def _units(cfg: ArchConfig) -> List[Tuple[str, str, Any]]:
+    """The model's layers in order, each (kind, module prefix, cache
+    index): ("attn", "layers.{i}", i) for the attention-block families;
+    the hybrid's groups, each its Mamba2 layers ("mamba", "groups.{g}.{a}",
+    (conv key, ssm key, (g, a))) then ("attn", "shared", g), the shared
+    block's k/v cache indexed by the group, then its tail layers;
+    ("rwkv", "layers.{i}", i) for the ssm family."""
+    if cfg.family == "ssm":
+        return [("rwkv", f"layers.{i}", i) for i in range(cfg.n_layers)]
+    if cfg.family != "hybrid":
+        return [("attn", f"layers.{i}", i) for i in range(cfg.n_layers)]
+    n_groups, tail = T.layer_counts(cfg)
+    out: List[Tuple[str, str, Any]] = []
+    for g in range(n_groups):
+        out += [("mamba", f"groups.{g}.{a}", ("conv", "ssm", (g, a)))
+                for a in range(cfg.attn_every)]
+        out.append(("attn", "shared", g))
+    return out + [("mamba", f"tail.{t}", ("tail_conv", "tail_ssm", (t,)))
+                  for t in range(tail)]
 
 
 def _members(p: MeshParams, row: int) -> List[int]:
@@ -1133,9 +1385,11 @@ def _tp_train_turn(p: MeshParams, hooks, row: int, mb: Dict[str, Tensor],
     # multi-chip ring does, and a representative trace would not count
     with torch.set_grad_enabled(grad), set_checkpoint_early_stop(False):
         xs = _inputs(sh, mb, sp)
-        for li in range(cfg.n_layers):
-            out = T._remat(functools.partial(_tp_block, sh, li, sp),
-                           cfg)(*xs)
+        for kind, pre, ci in _units(cfg):
+            body = {"attn": functools.partial(_tp_block, sh, pre, ci, sp),
+                    "mamba": functools.partial(_tp_mamba, sh, pre, sp),
+                    "rwkv": functools.partial(_tp_rwkv, sh, pre, sp)}[kind]
+            out = T._remat(body, cfg)(*xs)
             xs = list(out[:len(xs)])
             if cfg.moe is not None:
                 aux = aux + out[-1].to(dev0)
@@ -1175,50 +1429,196 @@ def _sink_into(sh: _Shards, sink: Dict, accum: _Accumulator) -> None:
 # ---------------------------------------------------------------------------
 # Serving (the TP grain)
 # ---------------------------------------------------------------------------
+# a serving cache's leaves on the ring: key -> (path in the one-device
+# cache tree, batch axis, how "model" splits it: "spec" by the k/v spec,
+# "conv" into each shard's [x_j | B C] channels, "heads" into each shard's
+# heads, None not at all)
+_CACHE_LEAVES = {
+    "k": (("kv", "k"), 1, "spec"), "v": (("kv", "v"), 1, "spec"),
+    "conv": (("mamba", "conv"), 2, "conv"),
+    "ssm": (("mamba", "ssm"), 2, "heads"),
+    "tail_conv": (("mamba_tail", "conv"), 1, "conv"),
+    "tail_ssm": (("mamba_tail", "ssm"), 1, "heads"),
+    "tm_x": (("rwkv", "tm_x"), 1, None), "cm_x": (("rwkv", "cm_x"), 1, None),
+    "s": (("rwkv", "s"), 1, "heads"),
+}
+
+
 @dataclasses.dataclass(eq=False)
 class MeshCache:
-    """A KV cache laid out on the ring: ``shards[i]`` is ``{"k", "v"}`` of
-    position ``positions[i]``, each ``(L, B_local, T_local, H_local,
-    D)``; ``grain`` "heads" or "sequence"; ``spec`` the leaves' spec."""
+    """A serving cache laid out on the ring: ``shards[i]`` is position
+    ``positions[i]``'s ``{key: local leaf}`` (``_CACHE_LEAVES``: ``k``/
+    ``v`` (L, B_local, T_local, H_local, D), L the layers or the hybrid's
+    groups; the hybrid's ``conv``/``ssm`` and ``tail_conv``/``tail_ssm``;
+    rwkv6's ``tm_x``/``cm_x``/``s``).  ``grain`` is the k/v's, "heads" or
+    "sequence" (None without attention); ``spec`` and ``shape`` the k/v
+    leaves' spec and global shape.  ``split``: the batch is split over the
+    data rows; else every row holds all of it and the k/v's sequence is
+    split over "data" too (``long_500k``).  A Mamba2 shard holds its
+    heads' SSM state and the conv state of its [x_j | B C] channels (the
+    B/C channels on every shard, as its step reads them); rwkv6's shard
+    its heads' state and the token-shift rows whole."""
 
-    grain: str
+    grain: Optional[str]
     spec: tuple
-    shape: Tuple[int, ...]              # the global (L, B, T, Hkv, D)
+    shape: Tuple[int, ...]
     shards: List[Dict[str, Tensor]]
     positions: Tuple[int, ...]
+    cfg: ArchConfig
+    mesh: Any
+    split: bool
+
+    @property
+    def seq_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the k/v's sequence is split over."""
+        return SH.spec_axes(self.spec[2]) if self.spec else ()
+
+    def seq_block(self, pos: int) -> int:
+        """The k/v sequence block position ``pos`` holds."""
+        return SH._block(self.seq_axes, SH.coords(self.mesh, pos),
+                         self.mesh)[0]
+
+    def merge_group(self, pos: int) -> tuple:
+        """What the positions whose decode-attention partials merge with
+        ``pos``'s share: their coordinates off the sequence's axes."""
+        crd = SH.coords(self.mesh, pos)
+        return tuple(crd[a] for a in self.mesh.axis_names
+                     if a not in self.seq_axes)
 
 
-def cache_grain(cfg: ArchConfig, mesh) -> str:
+def cache_grain(cfg: ArchConfig, mesh) -> Optional[str]:
     """The reference's multi-grained cache choice (``cache_pspecs``):
     head-sharded where the k/v heads divide over "model", else
-    sequence-sharded."""
+    sequence-sharded; None without attention."""
+    if cfg.attention_free:
+        return None
     m = mesh.shape["model"]
     return "heads" if cfg.n_kv_heads >= m and cfg.n_kv_heads % m == 0 \
         else "sequence"
 
 
+def _batch_split(mesh, bsz: int) -> bool:
+    """Whether a serving batch splits over the data rows (the reference's
+    ``bs``); else every row serves all of it."""
+    return bsz % n_data(mesh, True) == 0
+
+
+def _cache_leaves(cfg: ArchConfig, bsz: int, max_len: int
+                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """key -> (global shape, dtype) of the family's serving cache
+    (``sharding.cache_shapes``, as ``init_cache`` lays it out on one
+    device)."""
+    dtype = torch_dtype(cfg.dtype)
+    keys = {path: key for key, (path, _, _) in _CACHE_LEAVES.items()}
+    return {keys[path]: (shape, F32 if path[1] in ("ssm", "s") else dtype)
+            for path, shape in SH._flat_items(SH.cache_shapes(cfg, bsz,
+                                                              max_len))}
+
+
+def _cut(cache: MeshCache, key: str, t: Tensor, pos: int) -> Tensor:
+    """Position ``pos``'s part of the global cache leaf ``t`` (a view, or
+    a new tensor for the conv state's channels)."""
+    _, bax, kind = _CACHE_LEAVES[key]
+    mesh, cfg = cache.mesh, cache.cfg
+    if kind == "spec":
+        return t[SH.local_slices(cache.spec, t.shape, mesh, pos)]
+    m = mesh.shape["model"]
+    row, j = divmod(pos, m)
+    if cache.split:
+        bl = t.shape[bax] // (mesh.size // m)
+        t = t.narrow(bax, row * bl, bl)
+    if kind == "conv":
+        ssm = cfg.ssm
+        h0, h1 = _split_range(mamba_heads(cfg), m, j)
+        di = ssm.expand * cfg.d_model
+        return torch.cat([t[..., h0 * ssm.head_dim:h1 * ssm.head_dim],
+                          t[..., di:]], -1)
+    if kind == "heads":
+        h0, h1 = _split_range(t.shape[bax + 1], m, j)
+        return t.narrow(bax + 1, h0, h1 - h0)
+    return t
+
+
+def _new_cache(p: MeshParams, bsz: int, max_len: int,
+               fill: Callable[[MeshCache, str, Tensor, int], Tensor]
+               ) -> MeshCache:
+    """A ``MeshCache`` for ``bsz`` sequences of up to ``max_len`` tokens,
+    its leaves ``fill(cache, key, meta stand-in of the local leaf,
+    position)``."""
+    cfg, mesh = p.cfg, p.mesh
+    grain = cache_grain(cfg, mesh)
+    leaves = _cache_leaves(cfg, bsz, max_len)
+    spec, shape = (), ()
+    if grain is not None:
+        spec = SH.cache_pspecs_for_batch(cfg, bsz, mesh)["kv"]["k"]
+        shape = leaves["k"][0]
+        SH.check_divides("kv/k", spec, shape, mesh)
+    cache = MeshCache(grain, spec, shape, [], p.positions, cfg, mesh,
+                      _batch_split(mesh, bsz))
+    for pos in p.positions:
+        cache.shards.append({
+            key: fill(cache, key, _cut(cache, key, torch.empty(
+                s, dtype=dt, device="meta"), pos), pos)
+            for key, (s, dt) in leaves.items()})
+    return cache
+
+
 def init_cache(p: MeshParams, bsz: int, max_len: int) -> MeshCache:
     """A zeroed ``MeshCache`` for ``bsz`` sequences of up to ``max_len``
-    tokens, laid out by ``sharding.cache_pspecs``."""
-    cfg, mesh = p.cfg, p.mesh
-    spec = SH.cache_pspecs_for_batch(cfg, bsz, mesh)["kv"]["k"]
-    shape = (cfg.n_layers, bsz, max_len, cfg.n_kv_heads, cfg.d_head)
-    SH.check_divides("kv/k", spec, shape, mesh)
-    local = SH.local_shape(spec, shape, mesh)
-    dtype = torch_dtype(cfg.dtype)
-    shards = [{k: torch.zeros(local, dtype=dtype,
-                              device=SH.device_of(mesh, pos))
-               for k in ("k", "v")} for pos in p.positions]
-    return MeshCache(cache_grain(cfg, mesh), spec, shape, shards,
-                     p.positions)
+    tokens: the k/v laid out by ``sharding.cache_pspecs``, the recurrent
+    states as ``MeshCache`` holds them."""
+    return _new_cache(p, bsz, max_len, lambda cache, key, t, pos:
+                      torch.zeros(t.shape, dtype=t.dtype,
+                                  device=SH.device_of(p.mesh, pos)))
 
 
-def gather_cache(cache: MeshCache, mesh, device) -> Dict[str, Tensor]:
-    """The global ``{"k", "v"}`` of a ``MeshCache`` on ``device``."""
-    return {k: SH.gather_leaf({pos: sh[k] for pos, sh in
-                               zip(cache.positions, cache.shards)},
-                              cache.spec, cache.shape, mesh, device,
-                              count=False) for k in ("k", "v")}
+def shard_cache(p: MeshParams, tree: Mapping[str, Any]) -> MeshCache:
+    """A one-device serving cache (the tree of ``p``'s model's
+    ``init_cache``) laid out on the ring: ``gather_cache``'s inverse."""
+    flat = dict(SH._flat_items(tree))
+    if ("kv", "k") in flat:
+        bsz, max_len = flat[("kv", "k")].shape[1:3]
+    else:
+        bsz, max_len = flat[("rwkv", "s")].shape[1], 1
+
+    def fill(cache, key, t, pos):
+        leaf = flat[_CACHE_LEAVES[key][0]]
+        return SH._own_copy(_cut(cache, key, leaf, pos),
+                            SH.device_of(p.mesh, pos))
+    return _new_cache(p, bsz, max_len, fill)
+
+
+def gather_cache(cache: MeshCache, mesh, device) -> Dict[str, Any]:
+    """The one-device cache tree of a ``MeshCache`` (every position
+    held) on ``device``, exactly as the family's ``init_cache`` lays it
+    out: ``{"kv"}``, the hybrid's ``{"kv", "mamba"[, "mamba_tail"]}``,
+    rwkv6's ``{"rwkv"}``."""
+    held = dict(zip(cache.positions, cache.shards))
+    m = mesh.shape["model"]
+    rows = range(mesh.size // m) if cache.split else (0,)
+    out: Dict[str, Any] = {}
+    for key in cache.shards[0]:
+        path, bax, kind = _CACHE_LEAVES[key]
+        if kind == "spec":
+            leaf = SH.gather_leaf({pos: sh[key] for pos, sh in held.items()},
+                                  cache.spec, cache.shape, mesh, device,
+                                  count=False)
+        else:
+            per_row = []
+            for row in rows:
+                parts = [held[row * m + j][key].to(device) for j in range(m)]
+                if kind == "conv":
+                    bc = 2 * cache.cfg.ssm.n_groups * cache.cfg.ssm.state
+                    parts = [q[..., :q.shape[-1] - bc] for q in parts] + \
+                        [parts[0][..., -bc:]]
+                    per_row.append(torch.cat(parts, -1))
+                elif kind == "heads":
+                    per_row.append(torch.cat(parts, bax + 1))
+                else:
+                    per_row.append(parts[0])
+            leaf = torch.cat(per_row, bax)
+        SH._set(out, path, leaf)
+    return out
 
 
 def _serve_shards(p: MeshParams, row: int) -> _Shards:
@@ -1235,10 +1635,11 @@ def _rows_of(p: MeshParams) -> List[int]:
     return sorted({pos // m for pos in p.positions})
 
 
-def _logits_out(p: MeshParams, parts: Dict[int, Tensor], bsz: int
-                ) -> Tensor:
-    """The global (B, V) logits from each position's (B_local, V / m)."""
-    spec = (SH.dp_axes(p.mesh), "model")
+def _logits_out(p: MeshParams, parts: Dict[int, Tensor], bsz: int,
+                split: bool) -> Tensor:
+    """The global (B, V) logits from each position's (B_local, V / m): of
+    the first row where every row serves the whole batch."""
+    spec = (SH.dp_axes(p.mesh) if split else None, "model")
     return SH.gather_leaf(parts, spec, (bsz, p.cfg.vocab), p.mesh,
                           SH.device_of(p.mesh, p.positions[0]),
                           receiver=p.positions[0])
@@ -1250,22 +1651,32 @@ def prefill(p: MeshParams, batch: Mapping[str, Tensor],
     """The prompt ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B,
     S, d) for vlm and audio, through the ring: (the last position's
     global f32 logits (B, V), the ``MeshCache`` of capacity ``max_len``
-    (default S) holding its K and V)."""
+    (default S) holding its K and V and the recurrent states).  A batch
+    that does not divide over the data rows runs whole on every row."""
     cfg = p.cfg
     inputs = _serve_inputs(cfg, batch)
     bsz, s = next(iter(inputs.values())).shape[:2]
-    cache = init_cache(p, bsz, max_len or s)
+    max_len = max_len or s
+    if max_len < s:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
+                         f"{max_len}")
+    cache = init_cache(p, bsz, max_len)
     logits = {}
     for row in _rows_of(p):
         sh = _serve_shards(p, row)
-        rows = _rows(inputs, p.mesh, True, row)
-        sp = sh.seq_sharded(bsz // n_data(p.mesh, True), s)
+        rows = _rows(inputs, p.mesh, True, row) if cache.split else inputs
+        sp = sh.seq_sharded(next(iter(rows.values())).shape[0], s)
         xs = _inputs(sh, rows, sp)
-        for li in range(cfg.n_layers):
-            xs = _prefill_block(sh, li, sp, xs, cache)
+        for kind, pre, ci in _units(cfg):
+            if kind == "attn":
+                xs = _prefill_block(sh, pre, ci, sp, xs, cache)
+            elif kind == "mamba":
+                xs = _mamba_layer(sh, pre, sp, xs, (cache,) + ci)
+            else:
+                xs = _rwkv_layer(sh, pre, sp, xs, (cache, ci))
         for j, lg in zip(sh.members, _head(sh, xs, sp)):
             logits[sh.pos(j)] = lg[:, -1]
-    return _logits_out(p, logits, bsz), cache
+    return _logits_out(p, logits, bsz, cache.split), cache
 
 
 def _serve_inputs(cfg: ArchConfig, batch: Mapping[str, Any]
@@ -1286,10 +1697,12 @@ def _cache_slot(cache: MeshCache, pos: int) -> Dict[str, Tensor]:
     return cache.shards[cache.positions.index(pos)]
 
 
-def _prefill_block(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
-                   cache: MeshCache) -> List[Tensor]:
+def _prefill_block(sh: _Shards, pre: str, ci: int, sp: bool,
+                   xs: List[Tensor], cache: MeshCache) -> List[Tensor]:
+    """The attention block ``pre`` over a prompt, its K/V written into
+    entry ``ci`` of the k/v cache: each position its sequence block of its
+    k/v heads (of every k/v head in the sequence grain)."""
     cfg = sh.p.cfg
-    pre = f"layers.{li}"
     h = [L.apply_norm(sh.tree(pre + ".attn_norm", j), x, cfg.norm)
          for j, x in zip(sh.members, xs)]
     h = _gather_seq(sh, h, sp)
@@ -1301,133 +1714,238 @@ def _prefill_block(sh: _Shards, li: int, sp: bool, xs: List[Tensor],
         q, k, v = L._project_qkv(p, hj, spec, torch.arange(s,
                                                           device=hj.device))
         slot = _cache_slot(cache, sh.pos(j))
+        tl = slot["k"].shape[2]
+        lo = cache.seq_block(sh.pos(j)) * tl
+        hi = min(lo + tl, s)
+        if hi > lo:
+            slot["k"][ci, :, :hi - lo] = k[:, lo:hi]
+            slot["v"][ci, :, :hi - lo] = v[:, lo:hi]
         if seq:
-            tl = slot["k"].shape[2]
-            lo, hi = j * tl, min((j + 1) * tl, s)
-            if hi > lo:
-                slot["k"][li, :, :hi - lo] = k[:, lo:hi]
-                slot["v"][li, :, :hi - lo] = v[:, lo:hi]
             k, v = sh.local_kv(j, k, v)
-        else:
-            slot["k"][li, :, :s] = k
-            slot["v"][li, :, :s] = v
         out = L.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                                 kv_chunk=cfg.kv_chunk)
         out = out.reshape(b, s, spec.n_heads * spec.d_head)
         y.append((out @ p["wo"]).to(hj.dtype))
     xs = [x + yj for x, yj in zip(xs, _combine(sh, y, sp))]
-    return _tp_ffn(sh, li, sp, xs, _serve_cf(cfg))[0]
+    return _tp_ffn(sh, pre, ci, sp, xs, _serve_cf(cfg))[0]
 
 
 @torch.no_grad()
-def decode(p: MeshParams, cache: MeshCache, batch: Mapping[str, Tensor]
-           ) -> Tuple[Tensor, MeshCache]:
+def decode(p: MeshParams, cache: MeshCache, batch: Mapping[str, Tensor],
+           per_row: bool = False) -> Tuple[Any, MeshCache]:
     """One token per sequence (``batch["tokens"]`` (B, 1), or
     ``batch["embeds"]`` (B, 1, d), at ``batch["position"]`` (B,)) through
-    the ring: (global f32 logits (B, V), the cache, written in place)."""
+    the ring: (global f32 logits (B, V), the cache, written in place).
+    The rows run layer by layer together: where the batch is replicated,
+    their attention partials merge over "data".  ``per_row``: every data
+    row's logits instead, a list (gathered without counting: a check
+    that the replicated rows agree, not a step's traffic)."""
     cfg = p.cfg
     inputs = _serve_inputs(cfg, batch)
     inputs["position"] = torch.as_tensor(batch["position"])
     bsz = inputs["position"].shape[0]
+    shs = [_serve_shards(p, row) for row in _rows_of(p)]
+    xs, pos = [], []
+    for sh in shs:
+        rows = _rows(inputs, p.mesh, True, sh.row) if cache.split \
+            else inputs
+        pos.append([rows["position"].long().to(sh.dev(j))
+                    for j in sh.members])
+        xs.append(_inputs(sh, rows, False, pos[-1]))
+    for kind, pre, ci in _units(cfg):
+        if kind == "attn":
+            xs = _decode_layer(shs, pre, ci, xs, pos, cache)
+        elif kind == "mamba":
+            xs = [_mamba_decode(sh, pre, ci, x, cache)
+                  for sh, x in zip(shs, xs)]
+        else:
+            xs = [_rwkv_decode(sh, pre, ci, x, cache)
+                  for sh, x in zip(shs, xs)]
     logits = {}
-    for row in _rows_of(p):
-        sh = _serve_shards(p, row)
-        rows = _rows(inputs, p.mesh, True, row)
-        pos = [rows["position"].long().to(sh.dev(j)) for j in sh.members]
-        xs = _inputs(sh, rows, False, pos)
-        for li in range(cfg.n_layers):
-            xs = _decode_block(sh, li, xs, pos, cache)
-        for j, lg in zip(sh.members, _head(sh, xs, False)):
+    for sh, x in zip(shs, xs):
+        for j, lg in zip(sh.members, _head(sh, x, False)):
             logits[sh.pos(j)] = lg[:, -1]
-    return _logits_out(p, logits, bsz), cache
+    if per_row:
+        return [SH.gather_leaf(
+            {sh.pos(j): logits[sh.pos(j)] for j in sh.members},
+            (None, "model"), (logits[sh.pos(sh.members[0])].shape[0],
+                              cfg.vocab), p.mesh, sh.dev(sh.members[0]),
+            receiver=sh.pos(sh.members[0]), count=False)
+            for sh in shs], cache
+    return _logits_out(p, logits, bsz, cache.split), cache
 
 
-def _decode_block(sh: _Shards, li: int, xs: List[Tensor],
-                  pos: List[Tensor], cache: MeshCache) -> List[Tensor]:
+def _mamba_decode(sh: _Shards, pre: str, ci: tuple, xs: List[Tensor],
+                  cache: MeshCache) -> List[Tensor]:
+    """One token through Mamba2 layer ``pre`` over the row's model
+    shards, each stepping its heads' state in place (cache leaves
+    ``ci[:2]`` at ``ci[2]``); the gated norm and out_proj as
+    ``_mamba_layer``'s."""
     cfg = sh.p.cfg
-    pre = f"layers.{li}"
-    h = [L.apply_norm(sh.tree(pre + ".attn_norm", j), x, cfg.norm)
+    kc, ks, idx = ci
+    h = [L.apply_norm(sh.tree(pre + ".norm", j), x, cfg.norm)
          for j, x in zip(sh.members, xs)]
-    if cache.grain == "heads":
-        y = []
-        for j, hj, pj in zip(sh.members, h, pos):
-            p, spec = sh.attn(pre + ".attn", j)
-            slot = _cache_slot(cache, sh.pos(j))
-            yj, _ = L.attention_decode(p, hj, spec, {"k": slot["k"][li],
-                                                     "v": slot["v"][li]}, pj)
-            y.append(yj)
-    else:
-        y = _decode_attn_seq(sh, li, h, pos, cache)
-    xs = [x + yj for x, yj in zip(xs, _combine(sh, y, False))]
-    return _tp_ffn(sh, li, False, xs, _serve_cf(cfg))[0]
-
-
-def _decode_attn_seq(sh: _Shards, li: int, h: List[Tensor],
-                     pos: List[Tensor], cache: MeshCache) -> List[Tensor]:
-    """Decode attention over a sequence-sharded cache: each shard writes
-    the new K/V where it holds the position, scores every q head against
-    its positions, and the shards' partial softmaxes (max, sum of
-    exponentials, weighted values) merge in shard order.  A shard whose
-    positions all lie past the token's has max -inf and weight 0.  Every
-    shard needs every q head: its own, all-gathered, or, where the q heads
-    do not divide (q/o gathered whole), all of them projected there."""
-    cfg = sh.p.cfg
-    pre = f"layers.{li}.attn"
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    g = hq // hkv
-    even = hq % sh.m == 0
-    qs, parts, wos = [], [], []
-    for j, hj, pj in zip(sh.members, h, pos):
-        p, spec = sh.attn(pre, j, all_kv=True, all_q=not even)
-        q, k, v = L._project_qkv(p, hj, spec, pj[:, None])
-        h0, h1 = sh.q_heads(j)
-        wos.append(p["wo"] if even else p["wo"][h0 * dh:h1 * dh])
+    ps, ys = [], []
+    for j, hj in zip(sh.members, h):
         slot = _cache_slot(cache, sh.pos(j))
-        kc, vc = slot["k"][li], slot["v"][li]
-        tl = kc.shape[1]
-        local = pj - j * tl
-        mine = ((local >= 0) & (local < tl))[:, None, None]
-        idx = local.clamp(0, tl - 1)
-        bidx = torch.arange(hj.shape[0], device=hj.device)
-        # every row written, with its old value where the shard does not
-        # hold the position (no data-dependent shapes: meta traces it)
-        kc[bidx, idx] = torch.where(mine, k[:, 0], kc[bidx, idx])
-        vc[bidx, idx] = torch.where(mine, v[:, 0], vc[bidx, idx])
-        qs.append(q)
-        parts.append((kc, vc, j * tl + torch.arange(tl, device=hj.device)))
-    q_all = SH.all_gather(qs, 2, sh.m) if even else qs  # (b, 1, Hq, D)
-    ms, ls, os_ = [], [], []
-    for (kc, vc, tpos), qa, pj in zip(parts, q_all, pos):
-        b = qa.shape[0]
-        qg = qa.reshape(b, hkv, g, dh).float()
-        scores = torch.einsum("bhgd,bkhd->bhgk", qg, kc.float()) \
-            * (dh ** -0.5)
-        valid = tpos[None, :] <= pj[:, None]
-        scores = torch.where(valid[:, None, None, :], scores,
-                             float("-inf"))
-        mx = scores.max(-1).values
-        safe = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
-        w = torch.exp(scores - safe[..., None])
-        ms.append(mx[None])
-        ls.append(w.sum(-1)[None])
-        os_.append(torch.einsum("bhgk,bkhd->bhgd", w, vc.float())[None])
-    ms = SH.all_gather(ms, 0, sh.m)
-    ls = SH.all_gather(ls, 0, sh.m)
-    os_ = SH.all_gather(os_, 0, sh.m)
-    y = []
-    for j, mj, lj, oj, hj, wo in zip(sh.members, ms, ls, os_, h, wos):
-        big = mj.max(0).values
-        num = torch.zeros_like(oj[0])
-        den = torch.zeros_like(lj[0])
-        for c in range(mj.shape[0]):
-            wc = torch.exp(mj[c] - big)
-            num = num + wc[..., None] * oj[c]
-            den = den + wc * lj[c]
-        out = (num / den[..., None]).reshape(hj.shape[0], hq, dh)
-        h0, h1 = sh.q_heads(j)
-        out = out[:, h0:h1].reshape(hj.shape[0], 1, (h1 - h0) * dh)
-        y.append((out.to(hj.dtype) @ wo).to(hj.dtype))
-    return y
+        conv, ssm = slot[kc][idx], slot[ks][idx]
+        p = sh.mamba(pre + ".mamba", j)
+        y, new = M2.mamba2_mix_step(p, hj, {"conv": conv, "ssm": ssm},
+                                    cfg.ssm)
+        conv.copy_(new["conv"])
+        ssm.copy_(new["ssm"])
+        ps.append(p)
+        ys.append(y)
+    ms = _mean_square(sh, ys, cfg.ssm.expand * cfg.d_model)
+    parts = [M2.gated_norm_out(p, y, m, hj.dtype, partial=True)[:, None]
+             for p, y, m, hj in zip(ps, ys, ms, h)]
+    return [x + y.to(x.dtype) for x, y in zip(xs, _combine(sh, parts,
+                                                            False))]
+
+
+def _rwkv_decode(sh: _Shards, pre: str, li: int, xs: List[Tensor],
+                 cache: MeshCache) -> List[Tensor]:
+    """One token through rwkv6 layer ``pre`` over the row's model shards
+    (the time mix a one-step scan of each shard's heads), its state
+    (entry ``li``) written in place after the layer."""
+    cfg = sh.p.cfg
+    slots = [_cache_slot(cache, sh.pos(j)) for j in sh.members]
+    h = [L.apply_norm(sh.tree(pre + ".ln1", j), x, cfg.norm)
+         for j, x in zip(sh.members, xs)]
+    parts, news = [], []
+    for j, hj, slot in zip(sh.members, h, slots):
+        y, s_new = R6.rwkv6_timemix_scan(sh.rwkv(pre + ".mix", j), hj,
+                                         slot["tm_x"][li], slot["s"][li],
+                                         partial=True)
+        parts.append(y)
+        news.append(s_new)
+    xs = [x + y.to(x.dtype) for x, y in zip(xs, _combine(sh, parts, False))]
+    h2 = [L.apply_norm(sh.tree(pre + ".ln2", j), x, cfg.norm)
+          for j, x in zip(sh.members, xs)]
+    xs = _rwkv_channel_mix(sh, pre + ".mix", False, xs, h2,
+                           [slot["cm_x"][li] for slot in slots])
+    for slot, hj, h2j, s_new in zip(slots, h, h2, news):
+        slot["tm_x"][li].copy_(hj)
+        slot["cm_x"][li].copy_(h2j)
+        slot["s"][li].copy_(s_new)
+    return xs
+
+
+def _decode_layer(shs: List[_Shards], pre: str, ci: int,
+                  xs: List[List[Tensor]], pos: List[List[Tensor]],
+                  cache: MeshCache) -> List[List[Tensor]]:
+    """One token through attention block ``pre`` (k/v cache entry
+    ``ci``) on every data row: local attention where the cache's
+    sequence is whole on a position, else ``_decode_attn_merge``."""
+    cfg = shs[0].p.cfg
+    hs = [[L.apply_norm(sh.tree(pre + ".attn_norm", j), x, cfg.norm)
+           for j, x in zip(sh.members, xr)] for sh, xr in zip(shs, xs)]
+    if cache.seq_axes:
+        ys = _decode_attn_merge(shs, pre + ".attn", ci, hs, pos, cache)
+    else:
+        ys = []
+        for sh, hr, pr in zip(shs, hs, pos):
+            yr = []
+            for j, hj, pj in zip(sh.members, hr, pr):
+                p, spec = sh.attn(pre + ".attn", j)
+                slot = _cache_slot(cache, sh.pos(j))
+                yj, _ = L.attention_decode(p, hj, spec,
+                                           {"k": slot["k"][ci],
+                                            "v": slot["v"][ci]}, pj)
+                yr.append(yj)
+            ys.append(yr)
+    out = []
+    for sh, xr, yr in zip(shs, xs, ys):
+        xr = [x + yj for x, yj in zip(xr, _combine(sh, yr, False))]
+        out.append(_tp_ffn(sh, pre, ci, False, xr, _serve_cf(cfg))[0])
+    return out
+
+
+def _decode_attn_merge(shs: List[_Shards], pre: str, ci: int,
+                       hs: List[List[Tensor]], pos: List[List[Tensor]],
+                       cache: MeshCache) -> List[List[Tensor]]:
+    """Decode attention over a cache whose sequence is split: over
+    "model" in the sequence grain, and also over "data" where the batch
+    is replicated (the heads grain's sequence over "data", the sequence
+    grain's over ("data", "model")).  Each position writes the new K/V
+    where it holds the token's position, scores its q heads against its
+    positions, and the partial softmaxes (max, sum of exponentials,
+    weighted values) of the positions holding the same heads merge in
+    the order of their sequence blocks: data-major, then model.  A
+    position whose positions all lie past the token's has max -inf and
+    weight 0.  In the sequence grain every position needs every q head:
+    its own, all-gathered over "model", or, where the q heads do not
+    divide (q/o gathered whole), all of them projected there."""
+    cfg = shs[0].p.cfg
+    dh = cfg.d_head
+    heads = cache.grain == "heads"
+    partial, finish = {}, {}
+    for sh, hr, pr in zip(shs, hs, pos):
+        every_q = not heads and cfg.n_heads % sh.m == 0
+        qs, held = [], []
+        for j, hj, pj in zip(sh.members, hr, pr):
+            at = sh.pos(j)
+            p, spec = sh.attn(pre, j, all_kv=not heads,
+                              all_q=not heads and not every_q)
+            q, k, v = L._project_qkv(p, hj, spec, pj[:, None])
+            h0, h1 = sh.q_heads(j)
+            wo = p["wo"] if heads or every_q else p["wo"][h0 * dh:h1 * dh]
+            slot = _cache_slot(cache, at)
+            kc, vc = slot["k"][ci], slot["v"][ci]
+            tl = kc.shape[1]
+            start = cache.seq_block(at) * tl
+            local = pj - start
+            mine = ((local >= 0) & (local < tl))[:, None, None]
+            idx = local.clamp(0, tl - 1)
+            bidx = torch.arange(hj.shape[0], device=hj.device)
+            # every row written, with its old value where the position is
+            # not held here (no data-dependent shapes: meta traces it)
+            kc[bidx, idx] = torch.where(mine, k[:, 0], kc[bidx, idx])
+            vc[bidx, idx] = torch.where(mine, v[:, 0], vc[bidx, idx])
+            qs.append(q)
+            held.append((at, kc, vc, start + torch.arange(tl,
+                                                          device=hj.device)))
+            finish[at] = (None if heads else (h0, h1), wo, hj)
+        q_all = SH.all_gather(qs, 2, sh.m) if every_q else qs  # (b, 1, H, D)
+        for (at, kc, vc, tpos), qa, pj in zip(held, q_all, pr):
+            b, hkv = qa.shape[0], kc.shape[2]
+            qg = qa.reshape(b, hkv, qa.shape[2] // hkv, dh).float()
+            scores = torch.einsum("bhgd,bkhd->bhgk", qg, kc.float()) \
+                * (dh ** -0.5)
+            valid = tpos[None, :] <= pj[:, None]
+            scores = torch.where(valid[:, None, None, :], scores,
+                                 float("-inf"))
+            mx = scores.max(-1).values
+            safe = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+            w = torch.exp(scores - safe[..., None])
+            partial[at] = (mx[None], w.sum(-1)[None],
+                           torch.einsum("bhgk,bkhd->bhgd", w,
+                                        vc.float())[None])
+    groups: Dict[tuple, List[int]] = {}
+    for at in partial:
+        groups.setdefault(cache.merge_group(at), []).append(at)
+    n = int(np.prod([cache.mesh.shape[a] for a in cache.seq_axes]))
+    ys = {}
+    for members in groups.values():
+        members.sort(key=cache.seq_block)
+        ms, ls, os_ = (SH.all_gather([partial[a][i] for a in members], 0, n)
+                       for i in range(3))
+        for at, mj, lj, oj in zip(members, ms, ls, os_):
+            big = mj.max(0).values
+            num = torch.zeros_like(oj[0])
+            den = torch.zeros_like(lj[0])
+            for c in range(mj.shape[0]):
+                wc = torch.exp(mj[c] - big)
+                num = num + wc[..., None] * oj[c]
+                den = den + wc * lj[c]
+            cut, wo, hj = finish[at]
+            b = hj.shape[0]
+            out = (num / den[..., None]).reshape(b, -1, dh)
+            if cut is not None:
+                out = out[:, cut[0]:cut[1]]
+            out = out.reshape(b, 1, -1)
+            ys[at] = (out.to(hj.dtype) @ wo).to(hj.dtype)
+    return [[ys[sh.pos(j)] for j in sh.members] for sh in shs]
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.obs.metrics import default_metrics
 
 Spec = Tuple[Any, ...]
+RWKV_HEAD_SIZE = 64         # models/rwkv6.HEAD_SIZE
 
 # Logical param rules: leaf name -> spec for the BASE (unstacked) shape using
 # logical axes: "tp" -> 'model', "fsdp" -> the data axes, None -> replicated.
@@ -202,6 +203,40 @@ def cache_pspecs_for_batch(cfg: ArchConfig, b: int, mesh) -> Dict[str, Any]:
         if cfg.n_layers % cfg.attn_every:
             out["mamba_tail"] = {"conv": P(None, bs, None, "model"),
                                  "ssm": P(None, bs, "model", None, None)}
+    return out
+
+
+def cache_shapes(cfg: ArchConfig, b: int, max_len: int) -> Dict[str, Any]:
+    """The global shapes of a serving cache of ``b`` sequences of up to
+    ``max_len`` tokens, in the tree of ``cache_pspecs`` (the one-device
+    ``init_cache`` of ``models/transformer.py``): ``kv`` (L, or the
+    hybrid's groups G, B, T, Hkv, D); the hybrid's ``mamba`` (G, A, B,
+    K-1, C) conv and (G, A, B, H, S, P) ssm and its ``mamba_tail``;
+    rwkv6's ``rwkv`` (L, B, 1, d) token shifts and (L, B, H, 64, 64)
+    state.  A ring holds the recurrent leaves by head, not by these specs'
+    storage blocks (``parallel/ring.py``, ``MeshCache``)."""
+    if cfg.family == "ssm":
+        h = cfg.d_model // RWKV_HEAD_SIZE
+        x = (cfg.n_layers, b, 1, cfg.d_model)
+        return {"rwkv": {"tm_x": x, "cm_x": x,
+                         "s": (cfg.n_layers, b, h, RWKV_HEAD_SIZE,
+                               RWKV_HEAD_SIZE)}}
+    n_att = cfg.n_layers
+    if cfg.family == "hybrid":
+        n_att, tail = divmod(cfg.n_layers, cfg.attn_every)
+    kv = (n_att, b, max_len, cfg.n_kv_heads, cfg.d_head)
+    out: Dict[str, Any] = {"kv": {"k": kv, "v": kv}}
+    if cfg.family == "hybrid":
+        ssm = cfg.ssm
+        di = ssm.expand * cfg.d_model
+        nh = di // ssm.head_dim
+        conv = (b, ssm.conv_kernel - 1, di + 2 * ssm.n_groups * ssm.state)
+        state = (b, nh, ssm.state, ssm.head_dim)
+        out["mamba"] = {"conv": (n_att, cfg.attn_every) + conv,
+                        "ssm": (n_att, cfg.attn_every) + state}
+        if tail:
+            out["mamba_tail"] = {"conv": (tail,) + conv,
+                                 "ssm": (tail,) + state}
     return out
 
 

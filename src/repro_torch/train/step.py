@@ -26,7 +26,7 @@ step on the ``meta`` device under ``launch.dryrun.CostCounter`` instead
 Serve: ``build_prefill_step`` (last-position logits and the cache) and
 ``build_decode_step`` (one token), both without gradients and both under
 the mesh's hooks; on a ring they take a ``ring.MeshParams`` and a
-``ring.MeshCache`` (the dense family, TP).
+``ring.MeshCache`` (every family, TP).
 """
 from __future__ import annotations
 

@@ -348,6 +348,20 @@ def test_multi_pod_raises(tmp_path):
         make_production_mesh(multi_pod=True, device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_multi_pod_recurrent_serving_cells(arch, shape):
+    """zamba2-7b's and rwkv6-3b's serving cells on the (2, 16, 16) mesh:
+    one chip traced in the TP grain.  ``long_500k`` replicates its batch
+    of 1 and splits zamba2's k/v sequence over "data" (32 k/v heads over
+    "model"); rwkv6-3b's 40 heads go 3, 3, ..., 2 over 16 shards, their
+    projections gathered whole."""
+    r = dryrun.run_cell(arch, shape, True)
+    assert (r["status"], r["source"], r["n_chips"]) == ("ok", "model", 512)
+    assert r["fits"] and r["collectives"]["ring_bytes"]["all-gather"] > 0
+    assert r["collectives"]["ring_bytes"]["all-reduce"] > 0
+
+
 def test_multi_pod_train_cell_is_modelled():
     """llama3-405b train_4k on the (2, 16, 16) mesh: one chip traced (the
     TP + SP grain, 8 q heads per shard reading one gathered k/v head)."""
@@ -407,8 +421,29 @@ def test_reduced_moe_and_vlm_cells_on_a_meta_mesh(arch, shape):
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
 def test_hybrid_and_ssm_serving_on_a_mesh_is_unsupported(arch):
-    mesh = make_mesh_for(1, 2, devices=("meta",) * 2)
-    r = dryrun.run_config(reduced(get_config(arch)), "decode_32k", mesh=mesh,
-                          batch_override=2, seq_override=64)
-    assert r["status"] == "unsupported"
-    assert "Mamba2/rwkv6 TP" in r["reason"] and "item 6" in r["reason"]
+    """Once refused, now served: reduced zamba2-7b's and rwkv6-3b's
+    ``decode_32k`` and ``long_500k`` cells return "ok" on a (2, 2) ring
+    of ``meta`` devices, and the model of each (one representative
+    position) equals the ``repro.mesh.*`` bytes of a decode step on a
+    CPU ring (``long_500k``'s batch of 1 replicated on both data rows,
+    the k/v's sequence over "data")."""
+    from repro_torch.parallel import ring
+    from repro_torch.parallel import sharding as SH
+    cfg = reduced(get_config(arch))
+    meta_mesh = make_mesh_for(2, 2, devices=("meta",) * 4)
+    cpu = make_mesh_for(2, 2, devices=("cpu",) * 4)
+    mp = ring.shard_params(init_params(cfg, device="cpu"), cpu, tp=True)
+    for cell, b in (("decode_32k", 2), ("long_500k", 1)):
+        r = dryrun.run_config(cfg, cell, mesh=meta_mesh, batch_override=b,
+                              seq_override=64)
+        assert (r["status"], r["source"]) == ("ok", "model"), r
+        cache = ring.init_cache(mp, b, 64)
+        assert cache.split == (b == 2)
+        before = SH.collective_bytes()
+        S.build_decode_step(cpu)(mp, cache, {
+            "tokens": torch.zeros((b, 1), dtype=torch.long),
+            "position": torch.full((b,), 3)})
+        got = {k: v - before[k] for k, v in SH.collective_bytes().items()}
+        want = {k.replace("-", "_"): v
+                for k, v in r["collectives"]["ring_bytes"].items()}
+        assert want == got, cell

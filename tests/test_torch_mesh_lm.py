@@ -120,10 +120,12 @@ def test_indivisible_spec_raises_naming_leaf_and_axis():
     model = T.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="wq: 2 heads .* 'model' \\(4\\)"):
         ring.shard_params(model, _ring(1, 4), tp=True)
+    # the hybrid's 8 Mamba2 heads leave 8 of 16 model shards without one
     hybrid = T.init_params(treg.reduced(treg.get_config("zamba2-7b")),
                            device="cpu")
-    with pytest.raises(ValueError, match="hybrid family has no TP grain"):
-        ring.shard_params(hybrid, _ring(1, 2), tp=True)
+    with pytest.raises(ValueError, match="8 Mamba2 heads .* 'model' "
+                                         "\\(16\\) without one"):
+        ring.shard_params(hybrid, _ring(1, 16), tp=True)
 
 
 def _steps(step, state, cfg, b, s, seeds):

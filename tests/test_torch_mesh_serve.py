@@ -96,7 +96,7 @@ def test_ring_serving_matches_one_device_and_reference(arch, shape, prompt,
         l1, c1 = dc1(model, c1, {"tokens": nxt, "position": pos})
         lr, cr = dcr(mp, cr, {"tokens": nxt.numpy(), "position": pos})
         seq = np.concatenate([seq, nxt.numpy()], 1)
-    kv = ring.gather_cache(cr, mesh, "cpu")
+    kv = ring.gather_cache(cr, mesh, "cpu")["kv"]
     for k in ("k", "v"):
         _close(kv[k], c1["kv"][k], f"cache {k}")
 
@@ -161,6 +161,6 @@ def test_attention_families_serve_in_both_cache_grains(arch, moe_over,
         pos = torch.full((bsz,), prompt + t)
         l1, c1 = dc1(model, c1, dict(nxt, position=pos))
         lr, cr = dcr(mp, cr, dict(nxt, position=pos))
-    kv = ring.gather_cache(cr, mesh, "cpu")
+    kv = ring.gather_cache(cr, mesh, "cpu")["kv"]
     for k in ("k", "v"):
         _close(kv[k], c1["kv"][k], f"cache {k}")
