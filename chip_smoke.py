@@ -217,7 +217,27 @@ Phases, each of which raises (non-zero exit) on failure:
                ``flash_attention_fwd_f32`` row (kernel, plain version,
                SDPA in f32, bound at 67 TFLOP/s) at ``train_lm``'s shape,
                its launches counted from 0 over the two ``train_lm`` runs
-               (``serve_lm``'s printed apart).
+               (``serve_lm``'s printed apart).  Then the four conv
+               examples at their defaults, the MG3M launch counts set to 0
+               before each and read after: ``quickstart``, ``serve_conv``
+               (its plan artifact in the temporary directory),
+               ``mg3m_cnn`` (launches in each of fprop, dgrad and wgrad,
+               attributed per ``ConvPlan.execute``; then one step from its
+               start, loss and every gradient through the plans, against
+               autograd on ``F.conv2d`` on the kernels' ReLU branches,
+               gradients within ``GRAD_TOL``) and ``serve_cnn`` (alexnet
+               and resnet at the paper's widths, 3 layers each, buckets
+               1-8, with its parity and steady-state checks; then every
+               served layer's plan at every rung against
+               ``kernels.ref.conv_ref`` within 1e-4 of max |ref|),
+               each launching at least one MG3M kernel; around
+               ``serve_cnn`` a fresh default ``MetricRegistry`` and an
+               enabled default ``Tracer``, its scheduler's metrics (with
+               the drift snapshot) dumped and the trace exported, both
+               read by ``launch.obsreport.build_report``: the report's
+               deadline requests and sheds equal the scheduler's
+               ``stats()``, and it has a ``layers`` entry for every served
+               layer.
  17. shard    ``repro_torch.shard`` on a ring of 4 x this card
                (``(cuda:0,) * 4``) over the full-width ResNet trunk:
                every layer at bucket 8, every op (fprop, dgrad, wgrad) and
@@ -320,7 +340,9 @@ Phases, each of which raises (non-zero exit) on failure:
                counters measured there; its per-chip peak times 4 beside
                the card's.  Then one JSON line per (arch x shape) cell of
                the full-size grid, traced in one process per CPU core (at
-               most 8), ``fits`` against this card's memory.
+               most 8), ``fits`` against this card's memory; the grid's
+               cells and the three steps' rooflines rendered as
+               ``launch.make_experiments``' tables.
 
 In the ``kernels`` line, ``ms`` and ``library_ms`` are device time (20
 calls replayed from a CUDA graph, the host's time per call left out);
@@ -958,12 +980,13 @@ def train_path(torch, policy: str = "analytic"):
             "counts": counts, "step_ms": med, "losses": losses}
 
 
-def _forward_branches(torch, run, mb):
+def _forward_branches(torch, run, mb, flip_share: float = FLIP_SHARE):
     """The kernels' forward of one microbatch beside ``F.conv2d``'s on the
     kernels' ReLU branches: the branches (NCHW masks), and per layer
     max |dz| / max |z|, the branch flips and the largest flipped |z| /
     max |z|.  Raises if a layer's forward differs by more than
-    ``FWD_TOL`` or the flips exceed ``FLIP_SHARE``."""
+    ``FWD_TOL`` or the flips exceed ``flip_share`` of the
+    pre-activations."""
     from repro_torch.models.cnn import nhwc_to_plan
 
     F = torch.nn.functional
@@ -989,11 +1012,11 @@ def _forward_branches(torch, run, mb):
             zo = zo * masks[name]
     worst = max(fwd, key=lambda k: fwd[k][0])
     flips = sum(v[1] for v in fwd.values())
-    if fwd[worst][0] > FWD_TOL or flips > FLIP_SHARE * n_pre:
+    if fwd[worst][0] > FWD_TOL or flips > flip_share * n_pre:
         raise AssertionError(
             f"the kernels' forward differs from F.conv2d's: {worst} "
             f"{fwd[worst][0]:.3e} of max |z| (tol {FWD_TOL}), {flips} ReLU "
-            f"branch flips of {n_pre} (at most {FLIP_SHARE:g} of them); "
+            f"branch flips of {n_pre} (at most {flip_share:g} of them); "
             f"(max |dz|, flips, max flipped |z|) by layer {fwd}")
     return masks, fwd, flips, n_pre
 
@@ -3113,15 +3136,18 @@ def roofline_phase(measured: dict, mesh_runs: Optional[dict] = None
     model fraction (model bound / time) and ``roofline_fraction`` must lie
     in (0, 1.05].  Then one JSON line per cell of the full-size grid, in
     one worker process per CPU core (at most ``GRID_JOBS``), ``fits``
-    against this card's memory."""
+    against this card's memory; the grid's cells and the three steps'
+    rooflines rendered as ``launch.make_experiments``' tables."""
     from repro_torch.launch import dryrun
+    from repro_torch.launch import make_experiments as E
     from repro_torch.launch import roofline as R
 
-    t0 = time.perf_counter()
+    t0, roofs = time.perf_counter(), []
     for name, shape, b, seq, n_mb in CUT_CELLS:
         ms, args, peak, what, when = measured[name]
         r = R.run_cell(DENSE_ARCH, shape, batch_override=b, seq_override=seq,
                        n_microbatches=n_mb)
+        roofs.append(r)
         fracs = {"measured fraction": R.measured_fraction(r, ms / 1e3),
                  "model fraction": R.model_fraction(r, ms / 1e3),
                  "roofline_fraction": r["roofline_fraction"]}
@@ -3148,15 +3174,17 @@ def roofline_phase(measured: dict, mesh_runs: Optional[dict] = None
                                      f"(0, 1.05]: the count is wrong")
     if mesh_runs is not None:
         mesh_model(mesh_runs)
-    t1, n_fit = time.perf_counter(), 0
+    t1, grid = time.perf_counter(), []
     jobs = min(len(os.sched_getaffinity(0)), GRID_JOBS)
     for cell in dryrun.run_grid(jobs=jobs):
-        n_fit += bool(cell.get("fits"))
+        grid.append(cell)
         print(json.dumps(cell))
+    n_fit = sum(bool(cell.get("fits")) for cell in grid)
     cap = dryrun.card_memory_bytes()
     print(f"dry-run grid: {n_fit} cells fit this card's {cap / 1e9:.1f} GB "
-          f"({time.perf_counter() - t1:.1f} s in {jobs} processes); "
-          f"roofline phase {time.perf_counter() - t0:.1f} s")
+          f"({time.perf_counter() - t1:.1f} s in {jobs} processes)")
+    print(E.render(grid, [], roofs))
+    print(f"roofline phase {time.perf_counter() - t0:.1f} s")
 
 
 def examples_phase(torch, tmp: str) -> dict:
@@ -3197,7 +3225,253 @@ def examples_phase(torch, tmp: str) -> dict:
           f"resumed at step 10 bitwise equal (flash launched {launches} "
           f"times over both runs, at the f32 row's shape); "
           f"{time.perf_counter() - t0:.1f} s")
-    return flash_f32_row(torch, launches)
+    row = flash_f32_row(torch, launches)
+    conv_examples(torch, tmp)
+    return row
+
+
+def _example(torch, name: str, fn):
+    """``fn()`` with the MG3M launch counts set to 0 before and read
+    after: (its result, launches per grain, wall seconds).  At least one
+    MG3M kernel must have launched."""
+    from repro_torch.kernels import mg3m_conv as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    if not sum(counts.values()):
+        raise AssertionError(f"{name} launched no MG3M kernel: {counts}")
+    return out, counts, wall
+
+
+def conv_examples(torch, tmp: str) -> None:
+    """The four conv examples in-process on the card at their defaults
+    (phase 16's second half; see the module docstring)."""
+    from repro_torch.examples import mg3m_cnn, quickstart, serve_cnn, \
+        serve_conv
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.launch import obsreport
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.plan.build import ConvPlan
+
+    t0 = time.perf_counter()
+    got, counts, wall = _example(torch, "quickstart",
+                                 lambda: quickstart.main([]))
+    print(f"examples: quickstart launches {counts}, {wall:.2f} s; max |err| "
+          f"{got['err']:.3e} against the oracle, one-shot call "
+          f"{got['one_shot_err']:.3e} from the plan")
+
+    plans = os.path.join(tmp, "serve_conv_plans.json")
+    got, counts, wall = _example(torch, "serve_conv",
+                                 lambda: serve_conv.main(["--plans", plans]))
+    first, second = got["first"], got["second"]
+    if not all(torch.equal(a, b) for a, b in zip(first["outs"],
+                                                  second["outs"])):
+        raise AssertionError("serve_conv: the reloaded plans' outputs "
+                             "differ from the first process's")
+    print(f"examples: serve_conv launches {counts}, {wall:.2f} s; cold "
+          f"{first['cold_ms']:.1f} ms then {first['warm_ms']:.3f} "
+          f"ms/request; reloaded {got['loaded']} plans, cold "
+          f"{second['cold_ms']:.1f} ms then {second['warm_ms']:.3f} "
+          f"ms/request, misses {second['stats']['misses']}, outputs "
+          f"bitwise equal")
+
+    # launches per direction: each ConvPlan.execute's share of the counts
+    by_dir = {"fprop": 0, "dgrad": 0, "wgrad": 0}
+    execute = ConvPlan.execute
+
+    def counted(plan, a, b):
+        before = sum(K.launch_counts().values())
+        out = execute(plan, a, b)
+        by_dir[plan.op.value] += sum(K.launch_counts().values()) - before
+        return out
+
+    ConvPlan.execute = counted
+    try:
+        got, counts, wall = _example(torch, "mg3m_cnn",
+                                     lambda: mg3m_cnn.main([]))
+    finally:
+        ConvPlan.execute = execute
+    if not all(by_dir.values()) or sum(by_dir.values()) != sum(
+            counts.values()):
+        raise AssertionError(f"mg3m_cnn launches by direction {by_dir}, by "
+                             f"grain {counts}")
+    picks = "; ".join(
+        f"{n} " + "/".join(p.schedule or "plain"
+                           for p in (t.fprop, t.dgrad, t.wgrad))
+        for n, t in got["plans"].items())
+    losses = got["losses"]
+    print(f"examples: mg3m_cnn launches {counts}, by direction {by_dir}, "
+          f"{wall:.2f} s; {len(losses)} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, accuracy {got['acc']:.3f}; grains "
+          f"(fprop/dgrad/wgrad) {picks}")
+    mg3m_cnn_oracle(torch, got["plans"])
+
+    old_metrics = obs_metrics.default_metrics()
+    old_tracer = obs_trace.default_tracer()
+    obs_metrics.set_default_metrics(obs_metrics.MetricRegistry())
+    obs_trace.set_default_tracer(obs_trace.Tracer(enabled=True))
+    try:
+        got, counts, wall = _example(torch, "serve_cnn",
+                                     lambda: serve_cnn.main([]))
+        sched = got["sched"]
+        dump = sched.metrics.dump(os.path.join(tmp, "serve_cnn_metrics.json"),
+                                  extra={"drift": sched.drift.snapshot()})
+        trace = obs_trace.default_tracer().export(
+            os.path.join(tmp, "serve_cnn_trace.json"))
+    finally:
+        obs_metrics.set_default_metrics(old_metrics)
+        obs_trace.set_default_tracer(old_tracer)
+    with open(dump) as f:
+        report = obsreport.build_report(json.load(f))
+    with open(trace) as f:
+        spans = obsreport.build_report(json.load(f))
+    bursts, over, last = got["stats"]
+    slo = report["slo"]
+    if (slo["deadline_requests"] != last["deadline_requests"]
+            or slo["shed_total"] != last["shed"]):
+        raise AssertionError(f"obsreport's slo {slo} disagrees with the "
+                             f"scheduler's stats {last}")
+    served = {layer for net in sched.nets().values() for layer in net}
+    if set(spans.get("layers", {})) != served:
+        raise AssertionError(f"the trace report's layers "
+                             f"{sorted(spans.get('layers', {}))} are not "
+                             f"the served layers {sorted(served)}")
+    q = {k: (slo[k]["p50"] * 1e3, slo[k]["p99"] * 1e3)
+         for k in ("queue_wait", "dispatch")}
+    scenes = ", ".join(f"{n} {sched._layers[n].base.describe()}"
+                       for n in sorted(served))
+    print(f"examples: serve_cnn launches {counts}, {wall:.2f} s; "
+          f"{got['accepted']} accepted (each bitwise equal to per-layer "
+          f"B=1 dispatch), {got['shed']} shed; "
+          f"deadline misses {last['deadline_misses']}/"
+          f"{last['deadline_requests']}, flushes by reason "
+          f"{ {k: int(v) for k, v in slo['flushes'].items()} }, "
+          f"{last['dispatches']} dispatches, "
+          f"mean batch {last['mean_batch']:.2f}, plan misses "
+          f"{last['plan_misses']}, builds {last['plan_builds']}; obsreport "
+          f"p50/p99 ms queue_wait {q['queue_wait'][0]:.3f}/"
+          f"{q['queue_wait'][1]:.3f}, dispatch {q['dispatch'][0]:.3f}/"
+          f"{q['dispatch'][1]:.3f}; {len(spans['layers'])} layers traced")
+    print(f"  serve_cnn scenes (B=1 members): {scenes}")
+    serve_cnn_oracle(torch, sched)
+    print(f"examples: the four conv examples took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# ReLU branch flips between the kernels' and F.conv2d's forward of
+# mg3m_cnn's first batch, as a share of its 229 376 pre-activations: the
+# trunk's FLIP_SHARE would allow none, while a pre-activation within
+# FWD_TOL of zero may take either branch (the forward is held to FWD_TOL
+# before the flips are counted)
+CNN_FLIP_SHARE = 1e-4
+
+
+def serve_cnn_oracle(torch, sched) -> None:
+    """Every served layer's plan at every rung of its ladder (the B=1 plan
+    ``assert_parity`` holds the coalesced results to, and each bucket
+    plan) on seeded card tensors, against ``kernels.ref.conv_ref``
+    (``F.conv2d``, TF32 off): max |err| / max |ref| within
+    ``TOL["float32"]``.  ``assert_parity`` compares kernel runs with
+    kernel runs, so this is what holds the grains to the oracle at
+    alexnet's and resnet's full-width scenes."""
+    from repro_torch.kernels.ref import conv_ref
+
+    gen = torch.Generator().manual_seed(0)
+    t0, worst, picks, n = time.perf_counter(), (0.0, ""), [], 0
+    for name in sorted(sched._layers):
+        fam = sched._layers[name]
+        rungs = []
+        for b in fam.ladder:
+            sc = fam.base.with_batch(b)
+            plan = sched.registry.get_or_build(sc)
+            x = torch.randn(sc.in_shape(), generator=gen).to(fam.flt.device)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                got = plan.execute(x, fam.flt)
+                want = conv_ref(x, fam.flt, sc)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            if not err <= TOL["float32"]:
+                raise AssertionError(
+                    f"serve_cnn {name} at B={b} ({plan.schedule}) is "
+                    f"{err:.3e} of max |ref| from conv_ref on "
+                    f"{sc.describe()} (tol {TOL['float32']})")
+            worst, n = max(worst, (err, f"{name} B={b}")), n + 1
+            rungs.append(f"{b}:{plan.schedule or 'plain'}")
+        picks.append(f"{name} " + " ".join(rungs))
+    print(f"  serve_cnn plans vs conv_ref: {n} (layer, bucket) plans, "
+          f"max |err| / max |ref| worst "
+          f"{worst[0]:.3e} at {worst[1]} (tol {TOL['float32']}); "
+          f"{'; '.join(picks)}; {time.perf_counter() - t0:.2f} s")
+
+
+def mg3m_cnn_oracle(torch, plans, device: str = "cuda") -> None:
+    """One step of ``mg3m_cnn`` at its defaults, from its starting
+    parameters on its first batch: the loss and every parameter's
+    gradient through the plans (the kernels in fprop, dgrad and wgrad)
+    against autograd of the same network on ``F.conv2d`` (TF32 off), on
+    the kernels' ReLU branches as ``train_grad_oracle`` does.  The
+    forward within ``FWD_TOL`` per layer, the loss within
+    ``TOL["float32"]`` relative and each gradient within ``GRAD_TOL`` of
+    its largest entry."""
+    from types import SimpleNamespace
+
+    from repro_torch.examples import mg3m_cnn
+    from repro_torch.models.cnn import init_small_cnn
+
+    F = torch.nn.functional
+    t0 = time.perf_counter()
+    args = mg3m_cnn.parse_args([])
+    params = init_small_cnn(torch.Generator().manual_seed(0), device=device)
+    xs, ys = mg3m_cnn.make_data(torch.Generator().manual_seed(1), 512,
+                                args.res, torch.device(device))
+    x, y = xs[:args.batch], ys[:args.batch]
+    scenes = {n: t.scene for n, t in plans.items()}
+    run = {"plans": plans, "scenes": scenes,
+           "state": SimpleNamespace(params=params)}
+
+    def oracle_loss(p, masks):
+        z = x.permute(0, 3, 1, 2)
+        for name in plans.names():
+            sc = scenes[name]
+            z = F.conv2d(z, p[name].permute(3, 2, 0, 1),
+                         stride=(sc.stdH, sc.stdW), padding=(sc.padH, sc.padW))
+            z = z * masks[name]
+        lp = F.log_softmax(z.mean(dim=(2, 3)) @ p["head"], dim=-1)
+        return -lp.gather(1, y[:, None]).mean()
+
+    def loss_grads(loss_of):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = loss_of(leaves)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), dict(zip(leaves, g))
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        masks, fwd, flips, n_pre = _forward_branches(
+            torch, run, {"images": x}, flip_share=CNN_FLIP_SHARE)
+        loss, got = loss_grads(lambda p: mg3m_cnn.loss_fn(p, x, y, plans))
+        want_loss, want = loss_grads(lambda p: oracle_loss(p, masks))
+    rel = {k: ((got[k] - want[k]).abs().max()
+               / want[k].abs().max()).item() for k in want}
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    worst = max(rel, key=rel.get)
+    print(f"  mg3m_cnn step vs the F.conv2d oracle: loss {loss:.6f} vs "
+          f"{want_loss:.6f} (relative {loss_err:.3e}, tol "
+          f"{TOL['float32']}); forward max |dz| / max |z| worst "
+          f"{max(v[0] for v in fwd.values()):.3e} (tol {FWD_TOL}), {flips} "
+          f"ReLU branch flips of {n_pre}; gradients max |dg| / max |g| "
+          f"{ {k: float(f'{v:.2e}') for k, v in rel.items()} } (tol "
+          f"{GRAD_TOL}); {time.perf_counter() - t0:.2f} s")
+    if loss_err > TOL["float32"] or rel[worst] > GRAD_TOL:
+        raise AssertionError(f"mg3m_cnn's step through the plans differs "
+                             f"from the F.conv2d oracle: loss {loss} vs "
+                             f"{want_loss}, gradient of {worst} "
+                             f"{rel[worst]:.3e} relative (all: {rel})")
 
 
 def flash_f32_row(torch, launches: int) -> dict:

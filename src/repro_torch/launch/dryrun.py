@@ -316,7 +316,7 @@ def skip_reason(cfg, shape: str) -> Optional[str]:
     """Why a cell is skipped (the reference's rule), or None."""
     if shape == "long_500k" and not cfg.sub_quadratic:
         return ("pure full-attention arch; long_500k requires "
-                "sub-quadratic attention (DESIGN.md)")
+                "sub-quadratic attention")
     return None
 
 

@@ -240,3 +240,36 @@ def test_shard_modules_are_covered(name):
     assert PORT / rel in FILES
     assert (ROOT / SHARD_MODULES[name]).is_file()
     assert importlib.import_module(f"repro_torch.{name}")
+
+
+# the last examples and scripts: each a port of the file named beside it
+LAST_MODULES = {"examples.quickstart": "examples/quickstart.py",
+                "examples.serve_conv": "examples/serve_conv.py",
+                "examples.mg3m_cnn": "examples/mg3m_cnn.py",
+                "examples.serve_cnn": "examples/serve_cnn.py",
+                "launch.obsreport": "scripts/obsreport.py",
+                "launch.make_experiments": "scripts/make_experiments.py"}
+
+
+@pytest.mark.parametrize("name", sorted(LAST_MODULES))
+def test_last_modules_are_covered(name):
+    """Each module is one of the files the guards above walk (no jax, no
+    repro, no triton), mirrors its reference file, and imports here
+    without a GPU toolchain."""
+    rel = Path(*name.split(".")).with_suffix(".py")
+    assert PORT / rel in FILES
+    assert (ROOT / LAST_MODULES[name]).is_file()
+    assert importlib.import_module(f"repro_torch.{name}")
+
+
+@pytest.mark.parametrize("name", sorted(LAST_MODULES))
+def test_last_modules_run_with_python_m(name):
+    """``python -m repro_torch.<name> --help`` runs in a fresh interpreter
+    that has neither JAX nor the reference package on its path."""
+    out = subprocess.run([sys.executable, "-m", f"repro_torch.{name}",
+                          "--help"], capture_output=True, text=True,
+                         timeout=120, cwd=str(ROOT),
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert f"python -m repro_torch.{name}" in out.stdout
