@@ -19,7 +19,9 @@ Phases, each of which raises (non-zero exit) on failure:
                and 2, TB11 on L0 at batch 2, TB88 on L2 at batch 1 and L9
                at batch 8), each launch held against the grain's plain
                PyTorch version on the same operands: f32 within
-               rtol=atol=1e-4, bf16 within 2e-2.
+               rtol=atol=1e-4, bf16 within 2e-2; each wgrad case's TB11
+               and TB88 launch again with its reduction split every
+               ``SPLIT_TAPS`` taps, against the plain version split alike.
   4. conv path the full-width ResNet trunk (``cnn_chain_scenes("resnet")``,
                224x224x3 in, 10 convs, ReLU between) registered on a
                ``ConvScheduler`` (strict, deadline flush), prewarmed, served
@@ -52,7 +54,8 @@ Phases, each of which raises (non-zero exit) on failure:
                inside a ``resolution_guard``; the loss must fall and each
                grain's launches must equal what the plans route to it
                (every direction but the first layer's dgrad, which the
-               images do not need).  Step ms (CUDA events), images/s,
+               images do not need), and ``mg3m_segsum``'s what the split
+               wgrad plans route to it.  Step ms (CUDA events), images/s,
                peak memory; on each microbatch, the kernels' forward
                against ``F.conv2d``'s on the same ReLU branches (within
                2e-5 of max |z| per layer, at most 1e-6 of the
@@ -62,10 +65,15 @@ Phases, each of which raises (non-zero exit) on failure:
                within 2e-4 of max |g|, and the step's gradient norm
                against the norm of the oracle's mean over the
                microbatches within 2e-4; each (layer, direction) plan's kernel
-               against its plain version (the first layer's dgrad too),
-               then its device time beside the plan's, the bound and the
-               PyTorch call for the same function (``F.conv2d``,
-               ``conv2d_input``, ``conv2d_weight``); and the small-CNN
+               against its plain version (the first layer's dgrad too; a
+               wgrad plan's split reduction, S and its second pass
+               printed, against the plain version split alike), then its
+               device time beside the plan's, the bound and the PyTorch
+               call for the same function (``F.conv2d``,
+               ``conv2d_input``, ``conv2d_weight``); ``mg3m_segsum`` at
+               its longest second pass, bitwise its plain version, beside
+               ``torch.sum`` and its bound; the `oc:4` L0 wgrad shard
+               beside the whole scene, unsplit and split; and the small-CNN
                launcher ``python -m repro_torch.launch.train_cnn
                --check-loss`` run in-process on the card.
   7. tune     ``repro_torch.tune`` on the card: the trunk's 10 fprop
@@ -482,9 +490,17 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# taps per segment forced on the kernel phase's wgrad cases (the plans of
+# these small scenes do not split): TB11's and TB88's split launches on
+# every scene, TB11's resident filter fitting at these lengths
+SPLIT_TAPS = (2, 5)
+
+
 def kernel_phase(torch, errs):
     """Force every grain on the test scenes; hold each launch against the
-    plain version on the same operands.  Returns the number of checks."""
+    plain version on the same operands (a split launch against the plain
+    version split alike), and each wgrad case's TB11/TB88 launch again at
+    ``SPLIT_TAPS``.  Returns the number of checks."""
     from repro_torch.core.scene import ConvScene
     from repro_torch.kernels.mg3m_conv import conv_plain
     from repro_torch.models.cnn import cnn_chain_scenes
@@ -528,20 +544,28 @@ def kernel_phase(torch, errs):
                 except ValueError:
                     continue     # the grain does not fit this scene
                 fn, inp, flt, blocks = plan.kernel_call(a, b)
-                got = fn(inp, flt, plan.exec_scene, **blocks).float()
-                want = conv_plain(inp, flt, plan.exec_scene).float()
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                if not torch.allclose(got, want, rtol=tol, atol=tol):
-                    raise AssertionError(
-                        f"{grain} {op.value} {dtype} disagrees with its "
-                        f"plain version (max abs err {err}) on "
-                        f"{plan.exec_scene.describe()}")
-                errs[(grain, dtype)] = max(errs.get((grain, dtype), 0.0),
-                                           err)
+                es = plan.exec_scene
+                splits = [plan.seg_taps]
+                if op is ConvOp.WGRAD and grain != "TB18":
+                    splits += [s for s in SPLIT_TAPS
+                               if s < es.fltH * es.fltW]
+                for seg in splits:
+                    got = fn(inp, flt, es,
+                             **dict(blocks, **({"seg_taps": seg} if seg
+                                               else {}))).float()
+                    want = conv_plain(inp, flt, es, seg).float()
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    if not torch.allclose(got, want, rtol=tol, atol=tol):
+                        raise AssertionError(
+                            f"{grain} {op.value} {dtype} (split every {seg} "
+                            f"taps) disagrees with its plain version (max "
+                            f"abs err {err}) on {es.describe()}")
+                    errs[(grain, dtype)] = max(errs.get((grain, dtype),
+                                                        0.0), err)
+                    checks += 1
                 # the plan's own execute runs the same launch end to end
                 plan.execute(a, b)
-                checks += 1
     torch.cuda.synchronize()
     return checks
 
@@ -954,9 +978,17 @@ def train_path(torch, policy: str = "analytic"):
     if counts != want:
         raise AssertionError(f"launches {counts} differ from the plans' "
                              f"routing {want} ({by_dir})")
+    # each split wgrad plan's execute launches the second pass once
+    segsum = K.segment_sum.launches
+    want_segsum = sum(len(losses) * TRAIN_N_MB for _, op, plan in walk
+                      if plan.segments > 1)
+    if segsum != want_segsum or not segsum:
+        raise AssertionError(f"{segsum} mg3m_segsum launches, the split "
+                             f"wgrad plans' routing gives {want_segsum}")
     for layer, triple in plans.items():
         print(f"  {layer}: " + "; ".join(
-            f"{p.op.value} {p.schedule}{p.choice.tile} modeled "
+            f"{p.op.value} {p.schedule}{p.choice.tile}"
+            f"{f' S={p.segments}' if p.segments > 1 else ''} modeled "
             f"{p.predicted_s * 1e3:.3f} ms" for p in
             (triple.fprop, triple.dgrad, triple.wgrad)))
     steady = sorted(event_ms[1:])
@@ -974,10 +1006,12 @@ def train_path(torch, policy: str = "analytic"):
           f"per step with the loss read {[round(x, 2) for x in wall_ms]}; "
           f"peak memory {peak_gb:.2f} GB")
     print(f"  launches by grain {counts}; by (direction, grain) "
-          f"{ {f'{o}/{g}': n for (o, g), n in sorted(by_dir.items())} }")
+          f"{ {f'{o}/{g}': n for (o, g), n in sorted(by_dir.items())} }; "
+          f"mg3m_segsum {segsum}")
     return {"plans": plans, "walk": walk, "state": state, "batch": batch,
             "step": step, "pure_step": pure_step, "scenes": scenes,
-            "counts": counts, "step_ms": med, "losses": losses}
+            "counts": counts, "segsum": segsum, "step_ms": med,
+            "losses": losses}
 
 
 def _forward_branches(torch, run, mb, flip_share: float = FLIP_SHARE):
@@ -1120,14 +1154,19 @@ def train_kernel_phase(torch, run):
     once on seeded operands (the first layer's dgrad too, though the step
     skips it), then timed: the kernel's and the plan's device time, the
     bound, and the PyTorch call computing the same function.  Returns the
-    ``<grain>_train_path`` rows: each launched grain at its longest plan."""
+    ``<grain>_train_path`` rows (each launched grain at its longest plan,
+    its ``ms`` the grain's own launch: a split wgrad plan's first pass
+    alone, with ``ms_with_segsum`` beside it) and the ``mg3m_segsum`` row
+    (its longest second pass of the step, held bitwise to
+    ``segment_sum_plain``)."""
+    from repro_torch.kernels import mg3m_conv as K
     from repro_torch.kernels.mg3m_conv import conv_plain
     from repro_torch.launch import roofline as R
 
     F = torch.nn.functional
     grad = torch.nn.grad
     gen = torch.Generator().manual_seed(12)
-    errs, timed = {}, []
+    errs, timed, second = {}, [], []
     sums = {"fprop": [0.0, 0.0, 0.0], "dgrad": [0.0, 0.0, 0.0],
             "wgrad": [0.0, 0.0, 0.0]}
     first = run["plans"].names()[0]
@@ -1144,7 +1183,7 @@ def train_kernel_phase(torch, run):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = conv_plain(inp, flt, es)
+        want = conv_plain(inp, flt, es, plan.seg_taps)
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
@@ -1155,7 +1194,22 @@ def train_kernel_phase(torch, run):
                                  f"its plain version (max abs err {err})")
         errs[plan.schedule] = max(errs.get(plan.schedule, 0.0), err)
         del got, want
-        k_ms = device_ms(torch, lambda: fn(inp, flt, es, **blocks))
+        k_ms = k1_ms = device_ms(torch, lambda: fn(inp, flt, es, **blocks))
+        split = ""
+        if plan.segments > 1:
+            spec = K.launch_spec(es, plan.schedule, in_shape=inp.shape,
+                                 flt_shape=flt.shape, **blocks)
+            k1_ms = device_ms(torch, lambda: K._launch(
+                f"mg3m_{plan.schedule.lower()}", spec, inp, flt))
+            parts = K.workspace(inp.device, (plan.segments, es.outH,
+                                             es.outW, flt.shape[3],
+                                             inp.shape[3]))
+            s_ms = device_ms(torch, lambda: K.segment_sum(parts,
+                                                          inp.dtype))
+            second.append((s_ms, name, plan, parts))
+            split = (f" S={plan.segments} ({plan.seg_taps} taps a segment;"
+                     f" first pass {k1_ms:.4f} ms, second pass "
+                     f"{s_ms:.4f} ms)")
         p_ms = device_ms(torch, lambda: plan.execute(a, b))
         stride, pad = (sc.stdH, sc.stdW), (sc.padH, sc.padW)
         nchw = lambda t: t.permute(3, 2, 0, 1).contiguous()   # noqa: E731
@@ -1186,7 +1240,7 @@ def train_kernel_phase(torch, run):
         if in_step:
             for i, v in enumerate((k_ms, p_ms, lib_ms)):
                 sums[op][i] += v
-        print(f"  {name} {op} {plan.schedule}{plan.choice.tile} "
+        print(f"  {name} {op} {plan.schedule}{plan.choice.tile}{split} "
               f"{'' if in_step else '(not in the step) '}kernel "
               f"{k_ms:.4f} ms, plan {p_ms:.4f} ms (device), modeled "
               f"{plan.predicted_s * 1e3:.4f}, bound {bound:.4f} "
@@ -1194,7 +1248,7 @@ def train_kernel_phase(torch, run):
               f"{TRAIN_LIBRARY[op]} {lib_ms:.4f} ms, plain {plain_ms:.1f} "
               f"ms, max abs err {err:.2e}")
         timed.append({"name": name, "op": op, "plan": plan, "k_ms": k_ms,
-                      "plain_ms": plain_ms, "lib_ms": lib_ms,
+                      "k1_ms": k1_ms, "plain_ms": plain_ms, "lib_ms": lib_ms,
                       "bound": bound, "ops_ms": ops_ms,
                       "bytes_ms": bytes_ms, "nbytes": nbytes,
                       "in_step": in_step})
@@ -1220,8 +1274,8 @@ def train_kernel_phase(torch, run):
             "name": f"mg3m_{grain.lower()}_train_path", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES[grain],
             "launches": run["counts"][grain], "max_abs_err": errs[grain],
-            "ms": t["k_ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound"],
+            "ms": t["k1_ms"], "ms_with_segsum": t["k_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"],
             "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
                          else "bytes"),
             "library_ms": t["lib_ms"],
@@ -1229,7 +1283,108 @@ def train_kernel_phase(torch, run):
             "shape": f"{t['name']} {t['op']} (the longest of {len(mine)} "
                      f"{grain} plans of the step) {plan.describe()}",
             "gflop": plan.scene.flops / 1e9, "mbytes": t["nbytes"] / 1e6})
+    rows.append(segsum_row(torch, run, second))
     return rows
+
+
+def segsum_row(torch, run, second):
+    """The ``mg3m_segsum`` row: the second pass of the step's split wgrad
+    plans at its longest (device ms from ``train_kernel_phase``), its
+    partials summed by the kernel and by ``segment_sum_plain`` (bitwise
+    equal: both add s = 0, 1, ... in order), the bound (every partial
+    read once, the output written once) and ``torch.sum`` over the
+    segments, which computes the same function in an order of its own."""
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.launch import roofline as R
+
+    s_ms, name, plan, parts = max(second, key=lambda t: t[0])
+    parts = torch.randn(parts.shape, generator=torch.Generator()
+                        .manual_seed(24)).cuda()
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        got = K.segment_sum(parts, dtype)
+        want = K.segment_sum_plain(parts, dtype)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"mg3m_segsum {dtype} is not bitwise its plain version on "
+                f"{tuple(parts.shape)}: max abs err "
+                f"{(got.float() - want.float()).abs().max().item():.3e}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    K.segment_sum_plain(parts, torch.float32)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    lib_ms = device_ms(torch, lambda: parts.sum(dim=0))
+    lib_err = (parts.sum(dim=0) - got).abs().max().item()
+    n = parts[0].numel()
+    nbytes = 4 * (parts.numel() + n)
+    print(f"  mg3m_segsum: longest second pass {name} wgrad S="
+          f"{plan.segments} over {n} outputs {s_ms:.4f} ms (device), "
+          f"bitwise its plain version in f32 and bf16, plain {plain_ms:.3f} "
+          f"ms, torch.sum over the segments {lib_ms:.4f} ms (max abs diff "
+          f"{lib_err:.2e}), bound {nbytes / R.HBM_BW * 1e3:.4f} ms (bytes); "
+          f"{run['segsum']} launches in the train path")
+    return {"name": "mg3m_segsum", "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": "src/repro/kernels/mg3m_conv.py:333",
+            "note": "no TPU kernel of its own: it does what _tb88_kernel's "
+                    "acc_ref carried across the reduction's sequential "
+                    "grid steps, for a split wgrad reduction",
+            "launches": run["segsum"], "max_abs_err": err, "ms": s_ms,
+            "plain_ms": plain_ms, "bound_ms": nbytes / R.HBM_BW * 1e3,
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "library": "torch.sum",
+            "shape": f"{name} wgrad's partials [{plan.segments}, {n}] f32 "
+                     f"(the longest second pass of the step)",
+            "gflop": (plan.segments - 1) * n / 1e9,
+            "mbytes": nbytes / 1e6}
+
+
+def wgrad_shard_puzzle(torch):
+    """The `oc:4` shard of L0's wgrad exec scene beside the whole scene,
+    each launched with its reduction unsplit and split, with the tile,
+    grid and device ms of each: unsplit, the shard runs TB88's BM = 32
+    tile, slower than the whole scene's (the tile, not M, sets the time
+    of one block's walk of the whole reduction; PERF.md §6)."""
+    from repro_torch.core.mapping import select_schedule, smem_budget
+    from repro_torch.core.scene import ConvScene
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.models.cnn import cnn_chain_scenes
+    from repro_torch.plan import make_plan
+    from repro_torch.plan.build import grad_filter_scene, wgrad_operands
+    from repro_torch.shard import shard_sub_scene
+
+    sc = cnn_chain_scenes(TRAIN_NET)[f"{TRAIN_NET}/L0"].with_batch(TRAIN_MB)
+    es = grad_filter_scene(sc)
+    gen = torch.Generator().manual_seed(25)
+    a, b = wgrad_operands(
+        torch.randn(sc.in_shape(), generator=gen).cuda(),
+        torch.randn(sc.out_shape(), generator=gen).cuda()
+        * (es.fltH * es.fltW * es.K) ** -0.5)
+    parts = []
+    for what, scene, flt in (("whole", es, b), ("oc:4 shard",
+                                                shard_sub_scene(es, "oc", 4),
+                                                b[..., :es.M // 4])):
+        flt = flt.contiguous()
+        # the same dims as a plain ConvScene: its plans do not split
+        for sv in (ConvScene(**scene.__dict__), scene):
+            choice = select_schedule(sv, budget=smem_budget("cuda"))
+            fn, inp, f, blocks = make_plan(sv, policy=choice) \
+                .kernel_call(a, flt)
+            spec = K.launch_spec(sv, choice.schedule, in_shape=inp.shape,
+                                 flt_shape=f.shape, **blocks)
+            gx, gy, _, threads = K.launch_grid(spec)
+            gz = spec.segments if choice.schedule == "TB88" else 1
+            ms = device_ms(torch, lambda: fn(inp, f, sv, **blocks),
+                           iters=5)
+            how = f"split S={spec.segments}" if sv.seg_taps else "unsplit"
+            parts.append(f"{what} {how} {choice.schedule}{choice.tile} grid "
+                         f"({gx}, {gy}, {gz}) x {threads} threads "
+                         f"{ms:.4f} ms")
+    print("  the oc:4 L0 wgrad shard against the whole scene, unsplit and "
+          "split (device ms): " + "; ".join(parts))
 
 
 def train_profile(torch, run):
@@ -1256,6 +1411,7 @@ def train_phase(torch):
     run = train_path(torch)
     train_grad_oracle(torch, run)
     rows = train_kernel_phase(torch, run)
+    wgrad_shard_puzzle(torch)
     losses = train_cnn.main(["--check-loss"])      # device: the card
     print(f"  launcher (small CNN, defaults, on the card): {len(losses)} "
           f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -1283,7 +1439,8 @@ TUNE_ITERS = 5
 def tune_scenes(chain, run):
     """``{label: scene}``: the trunk's fprop scenes at every bucket of
     ``TUNE_BUCKETS`` and the train step's dgrad and wgrad exec scenes (the
-    first layer's dgrad, never launched, left out)."""
+    first layer's dgrad, never launched, left out; a split wgrad exec
+    scene is a ``WgradScene``, tuned as its plans split it)."""
     scenes = {f"{name} fprop B={b}": sc.with_batch(b)
               for name, sc in chain.items() for b in TUNE_BUCKETS}
     first = run["plans"].names()[0]
@@ -3936,7 +4093,7 @@ def shard_rows(torch, launched, counts, errs):
         es = plan.inner.exec_scene
         got = fn(inp, flt, es, **blocks)
         t = time.perf_counter()
-        want = conv_plain(inp, flt, es)
+        want = conv_plain(inp, flt, es, blocks.get("seg_taps", 0))
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
         err = (got - want).abs().max().item()

@@ -6,6 +6,9 @@ data the selector's cost model is fitted to and checked against.
                                [--layers NAME ...] [--buckets 1 2 4 8]
                                [--out FILE]
     python3 chip_tile_sweep.py --fit FILE [FILE ...] [--starts 8]
+    python3 chip_tile_sweep.py --segments 0 512 1024 ... [--nets resnet]
+                               [--layers NAME ...] [--wgrad-batch 8]
+                               [--out FILE]
 
 For each trunk layer (``cnn_chain_scenes(net)``, seeded inputs) at each
 bucket it forces TB11, TB18 and TB88 at every m-tile of the search space
@@ -28,6 +31,16 @@ the fastest measured configuration's, plus the same mean for each grain's
 own pick where it is forced (``policy="TB18"``, ...) over that grain's
 fastest.  It prints the constants found, each trunk's gaps and the grains
 the picks serve.
+
+``--segments`` sweeps the weight gradient's split (the length of a
+reduction segment, ``core.scene.WGRAD_SEGMENT_R``; 0 = not split): for
+each trunk layer's wgrad exec scene at ``--wgrad-batch`` and each length,
+every TB11/TB88 configuration that fits is timed with its second pass
+(the wrapper's launch and ``segment_sum``), held within 1e-4 of the plain
+version split at the current length, beside the second pass alone, the
+selector's pick at that length and ``conv2d_weight`` (TF32 off); then,
+per length, the trunk's sum of the picks' and of the fastest device
+times.
 """
 from __future__ import annotations
 
@@ -153,6 +166,104 @@ def sweep(torch, nets, dtypes, buckets, layers):
     return rows, sums, unequal
 
 
+def segment_sweep(torch, nets, lengths, layers, batch: int):
+    """Time the wgrad exec scenes' split at each segment length (see the
+    module docstring); returns the rows and per-length sums of (picks,
+    fastest) device ms."""
+    import chip_smoke
+    from repro_torch.core import mapping
+    from repro_torch.core import scene as scene_mod
+    from repro_torch.kernels import mg3m_conv as K
+    from repro_torch.models.cnn import cnn_chain_scenes
+    from repro_torch.plan import make_plan
+    from repro_torch.plan.build import grad_filter_scene, wgrad_operands
+    from repro_torch.tune.space import enumerate_space
+
+    grad = torch.nn.grad
+    gen = torch.Generator().manual_seed(13)
+    # each length is set as the scene module's WGRAD_SEGMENT_R, so every
+    # plan splits as it would at that length; 0 runs the same dims as a
+    # plain, unsplit ConvScene
+    default = scene_mod.WGRAD_SEGMENT_R
+    rows, sums = [], {}
+    for net in nets:
+        chain = cnn_chain_scenes(net)
+        for name in [n for n in chain if not layers or n in layers]:
+            sc = chain[name].with_batch(batch)
+            scene_mod.WGRAD_SEGMENT_R = default
+            es = grad_filter_scene(sc)
+            want_seg = es.seg_taps
+            whole = scene_mod.ConvScene(**es.__dict__)
+            scale = (es.fltH * es.fltW * es.K) ** -0.5     # outputs O(1)
+            a = torch.randn(sc.in_shape(), generator=gen).cuda()
+            b = (torch.randn(sc.out_shape(), generator=gen) * scale).cuda()
+            ea, eb = wgrad_operands(a, b)
+            want, lib = None, None
+            for length in lengths:
+                scene_mod.WGRAD_SEGMENT_R = length or default
+                sv = es if length else whole
+                seg = sv.seg_taps
+                pick = mapping.select_schedule(sv)
+                times, modeled = {}, {}
+                for pt in enumerate_space(sv):
+                    choice = mapping._score(sv, pt.schedule, pt.bm, pt.bn,
+                                            pt.bk, tile=pt.tile)
+                    if choice is None or _key(choice) in times:
+                        continue
+                    plan = make_plan(sv, policy=choice)
+                    fn, inp, flt, blocks = plan.kernel_call(ea, eb)
+                    if want is None:
+                        want = K.conv_plain(inp, flt, es, want_seg)
+                    got = fn(inp, flt, sv, **blocks)
+                    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                        raise AssertionError(
+                            f"{name} wgrad {_key(choice)} at segment length "
+                            f"{length} disagrees with its plain version "
+                            f"({(got - want).abs().max().item():.3e})")
+                    times[_key(choice)] = chip_smoke.device_ms(
+                        torch, lambda: fn(inp, flt, sv, **blocks))
+                    modeled[_key(choice)] = choice.predicted_s * 1e3
+                n_seg = len(mapping.wgrad_segments(sv))
+                second = 0.0
+                if n_seg > 1:
+                    parts = torch.randn((n_seg,) + tuple(want.shape),
+                                        generator=gen).cuda()
+                    second = chip_smoke.device_ms(
+                        torch, lambda: K.segment_sum(parts, torch.float32))
+                if lib is None:
+                    xa = a.permute(3, 2, 0, 1).contiguous()
+                    gb = b.permute(3, 2, 0, 1).contiguous()
+                    with torch.backends.cudnn.flags(enabled=True,
+                                                    allow_tf32=False):
+                        lib = chip_smoke.device_ms(
+                            torch, lambda: grad.conv2d_weight(
+                                xa, (sc.OC, sc.IC, sc.fltH, sc.fltW), gb,
+                                stride=(sc.stdH, sc.stdW),
+                                padding=(sc.padH, sc.padW)))
+                best = min(times, key=times.get)
+                chosen = times[_key(pick)]
+                s = sums.setdefault(length, [0.0, 0.0])
+                s[0] += chosen
+                s[1] += times[best]
+                order = sorted(times, key=times.get)
+                print(f"{name} wgrad B={batch} length {length} (S={n_seg}, "
+                      f"{seg} taps): pick {_key(pick)} {chosen:.4f} ms "
+                      f"(modeled {modeled[_key(pick)]:.4f}); fastest {best} "
+                      f"{times[best]:.4f}; second pass {second:.4f}; "
+                      f"conv2d_weight {lib:.4f}; "
+                      + ", ".join(f"{k} {times[k]:.4f} ({modeled[k]:.4f})"
+                                  for k in order), flush=True)
+                rows.append({"net": net, "layer": name, "batch": batch,
+                             "length": length, "segments": n_seg,
+                             "seg_taps": seg, "pick": _key(pick),
+                             "fastest": best, "second_pass_ms": second,
+                             "library_ms": lib, "ms": times,
+                             "modeled_ms": modeled})
+            del a, b, ea, eb, want
+    scene_mod.WGRAD_SEGMENT_R = default
+    return rows, sums
+
+
 def fit(paths, starts: int, seed: int = 0) -> None:
     """Fit ``FIT_GRID``'s constants to the sweeps in ``paths`` (CPU)."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -276,6 +387,11 @@ def main() -> int:
                          "constants")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the fit's random starts")
+    ap.add_argument("--segments", type=int, nargs="+", default=[],
+                    help="sweep the wgrad split at these segment lengths "
+                         "(reduction values; 0 = not split)")
+    ap.add_argument("--wgrad-batch", type=int, default=8,
+                    help="the forward batch of the swept wgrad scenes")
     args = ap.parse_args()
     if args.fit:
         fit(args.fit, args.starts, args.seed)
@@ -299,6 +415,16 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.load_all(("mg3m_conv.cu",))
     print(f"build: mg3m_conv.cu in {time.perf_counter() - t0:.1f} s")
+    if args.segments:
+        rows, sums = segment_sweep(torch, args.nets, args.segments,
+                                   args.layers, args.wgrad_batch)
+        for length, (chosen, best) in sums.items():
+            print(f"wgrad trunk at segment length {length}: selector's "
+                  f"picks {chosen:.4f} ms, fastest measured {best:.4f} ms "
+                  f"(device, second pass included)")
+        if args.out:
+            Path(args.out).write_text(json.dumps(rows))
+        return 0
     rows, sums, unequal = sweep(torch, args.nets, args.dtypes, args.buckets,
                                 args.layers)
     for (net, dtype, bucket), (chosen, best, lib) in sums.items():

@@ -19,7 +19,10 @@ kernels (``csrc/mg3m_conv.cu``) stage in dynamic shared memory:
   TB11  the whole filter ``[nq * GEMM_KC, Mp]`` in the IO dtype: the
         flattened reduction ``fh * fw * K`` in ``nq`` whole chunks, OC
         rounded up to the compiled ``BM``, the pads zero; then what TB88
-        has past its filter ring;
+        has past its filter ring.  Where a wgrad exec scene's reduction is
+        split into S segments (``segment_taps``), each segment starts on a
+        chunk of its own: ``S * nqs`` chunks, ``nqs`` those of a full
+        segment;
   TB88  a double-buffered filter tile ``2 x [GEMM_KC, BM]`` in the IO
         dtype, the double-buffered IN tile (TB18's size), two rows of
         ``GEMM_KC`` int4 reduction entries, and int32 tap-row and
@@ -38,13 +41,13 @@ kernel scenes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.core.scene import ConvScene, ceil_div, dtype_itemsize
 
 __all__ = ["vmem_bytes", "KERNEL_BM", "TB18_SHAPES", "TB11_SHAPES",
            "TB88_SHAPES", "TB18_KC", "GEMM_KC", "tiles", "tile_threads",
-           "tb18_smem", "gemm_smem"]
+           "tb18_smem", "gemm_smem", "segment_taps"]
 
 KERNEL_BM = (8, 16, 32, 64, 128)   # compiled m-tile widths of TB18
 
@@ -90,6 +93,15 @@ def tile_threads(tile) -> int:
     return bm // tm * (bc // tc)
 
 
+def segment_taps(taps: int, seg_taps: int) -> Tuple[int, ...]:
+    """Taps of each segment of a reduction over ``taps`` filter taps cut
+    every ``seg_taps`` taps (``seg_taps`` 0, or at least ``taps``: one
+    segment)."""
+    if not seg_taps or seg_taps >= taps:
+        return (taps,)
+    return tuple(min(seg_taps, taps - t) for t in range(0, taps, seg_taps))
+
+
 def tb18_smem(scene: ConvScene, tile) -> int:
     """Dynamic shared-memory bytes of one TB18 block of compiled tile
     ``(BM, BC, TM, TC)`` (see the module docstring)."""
@@ -101,14 +113,18 @@ def tb18_smem(scene: ConvScene, tile) -> int:
             + 2 * bc * (TB18_KC * it + 16) + 4 * taps * bc)
 
 
-def gemm_smem(scene: ConvScene, tile, resident: bool) -> int:
+def gemm_smem(scene: ConvScene, tile, resident: bool,
+              seg_taps: Optional[int] = None) -> int:
     """Dynamic shared-memory bytes of one TB11 (``resident``) or TB88
-    block of compiled tile ``(BM, BC, TM, TC)`` (see the module
-    docstring)."""
+    block of compiled tile ``(BM, BC, TM, TC)``, the reduction split every
+    ``seg_taps`` taps (by default the scene's, ``ConvScene.seg_taps``; 0:
+    not split; see the module docstring)."""
+    seg_taps = scene.seg_taps if seg_taps is None else seg_taps
     it = dtype_itemsize(scene.dtype)
     bm, bc = tile[0], tile[1]
     if resident:
-        nq = ceil_div(scene.fltH * scene.fltW * scene.K, GEMM_KC)
+        segs = segment_taps(scene.fltH * scene.fltW, seg_taps)
+        nq = len(segs) * ceil_div(segs[0] * scene.K, GEMM_KC)
         flt = nq * GEMM_KC * ceil_div(scene.M, bm) * bm
     else:
         flt = 2 * GEMM_KC * bm
@@ -117,14 +133,17 @@ def gemm_smem(scene: ConvScene, tile, resident: bool) -> int:
 
 
 def vmem_bytes(scene: ConvScene, schedule: str, bm: int, bn: int,
-               bk: int, tile: Tuple[int, ...] = ()) -> int:
+               bk: int, tile: Tuple[int, ...] = (),
+               seg_taps: Optional[int] = None) -> int:
     """Dynamic shared-memory bytes one block of ``schedule`` stages at
     blocking ``(bm, bn, bk)`` on compiled ``tile`` over ``scene`` (the
     name mirrors the reference's VMEM formula; on Hopper the budget is
     shared memory).  ``bn`` and ``bk`` do not enter: a tile's columns span
     pixels and batch together, and TB88 walks its reduction in chunks of
-    its own.  Raises ``ValueError`` on an unknown schedule or a tile that
-    is not compiled for ``bm``."""
+    its own.  ``seg_taps``: the reduction split every ``seg_taps`` taps,
+    by default the scene's (TB11's resident filter takes a chunk boundary
+    at each segment; TB18 takes no split).  Raises ``ValueError`` on an unknown schedule or a
+    tile that is not compiled for ``bm``."""
     del bn, bk
     if tuple(tile) not in tiles(schedule, bm):
         raise ValueError(f"{schedule} tile {tuple(tile)} is not a compiled "
@@ -132,4 +151,4 @@ def vmem_bytes(scene: ConvScene, schedule: str, bm: int, bn: int,
                          f"{tiles(schedule, bm)}")
     if schedule == "TB18":
         return tb18_smem(scene, tile)
-    return gemm_smem(scene, tile, schedule == "TB11")
+    return gemm_smem(scene, tile, schedule == "TB11", seg_taps)

@@ -11,14 +11,17 @@ and the walk, column-tile and row maps and the index map written out as
 numpy transcriptions of the CUDA loops.  ``check_launch`` evaluates them
 and checks:
 
-  (a) output coverage and disjointness: the (column tile, m-tile) work
-      items the blocks visit — TB88 one per block of its (column tile,
-      m-tile) grid, TB11 and TB18 (persistent) ``x, x + grid x, ...`` —
-      are each visited exactly once, the column tiles partition the
-      output columns and the m-tiles the output rows, so every output
-      element is written exactly once.  Each block walks an item's whole
-      reduction (the Geom's taps and K are the scene's): no grain splits a
-      reduction across blocks, which the port's bitwise claims rely on;
+  (a) output coverage and disjointness: the (segment, column tile,
+      m-tile) work items the blocks visit — TB88 one per block of its
+      (column tile, m-tile, segment) grid, TB11 and TB18 (persistent)
+      ``x, x + grid x, ...`` — are each visited exactly once, the column
+      tiles partition the output columns, the m-tiles the output rows and
+      the segments the reduction, on whole taps, so every (output
+      element, reduction value) is summed exactly once.  An unsplit launch
+      is one segment: each block walks an item's whole reduction.  A split
+      one (a wgrad plan's, ``Geom.nseg`` > 1) stores per-segment partials
+      that ``segment_sum`` adds in segment order, so no order depends on
+      the blocks' timing, which the port's bitwise claims rely on;
   (b) the masked-tap predicate: ``in_coord`` as the kernel evaluates it,
       over the Geom's fields on both axes, against a map recomputed here
       from the ``ConvScene`` definition (on purpose, as in the reference,
@@ -133,22 +136,53 @@ def _strided_visits(grid_x: int, stride: int, n_items: int
     return bx, bx + step * stride
 
 
+def _tb11_items(launch: "KernelLaunch") -> np.ndarray:
+    """TB11's visited item numbers ``w``: ``for (w = x; w < n_ct * n_mt *
+    nseg; w += stride)`` over every block x (``stride`` is gridDim.x)."""
+    n = launch.n_col_tiles * launch.n_m_tiles * launch.segments
+    return _strided_visits(launch.grid[0], launch.stride, n)[1]
+
+
 def kernel_walk(launch: "KernelLaunch") -> Tuple[np.ndarray, np.ndarray]:
     """(column tile, m-tile) of every work item the launch's blocks visit,
-    as the kernels loop: TB88 ``tile(blockIdx.x, blockIdx.y)``; TB18 for
-    each grid row y, ``for (ct = x; ct < n_ct; ct += stride)``; TB11
-    ``for (w = x; w < n_ct * n_mt; w += stride)``, item ``w`` being column
-    tile ``w / n_mt``, m-tile ``w % n_mt`` (``stride`` is gridDim.x)."""
+    as the kernels loop: TB88 ``tile(blockIdx.x, blockIdx.y, blockIdx.z)``
+    for each segment z; TB18 for each grid row y, ``for (ct = x; ct <
+    n_ct; ct += stride)``; TB11 item ``w`` (``_tb11_items``) being, of
+    ``v = w % (n_ct * n_mt)``, column tile ``v / n_mt``, m-tile ``v %
+    n_mt`` (its segment: ``kernel_walk_segments``)."""
     n_ct, n_mt = launch.n_col_tiles, launch.n_m_tiles
     gx, gy = launch.grid
     if launch.spec.schedule == "TB88":
         ct, mt = np.meshgrid(np.arange(gx), np.arange(gy), indexing="ij")
-        return ct.ravel(), mt.ravel()
+        return (np.tile(ct.ravel(), launch.segments),
+                np.tile(mt.ravel(), launch.segments))
     if launch.spec.schedule == "TB18":
         _, ct = _strided_visits(gx, launch.stride, n_ct)
         return np.tile(ct, gy), np.repeat(np.arange(gy), ct.size)
-    _, w = _strided_visits(gx, launch.stride, n_ct * n_mt)
-    return w // n_mt, w % n_mt
+    v = _tb11_items(launch) % (n_ct * n_mt)
+    return v // n_mt, v % n_mt
+
+
+def kernel_walk_segments(launch: "KernelLaunch") -> np.ndarray:
+    """The reduction segment of each item ``kernel_walk`` lists: TB88's
+    ``blockIdx.z``, TB11's ``w / (n_ct * n_mt)``, 0 for TB18."""
+    if launch.spec.schedule == "TB88":
+        return np.repeat(np.arange(launch.segments),
+                         launch.grid[0] * launch.grid[1])
+    if launch.spec.schedule == "TB18":
+        return np.zeros(kernel_walk(launch)[0].size, dtype=np.int64)
+    return _tb11_items(launch) // (launch.n_col_tiles * launch.n_m_tiles)
+
+
+def segment_bounds(geom: Mapping[str, int]) -> Tuple[np.ndarray, int]:
+    """(first reduction value of each segment, a full segment's length)
+    as ``gemm_body`` computes them from its Geom: ``r0 = s * seg_len``,
+    ``r1 = min(R, r0 + seg_len)``, ``seg_len`` being ``seg_taps`` taps
+    of K (all taps where ``nseg`` is 1)."""
+    taps = geom["fh"] * geom["fw"]
+    nseg = max(geom["nseg"], 1)
+    seg_len = (geom["seg_taps"] if nseg > 1 else taps) * geom["K"]
+    return np.arange(nseg, dtype=np.int64) * seg_len, seg_len
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +203,7 @@ class KernelLaunch:
     stride: int
     walk: Callable[["KernelLaunch"], Tuple[np.ndarray, np.ndarray]] = \
         kernel_walk
+    seg_walk: Callable[["KernelLaunch"], np.ndarray] = kernel_walk_segments
     col0: Optional[Callable[[np.ndarray], np.ndarray]] = None
     row0: Optional[Callable[[np.ndarray], np.ndarray]] = None
     in_coord: Callable = in_coord_np
@@ -194,6 +229,11 @@ class KernelLaunch:
     def n_m_tiles(self) -> int:
         return ceil_div(self.geom["M"], self.m_tile)
 
+    @property
+    def segments(self) -> int:
+        """Reduction segments the kernel walks (``Geom.nseg``)."""
+        return max(self.geom["nseg"], 1)
+
     def col_starts(self, ct: np.ndarray) -> np.ndarray:
         return (self.col0(ct) if self.col0 is not None
                 else ct * self.geom["bc"])
@@ -204,14 +244,19 @@ class KernelLaunch:
 
 def kernel_launch(scene: ConvScene, schedule: str, *, in_shape, flt_shape,
                   bm: int = 0, bn: int = 0, bk: int = 0,
-                  tile: Tuple[int, ...], device=None) -> KernelLaunch:
+                  tile: Tuple[int, ...], device=None,
+                  seg_taps: Optional[int] = None) -> KernelLaunch:
     """The ``KernelLaunch`` of one (schedule, blocking, tile) over the
-    operands as launched, on ``device`` (the datasheet's card when None or
-    a CPU).  Raises ``ValueError`` where ``launch_spec`` refuses it (the
+    operands as launched, its reduction split every ``seg_taps`` taps (by
+    default the scene's, ``ConvScene.seg_taps``; 0: not split), on
+    ``device`` (the datasheet's card when None or a CPU).
+    Raises ``ValueError`` where ``launch_spec`` refuses it (the
     shared-memory budget is not applied: that is check (c))."""
     spec = mg.launch_spec(scene, schedule, in_shape=in_shape,
                           flt_shape=flt_shape, bm=bm, bn=bn, bk=bk,
-                          tile=tile)
+                          tile=tile, seg_taps=(scene.seg_taps
+                                               if seg_taps is None
+                                               else seg_taps))
     gx, gy, _, threads = mg.launch_grid(spec, device)
     geom = mg.geom_fields(mg.launch_geom(spec, device))
     return KernelLaunch(spec, geom, (gx, gy), threads, gx)
@@ -308,7 +353,7 @@ def check_launch(launch: KernelLaunch, *, smem_budget_bytes: Optional[int]
     want = {"K": in_shape[2], "N": in_shape[3], "M": flt_shape[3],
             "outH": sc.outH, "outW": sc.outW, "bm": spec.bm,
             "bc": spec.tile[1], "tm": spec.tile[2], "tc": spec.tile[3],
-            "tbm": spec.tile[0]}
+            "tbm": spec.tile[0], "seg_taps": spec.seg_taps}
     for name, value in want.items():
         if g[name] != value:
             out.append(finding(
@@ -349,31 +394,50 @@ def check_launch(launch: KernelLaunch, *, smem_budget_bytes: Optional[int]
         return out   # too malformed for the walks below
 
     # -- (a) every work item once, the tiles partitioning the output -------
+    # and the segments the reduction
     ct, mt = launch.walk(launch)
-    bad = (ct < 0) | (ct >= n_ct) | (mt < 0) | (mt >= n_mt)
+    n_seg = launch.segments
+    sg = launch.seg_walk(launch) if n_seg > 1 else np.zeros_like(ct)
+    items = n_seg * n_ct * n_mt
+    bad = ((ct < 0) | (ct >= n_ct) | (mt < 0) | (mt >= n_mt) | (sg < 0)
+           | (sg >= n_seg))
     if bad.any():
         i = int(np.argmax(bad))
         out.append(finding(
             "out-coverage",
-            f"a block visits item (column tile {int(ct[i])}, m-tile "
-            f"{int(mt[i])}) outside ({n_ct}, {n_mt}); its write lands "
-            f"outside the output"))
+            f"a block visits item (segment {int(sg[i])}, column tile "
+            f"{int(ct[i])}, m-tile {int(mt[i])}) outside ({n_seg}, {n_ct}, "
+            f"{n_mt}); its write lands outside the output"))
     else:
-        seen = np.bincount(ct * n_mt + mt, minlength=n_ct * n_mt)
+        seen = np.bincount((sg * n_ct + ct) * n_mt + mt, minlength=items)
+
+        def item(c):
+            return (f"segment {c // (n_ct * n_mt)}, column tile "
+                    f"{c // n_mt % n_ct}, m-tile {c % n_mt}")
         if (seen > 1).any():
             c = int(np.argmax(seen > 1))
             out.append(finding(
                 "out-overlap",
                 f"{int((seen > 1).sum())} work items visited more than "
-                f"once (first: column tile {c // n_mt}, m-tile "
-                f"{c % n_mt}); the blocks' stores race"))
+                f"once (first: {item(c)}); the blocks' stores race"))
         if (seen == 0).any():
             c = int(np.argmax(seen == 0))
             out.append(finding(
                 "out-coverage",
-                f"{int((seen == 0).sum())} of {n_ct * n_mt} work items "
-                f"never visited (first: column tile {c // n_mt}, m-tile "
-                f"{c % n_mt}); their outputs stay unwritten"))
+                f"{int((seen == 0).sum())} of {items} work items never "
+                f"visited (first: {item(c)}); their outputs stay "
+                f"unwritten"))
+    r_total = g["fh"] * g["fw"] * g["K"]
+    r0s, seg_len = segment_bounds(g)
+    cover, outside = _partition(r0s, seg_len, r_total)
+    if outside.any() or (cover != 1).any() or (r0s % g["K"]).any():
+        out.append(finding(
+            "reduction-coverage",
+            f"the {n_seg} segments of {seg_len} reduction values leave "
+            f"{int((cover == 0).sum())} of {r_total} uncovered, "
+            f"{int((cover > 1).sum())} covered twice, "
+            f"{int(outside.sum())} segments outside the reduction, "
+            f"{int((r0s % g['K'] != 0).sum())} starting inside a tap"))
     for axis, starts, width, total in (
             ("column", launch.col_starts(np.arange(n_ct)), g["bc"],
              launch.columns),
@@ -488,21 +552,25 @@ def check_launch(launch: KernelLaunch, *, smem_budget_bytes: Optional[int]
 
     # -- (e) agreement with the cost model ---------------------------------
     if spec.schedule == "TB18":
-        per_item = g["fh"] * g["fw"] * ceil_div(g["K"], TB18_KC)
+        per_item = np.full(ct.size, g["fh"] * g["fw"]
+                           * ceil_div(g["K"], TB18_KC), dtype=np.int64)
         red = g["fh"] * g["fw"] * g["K"]
-    else:
-        per_item = ceil_div(g["fh"] * g["fw"] * g["K"], GEMM_KC)
-        red = per_item * GEMM_KC
-    steps = int(ct.size) * per_item
-    want_steps = grid_steps(sc, spec.schedule, spec.bm, spec.bk, spec.tile)
+    else:   # each item's segment [r0, r1) in chunks from r0
+        r0 = np.clip(sg, 0, n_seg - 1) * seg_len
+        per_item = -(-(np.minimum(r_total, r0 + seg_len) - r0) // GEMM_KC)
+        red = GEMM_KC
+    steps = int(per_item.sum())
+    want_steps = grid_steps(sc, spec.schedule, spec.bm, spec.bk, spec.tile,
+                            spec.seg_taps)
     if steps != want_steps:
         out.append(finding(
             "grid-steps-disagree",
             f"the blocks walk {steps} chunk steps, the cost model's "
             f"grid_steps says {want_steps}"))
-    macs = int(ct.size) * spec.tile[0] * g["bc"] * red
+    macs = spec.tile[0] * g["bc"] * red * (
+        steps if spec.schedule != "TB18" else int(ct.size))
     want_macs = _quantized_macs(sc, spec.schedule, spec.bm, spec.bk,
-                                spec.tile)
+                                spec.tile, spec.seg_taps)
     if macs != want_macs:
         out.append(finding(
             "mac-disagree",
@@ -539,7 +607,8 @@ def verify_choice(scene: ConvScene, choice: ScheduleChoice, *,
                   smem_budget_bytes: Optional[int] = None, device=None,
                   op: str = "") -> List[Finding]:
     """Statically verify one (scene, ScheduleChoice) pair — the launch a
-    plan built from this choice would make, on ``choice.tile``."""
+    plan built from this choice would make, on ``choice.tile``, its
+    reduction split where the scene splits it."""
     spec = derive_exec_spec(scene, choice)
     in_shape, flt_shape = launched_shapes(scene, spec)
     try:
@@ -560,7 +629,8 @@ def verify_point(scene: ConvScene, schedule: str, bm: int = 0, bn: int = 0,
                  op: str = "") -> List[Finding]:
     """Statically verify a (schedule, blocking) point over ``scene`` on
     ``tile``, or on every compiled tile that runs its m-tile when ``tile``
-    is None.  Blocks default to the full MM_unit dims (TB11's)."""
+    is None, the reduction split where the scene splits it.  Blocks default
+    to the full MM_unit dims (TB11's)."""
     bm, bn, bk = bm or scene.M, bn or scene.N, bk or scene.K
     if tile is not None:
         run_on = (tuple(tile),)
@@ -729,7 +799,8 @@ def sweep_scene(scene: ConvScene, ops: Sequence[ConvOp] = _ALL_OPS, *,
     """Verify every feasible (schedule, blocking, tile) point of every
     requested op of one forward scene — the tuner's whole search space
     (``tune.space.enumerate_space`` at the device's budget), without
-    executing a kernel.  Returns (findings, points checked)."""
+    executing a kernel; a wgrad exec scene with its reduction split as its
+    plans split it.  Returns (findings, points checked)."""
     from repro_torch.tune.space import enumerate_space  # mapping imports
     # analysis back
     budget = (smem_budget_bytes if smem_budget_bytes is not None

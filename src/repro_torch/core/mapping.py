@@ -40,7 +40,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from repro_torch.analysis.footprint import (GEMM_KC, TB18_KC,
-                                            tile_threads)
+                                            segment_taps, tile_threads)
 from repro_torch.analysis.footprint import vmem_bytes as _vmem_bytes
 from repro_torch.core.scene import ConvScene, ceil_div, dtype_itemsize
 
@@ -108,6 +108,7 @@ ICI_LATENCY_S = 10.39e-6
 SHARD_LAUNCH_OVERHEAD_S = 445.4e-6
 
 SMEM_BUDGET = H100_SMEM_PER_BLOCK
+
 
 SCHEDULES = ("TB11", "TB18", "TB88")
 
@@ -236,6 +237,19 @@ class ScheduleChoice:
 # --------------------------------------------------------------------------
 # the kernels' launch shape, as the model sees it
 # --------------------------------------------------------------------------
+def wgrad_segments(scene: ConvScene) -> Tuple[Tuple[int, int], ...]:
+    """``[r0, r1)`` of each segment of a scene's reduction ``r = tap * K +
+    k``, in summation order: whole taps (``scene.seg_taps`` each, from
+    ``core.scene.WGRAD_SEGMENT_R``: only a ``WgradScene`` splits), a
+    single segment
+    where the reduction is not split."""
+    bounds, t = [], 0
+    for n in segment_taps(scene.fltH * scene.fltW, scene.seg_taps):
+        bounds.append((t * scene.K, (t + n) * scene.K))
+        t += n
+    return tuple(bounds)
+
+
 def blocks_per_sm(smem: int, threads: int,
                   smem_per_sm: int = H100_SMEM_PER_SM) -> int:
     """Blocks of ``threads`` threads and ``smem`` bytes one SM holds at
@@ -292,13 +306,13 @@ def _store_elems(scene: ConvScene, schedule: str,
 
 
 def _fma_share(scene: ConvScene, schedule: str, bm: int, bk: int,
-               tile: Tuple[int, ...]) -> float:
+               tile: Tuple[int, ...], n_seg: int = 1) -> float:
     """Share of a thread's issue slots that are FMAs: per reduction value
     it issues TM x TC FMAs, its shared reads of TM filter rows and TC
     columns (16 bytes or its vector at a time; 4 k values of a column at
     once where the IN tile is column-major) and its share of the block's
-    staging copies (TB88 also copies its filter tile); per tile, its
-    stores."""
+    staging copies (TB88 also copies its filter tile); per tile (of one of
+    ``n_seg`` reduction segments), its stores."""
     bmt, bc, tm, tc = tile
     it = dtype_itemsize(scene.dtype)
     v = 16 // it
@@ -308,7 +322,7 @@ def _fma_share(scene: ConvScene, schedule: str, bm: int, bk: int,
     if schedule == "TB88":
         copies += bmt / (v if scene.M % v == 0 and bm % v == 0 else 1)
     red = (scene.fltH * scene.fltW * scene.K if schedule != "TB88"
-           else _reduction(scene, schedule, bk))
+           else _reduction(scene, schedule, bk)) / n_seg
     fma = tm * tc * red
     return fma / (fma + red * (_ISSUE_PER_READ * reads
                                + _ISSUE_PER_COPY * copies / tile_threads(tile))
@@ -319,11 +333,13 @@ def _fma_share(scene: ConvScene, schedule: str, bm: int, bk: int,
 def _resident_bytes(scene: ConvScene, schedule: str,
                     tile: Tuple[int, ...]) -> int:
     """Filter bytes a block loads before its first chunk: TB11's whole
-    padded filter, TB18's padded slice; TB88 streams its filter."""
+    padded filter (each reduction segment from a chunk of its own), TB18's
+    padded slice; TB88 streams its filter."""
     it = dtype_itemsize(scene.dtype)
     taps = scene.fltH * scene.fltW
     if schedule == "TB11":
-        return (ceil_div(taps * scene.K, GEMM_KC) * GEMM_KC
+        segs = segment_taps(taps, scene.seg_taps)
+        return (len(segs) * ceil_div(segs[0] * scene.K, GEMM_KC) * GEMM_KC
                 * ceil_div(scene.M, tile[0]) * tile[0] * it)
     if schedule == "TB18":
         return taps * ceil_div(scene.K, 8) * 8 * tile[0] * it
@@ -347,40 +363,68 @@ def _reduction(scene: ConvScene, schedule: str, bk: int) -> int:
     return scene.fltH * scene.fltW * k
 
 
+def _chunks(scene: ConvScene, schedule: str, bk: int,
+            seg_taps: int) -> int:
+    """Chunks of ``GEMM_KC`` a TB11/TB88 work item's reduction takes,
+    summed over its segments (each walked from its own first value)."""
+    k = _reduction(scene, schedule, bk) // (scene.fltH * scene.fltW)
+    return sum(ceil_div(n * k, GEMM_KC)
+               for n in segment_taps(scene.fltH * scene.fltW, seg_taps))
+
+
 def grid_steps(scene: ConvScene, schedule: str, bm: int, bk: int,
-               tile: Tuple[int, ...]) -> int:
+               tile: Tuple[int, ...], seg_taps: Optional[int] = None) -> int:
     """Total chunk steps all blocks take: TB18 walks (tap, 32-k chunk),
-    TB11/TB88 the flattened reduction in chunks of ``GEMM_KC``."""
+    TB11/TB88 the flattened reduction in chunks of ``GEMM_KC``, each
+    segment of a split reduction (every ``seg_taps`` taps, by default the
+    scene's) from its own first value."""
+    seg_taps = scene.seg_taps if seg_taps is None else seg_taps
     n_ct, n_m = _units(scene, schedule, bm, tile)
     if schedule == "TB18":
         return n_ct * n_m * scene.fltH * scene.fltW * ceil_div(scene.K,
                                                                TB18_KC)
-    return n_ct * n_m * ceil_div(_reduction(scene, schedule, bk), GEMM_KC)
+    return n_ct * n_m * _chunks(scene, schedule, bk, seg_taps)
 
 
 def _quantized_macs(scene: ConvScene, schedule: str, bm: int, bk: int,
-                    tile: Tuple[int, ...]) -> float:
+                    tile: Tuple[int, ...],
+                    seg_taps: Optional[int] = None) -> float:
     """MACs the kernel tiles actually issue: rows rounded to the compiled
     BM per m-tile, columns to the tile width, the reduction to TB18's k
-    chunk per tap or to whole TB11/TB88 chunks."""
+    chunk per tap or to whole TB11/TB88 chunks per segment (every
+    ``seg_taps`` taps, by default the scene's)."""
+    seg_taps = scene.seg_taps if seg_taps is None else seg_taps
     n_ct, n_m = _units(scene, schedule, bm, tile)
     if schedule == "TB18":
         red = scene.fltH * scene.fltW * scene.K
     else:
-        red = ceil_div(_reduction(scene, schedule, bk), GEMM_KC) * GEMM_KC
+        red = _chunks(scene, schedule, bk, seg_taps) * GEMM_KC
     return n_m * tile[0] * n_ct * tile[1] * red
+
+
+def segsum_bytes(scene: ConvScene) -> int:
+    """Bytes the second pass of a split reduction moves: the f32 partials
+    read once, the output written once (0 where there is no split)."""
+    n_seg = len(wgrad_segments(scene))
+    if n_seg == 1:
+        return 0
+    return n_seg * scene.bytes_out() // dtype_itemsize(scene.dtype) * 4 \
+        + scene.bytes_out()
 
 
 def _traffic_bytes(scene: ConvScene, schedule: str, bm: int, slots: int,
                    tile: Tuple[int, ...]) -> int:
     """Bytes each residency pattern streams: the filter once per block
     that loads it, the gathered input window (the implicit GEMM's B
-    operand) once per m-tile pass, the output once."""
+    operand) once per m-tile pass, the output once (a split reduction's
+    f32 partials once per segment instead)."""
     it = dtype_itemsize(scene.dtype)
     taps = scene.fltH * scene.fltW
     flt = taps * scene.K * scene.M * it
     in_win = scene.num_spatial_tasks * scene.N * taps * scene.K * it
     out = scene.bytes_out()
+    if segsum_bytes(scene):
+        out = segsum_bytes(scene) - out
     n_ct, n_m = _units(scene, schedule, bm, tile)
     if schedule == "TB11":
         return flt * min(n_ct * n_m, slots) + n_m * in_win + out
@@ -400,7 +444,8 @@ class CostTerms:
     compute_s: float       # busiest SM's issue time at the datasheet rate
     hbm_s: float           # streamed bytes over the datasheet HBM rate
     steps: float           # chunk steps the per-step overhead is charged on
-    fixed_s: float         # resident filter loads (no class correction)
+    fixed_s: float         # resident filter loads and a split
+                           # reduction's second pass (no class correction)
     smem: int              # the block's shared-memory footprint
 
     @property
@@ -413,9 +458,14 @@ def cost_terms(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
                budget: int = SMEM_BUDGET,
                tile: Tuple[int, ...] = ()) -> Optional[CostTerms]:
     """The uncorrected terms of one (schedule, blocks, tile) point, or None
-    when its shared memory exceeds ``budget``; ``model`` supplies the base
-    rates."""
+    when its shared memory exceeds ``budget`` or it is TB18 on a split
+    reduction; ``model`` supplies the base rates.  A split reduction (a
+    ``WgradScene``'s, ``wgrad_segments``) makes each segment a work item
+    of its own, plus the second pass's bytes."""
     model = model if model is not None else DEFAULT_COST_MODEL
+    n_seg = len(wgrad_segments(scene))
+    if n_seg > 1 and schedule == "TB18":
+        return None
     smem = _vmem_bytes(scene, schedule, bm, bn, bk, tile)
     if smem > budget:
         return None
@@ -423,7 +473,7 @@ def cost_terms(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
     per_sm = _resident_blocks(schedule, smem, tile)
     slots = H100_SMS * per_sm
     n_ct, n_m = _units(scene, schedule, bm, tile)
-    units = n_ct * n_m
+    units = n_ct * n_m * n_seg
     # the busiest SM's share of the units, and the warps it holds while it
     # works through them: a busy SM issues at the full rate only with
     # enough warps resident (few-output layers leave it latency-bound)
@@ -434,14 +484,15 @@ def cost_terms(scene: ConvScene, schedule: str, bm: int, bn: int, bk: int,
     macs = _quantized_macs(scene, schedule, bm, bk, tile)
     sm_rate = model.mxu_rate(scene.dtype) / H100_SMS
     compute_s = (busiest * 2 * macs / units / sm_rate / issue
-                 / _fma_share(scene, schedule, bm, bk, tile))
+                 / _fma_share(scene, schedule, bm, bk, tile, n_seg))
     hbm_s = _traffic_bytes(scene, schedule, bm, slots, tile) / model.hbm_bw
     # the busiest SM's chunk steps, overlapped across its resident blocks,
-    # and its resident blocks' filter loads
-    steps = grid_steps(scene, schedule, bm, bk, tile) / units * busiest \
-        / resident
+    # its resident blocks' filter loads, and the second pass of a split
+    steps = grid_steps(scene, schedule, bm, bk, tile) / units \
+        * busiest / resident
     fixed_s = (resident * _resident_bytes(scene, schedule, tile)
-               / (L2_TO_SM_BW / H100_SMS))
+               / (L2_TO_SM_BW / H100_SMS)
+               + segsum_bytes(scene) / model.hbm_bw)
     return CostTerms(compute_s, hbm_s, steps, fixed_s, smem)
 
 
@@ -477,16 +528,30 @@ def candidate_blocks(scene: ConvScene, schedule: str
                  for tile in tile_candidates(schedule, bm))
 
 
+def split_tb18_error(scene: ConvScene) -> str:
+    """Why TB18 cannot run a split reduction (``select_schedule`` and an
+    exact TB18 choice on a split plan raise it)."""
+    return (f"TB18 walks a whole reduction per block; the split reduction "
+            f"of {scene.describe()} (every {scene.seg_taps} taps) runs on "
+            f"TB11 or TB88")
+
+
 def select_schedule(scene: ConvScene,
                     allowed: Tuple[str, ...] = SCHEDULES,
                     model: Optional[CostModel] = None,
                     budget: int = SMEM_BUDGET) -> ScheduleChoice:
-    """Pick the best (schedule, blocks, tile) for a scene.
+    """Pick the best (schedule, blocks, tile) for a scene, its reduction
+    split where the scene splits it (a ``WgradScene``).
 
     ``allowed`` restricts the grains considered (a forced schedule passes
     a 1-tuple); when none of them fits the shared-memory ``budget`` at any
     candidate blocking, raises ``ValueError`` — a forced grain never
-    silently becomes another one."""
+    silently becomes another one.  TB18 takes no split reduction: forced
+    alone on one, it raises."""
+    if len(wgrad_segments(scene)) > 1:
+        if tuple(allowed) == ("TB18",):
+            raise ValueError(split_tb18_error(scene))
+        allowed = tuple(s for s in allowed if s != "TB18")
     best: Optional[ScheduleChoice] = None
     for schedule in allowed:
         for bm, bn, bk, tile in candidate_blocks(scene, schedule):

@@ -18,6 +18,20 @@ import dataclasses
 import math
 from typing import Tuple
 
+# The weight gradient's split reduction.  A wgrad exec scene
+# (plan/build.grad_filter_scene) contracts the forward's output pixels and
+# batch, up to 100 352 reduction values onto a few hundred output columns:
+# a handful of blocks, each walking all of it.  Its plans cut the
+# reduction into segments of whole taps, each walked by blocks of its own
+# into an f32 partial, and a second kernel (mg3m_segsum) adds the
+# partials in segment order.  A segment holds WGRAD_SEGMENT_R reduction
+# values rounded down to whole taps (at least one tap), a length chosen
+# by timing the ResNet trunk's wgrad scenes at several on the card
+# (``chip_tile_sweep.py --segments``, PERF.md §6).  The split depends on
+# the exec scene's reduction (taps and K) alone, so the plain version,
+# every grain, tuned and analytic plans, and every partition that keeps
+# the reduction sum in one order.
+WGRAD_SEGMENT_R = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +133,12 @@ class ConvScene:
         return (f"|dil={self.dilH},{self.dilW}"
                 f"|fdil={self.fdilH},{self.fdilW}"
                 f"|apad={self.apadH},{self.apadW}")
+
+    @property
+    def seg_taps(self) -> int:
+        """Taps per segment of the reduction its plans split, 0 where they
+        do not split it: only a ``WgradScene`` splits."""
+        return 0
 
     # -- batch-family identity (serving coalesces along B) ---------------------
     def with_batch(self, b: int) -> "ConvScene":
@@ -232,6 +252,23 @@ class ConvScene:
             f"MM_unit M={self.M} N={self.N} K={self.K} "
             f"tasks={self.num_spatial_tasks} AI={self.arithmetic_intensity:.1f})"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradScene(ConvScene):
+    """A weight gradient's exec scene whose reduction its plans split
+    (``plan.build.grad_filter_scene`` makes one where ``seg_taps`` > 0).
+    The fields are ``ConvScene``'s: the type is the mark, so a partition
+    (``dataclasses.replace``) keeps it, and every layer (the selector, the
+    tuner and its cache, the shard selector, the plans) reads the split
+    from the scene."""
+
+    @property
+    def seg_taps(self) -> int:
+        """``WGRAD_SEGMENT_R`` reduction values rounded down to whole taps
+        (at least one), or 0 where one segment holds every tap."""
+        per = max(1, WGRAD_SEGMENT_R // self.K)
+        return per if self.fltH * self.fltW > per else 0
 
 
 # The scene's dtype vocabulary: every spelling a caller may pass -> the

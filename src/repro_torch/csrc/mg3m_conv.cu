@@ -67,6 +67,20 @@
 // reference instead reads an appended all-zero sentinel row/column, which
 // this port therefore does not append.
 //
+// The weight gradient's exec scenes (plan/build.grad_filter_scene) contract
+// up to 100 352 reduction values onto a few hundred output columns: one
+// block per tile would walk all of it alone on 1-9 of the 132 SMs.  There
+// the plan splits the reduction into g.nseg segments of g.seg_taps whole
+// taps (core/mapping.wgrad_seg_taps): TB11 and TB88 give each segment
+// blocks of their own, which walk r over [r0, r1) only, in chunks of G_KC
+// from r0, tap-major and k ascending from zero as before, and store f32
+// partials without the cast into a workspace [nseg][outH * outW * M * N].
+// mg3m_segsum_kernel then adds each output's partials in the order s = 0,
+// 1, ..., nseg - 1, one f32 add each, and casts: no atomics, no order that
+// depends on which block finishes first, so every grain and the plain
+// version sum in one order.  TB18 takes no split (the selector never
+// offers it there).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmg3m_conv.so mg3m_conv.cu
 // The C entry points take a Geom by pointer and return the CUDA error code
@@ -76,6 +90,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 struct Geom {
   int Hl, Wl;        // launched input spatial extent
@@ -92,6 +107,8 @@ struct Geom {
   int bc;            // compiled tile: columns
   int tm, tc;        // compiled tile: thread tile
   int tbm;           // compiled tile: rows (TB11/TB88)
+  int nseg;          // reduction segments (1 = not split; TB11/TB88)
+  int seg_taps;      // taps per segment where nseg > 1
 };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -288,7 +305,7 @@ __device__ __forceinline__ void fma_chunk_kmajor(float (&acc)[TM][TC],
 template <typename T, int BM, int BC, int TM, int TC>
 __global__ void __launch_bounds__(BM / TM * (BC / TC))
     mg3m_tb18_kernel(const T* __restrict__ in, const T* __restrict__ flt,
-                     T* __restrict__ out, Geom g) {
+                     T* __restrict__ out, float* __restrict__, Geom g) {
   constexpr int THR = BM / TM * (BC / TC);
   constexpr int V = 16 / (int)sizeof(T);   // elements per 16 bytes
   constexpr int KCP = t18_row<T>();
@@ -491,8 +508,9 @@ __device__ __forceinline__ void stv(__nv_bfloat16* p, const float* x) {
 
 // Shared memory of one block (analysis/footprint.gemm_smem), in order:
 //   filter  TB88: a ring of two [G_KC][BM] tiles; TB11: the whole filter
-//           [nq * G_KC][Mp] (nq chunks, Mp = M rounded up to BM), the pads
-//           zero;
+//           [nseg * nqs * G_KC][Mp] (each segment from a chunk of its own,
+//           nqs chunks of a full segment; Mp = M rounded up to BM), the
+//           pads zero;
 //   IN      a ring of two tiles of BC * t18_row elements: column-major
 //           [BC][t18_row] at batch 1, k-major [G_KC][BC] otherwise;
 //   rtab    [2][G_KC] int4 per reduction value of the chunk being staged:
@@ -503,7 +521,9 @@ __device__ __forceinline__ void stv(__nv_bfloat16* p, const float* x) {
 template <typename T, int BM, int BC, int TM, int TC, bool RES>
 __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
                                           const T* __restrict__ flt,
-                                          T* __restrict__ out, const Geom& g) {
+                                          T* __restrict__ out,
+                                          float* __restrict__ ws,
+                                          const Geom& g) {
   constexpr int THR = BM / TM * (BC / TC);
   constexpr int V = 16 / (int)sizeof(T);   // elements per 16 bytes
   constexpr int VR = TM < V ? TM : V;      // filter rows per shared read
@@ -516,13 +536,16 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
   static_assert(TM % VR == 0 && TC % VC == 0 && G_KC % V == 0, "tile");
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int R = g.fh * g.fw * g.K;
-  const int nq = (R + G_KC - 1) / G_KC;
+  const int taps = g.fh * g.fw;
+  const int R = taps * g.K;
+  const int nseg = g.nseg > 1 ? g.nseg : 1;
+  const int seg_len = (nseg > 1 ? g.seg_taps : taps) * g.K;  // a full one
+  const int nqs = (seg_len + G_KC - 1) / G_KC;   // its chunks
   const int C = g.outH * g.outW * g.N;
   const int n_ct = (C + BC - 1) / BC;
   const int Mp = RES ? (g.M + BM - 1) / BM * BM : BM;   // filter row stride
   const size_t flt_elems =
-      RES ? (size_t)nq * G_KC * Mp : (size_t)2 * G_KC * BM;
+      RES ? (size_t)nseg * nqs * G_KC * Mp : (size_t)2 * G_KC * BM;
   T* flt_s = reinterpret_cast<T*>(smem);
   T* in_s = reinterpret_cast<T*>(smem + round16(flt_elems * sizeof(T)));
   int4* rtab = reinterpret_cast<int4*>(in_s + 2 * BC * KCP);
@@ -533,7 +556,6 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
   const bool cmaj = g.N == 1;
   const bool in_al = reinterpret_cast<uintptr_t>(in) % 16 == 0;
   const bool flt_al = reinterpret_cast<uintptr_t>(flt) % 16 == 0;
-  const bool out_al = reinterpret_cast<uintptr_t>(out) % 16 == 0;
   // column-major: 16-byte copies of V k values where K % V == 0
   const bool in_vec = cmaj && in_al && g.K % V == 0;
   // k-major: EB bytes (E columns of one pixel) per copy; bf16 single
@@ -551,6 +573,7 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
   const bool flt_vec = flt_al && g.M % V == 0 && g.bm % V == 0;
 
   int c0 = 0, m0 = 0;
+  int r0 = 0, r1 = R, nq = nqs;   // the tile's segment [r0, r1), its chunks
 
   auto in_off = [&](int4 s, int cc) {
     if (s.x < 0) return -1;
@@ -559,9 +582,9 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
   };
 
   auto fill_r = [&](int q, int buf, int rr) {
-    const int r = q * G_KC + rr;
+    const int r = r0 + q * G_KC + rr;
     int4 s = make_int4(-1, 0, 0, 0);
-    if (r < R) {
+    if (r < r1) {
       const int t = r / g.K, k = r - t * g.K;
       const int i = t / g.fw, j = t - i * g.fw;
       s = make_int4(i * BC, j * BC, k * g.N, 0);
@@ -601,22 +624,22 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
     }
     if constexpr (!RES) {
       T* fd = flt_s + buf * G_KC * BM;
-      const int r0 = q * G_KC;
+      const int rc = r0 + q * G_KC;
       if (flt_vec) {
         constexpr int SEG = BM / V;
         for (int e = threadIdx.x; e < G_KC * SEG; e += THR) {
           const int rr = e / SEG, ml = e % SEG * V;
-          const bool ok = r0 + rr < R && ml < g.bm;
+          const bool ok = rc + rr < r1 && ml < g.bm;
           cp_async_n(fd + rr * BM + ml,
-                     flt + (ok ? (size_t)(r0 + rr) * g.M + m0 + ml : 0), 16,
+                     flt + (ok ? (size_t)(rc + rr) * g.M + m0 + ml : 0), 16,
                      ok);
         }
       } else {
         for (int e = threadIdx.x; e < G_KC * BM; e += THR) {
           const int rr = e / BM, ml = e % BM;
-          const bool ok = r0 + rr < R && ml < g.bm;
+          const bool ok = rc + rr < r1 && ml < g.bm;
           Io<T>::copy1(fd + e,
-                       flt + (ok ? (size_t)(r0 + rr) * g.M + m0 + ml : 0),
+                       flt + (ok ? (size_t)(rc + rr) * g.M + m0 + ml : 0),
                        ok);
         }
       }
@@ -624,29 +647,44 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
   };
 
   if constexpr (RES) {
-    // the whole filter, zero past R rows and M columns, once per block
-    const int rows = nq * G_KC;
+    // the whole filter, zero past R rows and M columns, once per block:
+    // shared row i holds reduction value r = s * seg_len + rr of segment
+    // s = i / (nqs * G_KC), rr = i % (nqs * G_KC) (r = i unsplit), zero
+    // past the segment's end
+    const int rows = nseg * nqs * G_KC;
+    const int srows = nqs * G_KC;
+    auto src_row = [&](int i) {
+      const int sg = i / srows, rr = i - sg * srows;
+      const int r = sg * seg_len + rr;
+      return rr < seg_len && r < R ? r : -1;
+    };
     if (flt_al && g.M % V == 0) {
       const int segs = Mp / V;
       for (int e = threadIdx.x; e < rows * segs; e += THR) {
-        const int r = e / segs, m = (e - r * segs) * V;
-        const bool ok = r < R && m < g.M;
-        cp_async_n(flt_s + (size_t)r * Mp + m,
+        const int i = e / segs, m = (e - i * segs) * V;
+        const int r = src_row(i);
+        const bool ok = r >= 0 && m < g.M;
+        cp_async_n(flt_s + (size_t)i * Mp + m,
                    flt + (ok ? (size_t)r * g.M + m : 0), 16, ok);
       }
     } else {
       for (int e = threadIdx.x; e < rows * Mp; e += THR) {
-        const int r = e / Mp, m = e - r * Mp;
-        const bool ok = r < R && m < g.M;
+        const int i = e / Mp, m = e - i * Mp;
+        const int r = src_row(i);
+        const bool ok = r >= 0 && m < g.M;
         Io<T>::copy1(flt_s + e, flt + (ok ? (size_t)r * g.M + m : 0), ok);
       }
     }
   }
 
-  // one BM x BC output tile: the chunks of the reduction, double-buffered
-  auto tile = [&](int ct, int mt) {
+  // one BM x BC output tile of segment sg: the chunks of its reduction,
+  // double-buffered
+  auto tile = [&](int ct, int mt, int sg) {
     c0 = ct * BC;
     m0 = mt * (RES ? BM : g.bm);
+    r0 = sg * seg_len;
+    r1 = min(R, r0 + seg_len);
+    nq = (r1 - r0 + G_KC - 1) / G_KC;
     __syncthreads();   // the last tile is done with the tables and buffers
     for (int e = threadIdx.x; e < (g.fh + g.fw) * BC; e += THR) {
       const int a = e / BC, c = c0 + e % BC;
@@ -686,8 +724,9 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
       if (q + 1 < nq) stage(q + 1, (q + 1) & 1);
       cp_async_commit();
 
-      const T* fr = (RES ? flt_s + (size_t)q * G_KC * Mp + m0
-                         : flt_s + (q & 1) * G_KC * BM) + tm * VR;
+      const T* fr =
+          (RES ? flt_s + ((size_t)sg * nqs + q) * G_KC * Mp + m0
+               : flt_s + (q & 1) * G_KC * BM) + tm * VR;
       const T* src = in_s + (q & 1) * BC * KCP;
       if (cmaj) {
 #pragma unroll 2
@@ -733,75 +772,89 @@ __device__ __forceinline__ void gemm_body(const T* __restrict__ in,
 
     // a thread's outputs: VR consecutive rows of a column are contiguous
     // at batch 1, VC consecutive columns of a row (one pixel's batch run)
-    // at batch N > 1: one 16-byte (or narrower) store each where whole
+    // at batch N > 1: one 16-byte (or narrower) store each where whole;
+    // into `out` as T, or into segment sg's f32 partials
     const int mlim = RES ? min(BM, g.M - m0) : g.bm;
-    if (cmaj) {
-      const bool vst = out_al && g.M % VR == 0 && mlim % VR == 0;
+    auto store = [&](auto* dst) {
+      using O = typename std::remove_pointer<decltype(dst)>::type;
+      const bool dst_al = reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+      if (cmaj) {
+        const bool vst = dst_al && g.M % VR == 0 && mlim % VR == 0;
 #pragma unroll
-      for (int s = 0; s < TC; ++s) {
-        const int c = c0 + tc + s * CT;
-        if (c >= C) continue;
+        for (int s = 0; s < TC; ++s) {
+          const int c = c0 + tc + s * CT;
+          if (c >= C) continue;
 #pragma unroll
-        for (int v = 0; v < TM / VR; ++v) {
-          const int ml = (v * MT + tm) * VR;
-          T* o = out + (size_t)c * g.M + m0 + ml;
-          float x[VR];
+          for (int v = 0; v < TM / VR; ++v) {
+            const int ml = (v * MT + tm) * VR;
+            O* o = dst + (size_t)c * g.M + m0 + ml;
+            float x[VR];
 #pragma unroll
-          for (int u = 0; u < VR; ++u) x[u] = acc[v * VR + u][s];
-          if (vst) {
-            if (ml < mlim) stv<VR>(o, x);
-          } else {
+            for (int u = 0; u < VR; ++u) x[u] = acc[v * VR + u][s];
+            if (vst) {
+              if (ml < mlim) stv<VR>(o, x);
+            } else {
 #pragma unroll
-            for (int u = 0; u < VR; ++u)
-              if (ml + u < mlim) o[u] = from_f<T>(x[u]);
+              for (int u = 0; u < VR; ++u)
+                if (ml + u < mlim) o[u] = from_f<O>(x[u]);
+            }
+          }
+        }
+      } else {
+        // SW columns a store: the thread's VC columns where they are one
+        // pixel's, pairs of them where N is even
+        const int sw = !dst_al || BC % g.N != 0 ? 1
+                       : g.N % VC == 0          ? VC
+                       : g.N % 2 == 0           ? 2
+                                                : 1;
+#pragma unroll
+        for (int v = 0; v < TC / VC; ++v) {
+          const int c = c0 + (v * CT + tc) * VC;
+          size_t off[VC];   // each column's (pixel, batch) offset, -1 past C
+#pragma unroll
+          for (int u = 0; u < VC; ++u) {
+            const int p = (c + u) / g.N, n = c + u - p * g.N;
+            off[u] = c + u < C ? (size_t)p * g.M * g.N + n : ~(size_t)0;
+          }
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+            const int ml = ((r / VR) * MT + tm) * VR + r % VR;
+            if (ml >= mlim) continue;
+            O* o = dst + (size_t)(m0 + ml) * g.N;
+            const float* x = &acc[r][v * VC];
+            if (sw == VC) {
+              if (off[0] != ~(size_t)0) stv<VC>(o + off[0], x);
+            } else if (sw == 2) {
+#pragma unroll
+              for (int u = 0; u < VC; u += 2)
+                if (off[u] != ~(size_t)0) stv<2>(o + off[u], x + u);
+            } else {
+#pragma unroll
+              for (int u = 0; u < VC; ++u)
+                if (off[u] != ~(size_t)0) o[off[u]] = from_f<O>(x[u]);
+            }
           }
         }
       }
-    } else {
-      // SW columns a store: the thread's VC columns where they are one
-      // pixel's, pairs of them where N is even
-      const int sw = !out_al || BC % g.N != 0 ? 1
-                     : g.N % VC == 0          ? VC
-                     : g.N % 2 == 0           ? 2
-                                              : 1;
-#pragma unroll
-      for (int v = 0; v < TC / VC; ++v) {
-        const int c = c0 + (v * CT + tc) * VC;
-        size_t off[VC];   // each column's (pixel, batch) offset, -1 past C
-#pragma unroll
-        for (int u = 0; u < VC; ++u) {
-          const int p = (c + u) / g.N, n = c + u - p * g.N;
-          off[u] = c + u < C ? (size_t)p * g.M * g.N + n : ~(size_t)0;
-        }
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const int ml = ((r / VR) * MT + tm) * VR + r % VR;
-          if (ml >= mlim) continue;
-          T* o = out + (size_t)(m0 + ml) * g.N;
-          const float* x = &acc[r][v * VC];
-          if (sw == VC) {
-            if (off[0] != ~(size_t)0) stv<VC>(o + off[0], x);
-          } else if (sw == 2) {
-#pragma unroll
-            for (int u = 0; u < VC; u += 2)
-              if (off[u] != ~(size_t)0) stv<2>(o + off[u], x + u);
-          } else {
-#pragma unroll
-            for (int u = 0; u < VC; ++u)
-              if (off[u] != ~(size_t)0) o[off[u]] = from_f<T>(x[u]);
-          }
-        }
-      }
-    }
+    };
+    if (nseg > 1)
+      store(ws + (size_t)sg * C * g.M);
+    else
+      store(out);
   };
 
   if constexpr (RES) {
-    // persistent: work items (column tile, m-tile), x, x + grid, ...
+    // persistent: work items (segment, column tile, m-tile), x, x + grid,
+    // ...; item w is segment w / (n_ct * n_mt), and of the rest v, column
+    // tile v / n_mt, m-tile v % n_mt
     const int n_mt = Mp / BM;
-    for (int w = blockIdx.x; w < n_ct * n_mt; w += gridDim.x)
-      tile(w / n_mt, w - w / n_mt * n_mt);
+    const int per_seg = n_ct * n_mt;
+    for (int w = blockIdx.x; w < per_seg * nseg; w += gridDim.x) {
+      const int sg = w / per_seg, v = w - sg * per_seg;
+      tile(v / n_mt, v - v / n_mt * n_mt, sg);
+    }
   } else {
-    tile(blockIdx.x, blockIdx.y);
+    tile(blockIdx.x, blockIdx.y, blockIdx.z);
   }
 }
 
@@ -823,34 +876,70 @@ template <typename T, int BM, int BC, int TM, int TC>
 __global__ void __launch_bounds__(gemm_threads(BM, BC, TM, TC),
                                   gemm_min_blocks(BM, BC, TM, TC))
     mg3m_tb11_kernel(const T* __restrict__ in, const T* __restrict__ flt,
-                     T* __restrict__ out, Geom g) {
-  gemm_body<T, BM, BC, TM, TC, true>(in, flt, out, g);
+                     T* __restrict__ out, float* __restrict__ ws, Geom g) {
+  gemm_body<T, BM, BC, TM, TC, true>(in, flt, out, ws, g);
 }
 
 // TB88 (replaces conv_tb88, mg3m_conv.py:352): block (column tile,
-// m-tile), the filter streamed in [G_KC][BM] tiles beside the IN tile.
-// Nothing resident but the column tables.
+// m-tile, reduction segment), the filter streamed in [G_KC][BM] tiles
+// beside the IN tile.  Nothing resident but the column tables.
 template <typename T, int BM, int BC, int TM, int TC>
 __global__ void __launch_bounds__(gemm_threads(BM, BC, TM, TC),
                                   gemm_min_blocks(BM, BC, TM, TC))
     mg3m_tb88_kernel(const T* __restrict__ in, const T* __restrict__ flt,
-                     T* __restrict__ out, Geom g) {
-  gemm_body<T, BM, BC, TM, TC, false>(in, flt, out, g);
+                     T* __restrict__ out, float* __restrict__ ws, Geom g) {
+  gemm_body<T, BM, BC, TM, TC, false>(in, flt, out, ws, g);
+}
+
+// The second pass of a split reduction (replaces no TPU kernel: the Pallas
+// grid walks a reduction in order on one core): out[i] = ws[0][i] +
+// ws[1][i] + ... + ws[nseg - 1][i], one f32 add each in that order, cast
+// to T.  Bound by bytes (nseg f32 reads and one store per output); four
+// outputs a thread, 16-byte reads, where n and the pointers allow.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    mg3m_segsum_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                       int nseg, long long n, bool vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    const float4* w4 = reinterpret_cast<const float4*>(ws);
+    const long long n4 = n / 4;
+    for (; i < n4; i += stride) {
+      float4 a = w4[i];
+      for (int s = 1; s < nseg; ++s) {
+        const float4 b = w4[(size_t)s * n4 + i];
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+      }
+      const float x[4] = {a.x, a.y, a.z, a.w};
+      stv<4>(out + 4 * i, x);
+    }
+  } else {
+    for (; i < n; i += stride) {
+      float a = ws[i];
+      for (int s = 1; s < nseg; ++s) a += ws[(size_t)s * n + i];
+      out[i] = from_f<T>(a);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <typename T>
-static int launch(void (*kernel)(const T*, const T*, T*, Geom), dim3 grid,
-                  size_t smem, const T* in, const T* flt, T* out,
-                  const Geom& g, cudaStream_t stream, int threads) {
+static int launch(void (*kernel)(const T*, const T*, T*, float*, Geom),
+                  dim3 grid, size_t smem, const T* in, const T* flt, T* out,
+                  float* ws, const Geom& g, cudaStream_t stream,
+                  int threads) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<grid, threads, smem, stream>>>(in, flt, out, g);
+  kernel<<<grid, threads, smem, stream>>>(in, flt, out, ws, g);
   return (int)cudaGetLastError();
 }
 
@@ -858,7 +947,10 @@ static int launch(void (*kernel)(const T*, const T*, T*, Geom), dim3 grid,
 // gemm_body.
 template <typename T>
 static size_t gemm_smem(const Geom& g, int BM, int BC, bool res) {
-  const size_t nq = ((size_t)g.fh * g.fw * g.K + G_KC - 1) / G_KC;
+  const int nseg = g.nseg > 1 ? g.nseg : 1;
+  const size_t seg_len =
+      (size_t)(nseg > 1 ? g.seg_taps : g.fh * g.fw) * g.K;
+  const size_t nq = nseg * ((seg_len + G_KC - 1) / G_KC);
   const size_t flt = res ? nq * G_KC * (size_t)((g.M + BM - 1) / BM * BM)
                          : (size_t)2 * G_KC * BM;
   return round16(flt * sizeof(T)) + 2 * (size_t)BC * t18_row<T>() * sizeof(T) +
@@ -866,21 +958,21 @@ static size_t gemm_smem(const Geom& g, int BM, int BC, bool res) {
 }
 
 template <typename T, int BM, int BC, int TM, int TC>
-static int tb11_shape(const void* in, const void* flt, void* out,
+static int tb11_shape(const void* in, const void* flt, void* out, float* ws,
                       const Geom& g, cudaStream_t s) {
   return launch(mg3m_tb11_kernel<T, BM, BC, TM, TC>, dim3(g.grid),
                 gemm_smem<T>(g, BM, BC, true), (const T*)in, (const T*)flt,
-                (T*)out, g, s, BM / TM * (BC / TC));
+                (T*)out, ws, g, s, BM / TM * (BC / TC));
 }
 
 template <typename T, int BM, int BC, int TM, int TC>
-static int tb88_shape(const void* in, const void* flt, void* out,
+static int tb88_shape(const void* in, const void* flt, void* out, float* ws,
                       const Geom& g, cudaStream_t s) {
   const int C = g.outH * g.outW * g.N;
   return launch(mg3m_tb88_kernel<T, BM, BC, TM, TC>,
-                dim3((C + BC - 1) / BC, g.M / g.bm),
+                dim3((C + BC - 1) / BC, g.M / g.bm, g.nseg),
                 gemm_smem<T>(g, BM, BC, false), (const T*)in, (const T*)flt,
-                (T*)out, g, s, BM / TM * (BC / TC));
+                (T*)out, ws, g, s, BM / TM * (BC / TC));
 }
 
 // The compiled (BM, BC, TM, TC) tiles of each grain (footprint.TB11_SHAPES,
@@ -902,22 +994,22 @@ static int tb88_shape(const void* in, const void* flt, void* out,
   TB88_SHAPE(64, 32, 4, 4) TB88_SHAPE(128, 32, 4, 4)
 
 template <typename T>
-static int tb11(const void* in, const void* flt, void* out, const Geom& g,
-                cudaStream_t s) {
+static int tb11(const void* in, const void* flt, void* out, float* ws,
+                const Geom& g, cudaStream_t s) {
 #define TB11_SHAPE(BM_, BC_, TM_, TC_)                                \
   if (g.tbm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)      \
-    return tb11_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
+    return tb11_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, ws, g, s);
   TB11_TILES
 #undef TB11_SHAPE
   return -1;
 }
 
 template <typename T>
-static int tb88(const void* in, const void* flt, void* out, const Geom& g,
-                cudaStream_t s) {
+static int tb88(const void* in, const void* flt, void* out, float* ws,
+                const Geom& g, cudaStream_t s) {
 #define TB88_SHAPE(BM_, BC_, TM_, TC_)                                \
   if (g.tbm == BM_ && g.bc == BC_ && g.tm == TM_ && g.tc == TC_)      \
-    return tb88_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, g, s);
+    return tb88_shape<T, BM_, BC_, TM_, TC_>(in, flt, out, ws, g, s);
   TB88_TILES
 #undef TB88_SHAPE
   return -1;
@@ -937,7 +1029,7 @@ static int tb18_shape(const void* in, const void* flt, void* out,
                       const Geom& g, cudaStream_t s) {
   return launch(mg3m_tb18_kernel<T, BM, BC, TM, TC>,
                 dim3(g.grid, g.M / g.bm), tb18_smem<T>(g, BM, BC),
-                (const T*)in, (const T*)flt, (T*)out, g, s,
+                (const T*)in, (const T*)flt, (T*)out, nullptr, g, s,
                 BM / TM * (BC / TC));
 }
 
@@ -961,6 +1053,15 @@ static bool valid(const Geom* g) {
          g->dilW > 0 &&
          // the offset tables hold int32 input offsets
          (long long)g->Hl * g->Wl * g->K * g->N < (1ll << 31);
+}
+
+// The output as the grain stores it: `out` whole (nseg 1), or nseg
+// segments of seg_taps taps (the last shorter) into the workspace `ws`.
+static bool valid_store(const Geom* g, const void* out, const void* ws) {
+  if (g->nseg == 1) return out != nullptr;
+  const int taps = g->fh * g->fw;
+  return g->nseg > 1 && g->nseg <= 65535 && g->seg_taps > 0 &&
+         (taps + g->seg_taps - 1) / g->seg_taps == g->nseg && ws != nullptr;
 }
 
 // TB18 slices and TB88 m-tiles: a width that divides M.
@@ -1043,19 +1144,24 @@ const char* mg3m_error_string(int code) {
                   : cudaGetErrorString((cudaError_t)code);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16.  ws: the f32 partials [nseg][outH *
+// outW * M * N] of a split reduction (Geom.nseg > 1; out unused), else
+// null.
 int mg3m_tb11(int dtype, const void* in, const void* flt, void* out,
-              const Geom* g, void* stream) {
-  if (!valid(g) || g->grid <= 0) return -1;
+              void* ws, const Geom* g, void* stream) {
+  if (!valid(g) || !valid_store(g, out, ws) || g->grid <= 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return tb11<float>(in, flt, out, *g, s);
-  if (dtype == 1) return tb11<__nv_bfloat16>(in, flt, out, *g, s);
+  float* w = (float*)ws;
+  if (dtype == 0) return tb11<float>(in, flt, out, w, *g, s);
+  if (dtype == 1) return tb11<__nv_bfloat16>(in, flt, out, w, *g, s);
   return -1;
 }
 
 int mg3m_tb18(int dtype, const void* in, const void* flt, void* out,
-              const Geom* g, void* stream) {
-  if (!valid(g) || !valid_bm(g) || g->grid <= 0) return -1;
+              void* ws, const Geom* g, void* stream) {
+  if (!valid(g) || !valid_bm(g) || g->grid <= 0 || g->nseg != 1 || !out ||
+      ws)
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return tb18<float>(in, flt, out, *g, s);
   if (dtype == 1) return tb18<__nv_bfloat16>(in, flt, out, *g, s);
@@ -1063,12 +1169,37 @@ int mg3m_tb18(int dtype, const void* in, const void* flt, void* out,
 }
 
 int mg3m_tb88(int dtype, const void* in, const void* flt, void* out,
-              const Geom* g, void* stream) {
-  if (!valid(g) || !valid_bm(g) || g->bm > g->tbm) return -1;
+              void* ws, const Geom* g, void* stream) {
+  if (!valid(g) || !valid_bm(g) || !valid_store(g, out, ws) ||
+      g->bm > g->tbm)
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return tb88<float>(in, flt, out, *g, s);
-  if (dtype == 1) return tb88<__nv_bfloat16>(in, flt, out, *g, s);
+  float* w = (float*)ws;
+  if (dtype == 0) return tb88<float>(in, flt, out, w, *g, s);
+  if (dtype == 1) return tb88<__nv_bfloat16>(in, flt, out, w, *g, s);
   return -1;
+}
+
+// out[i] = sum over s in order of ws[s][i], i < n, cast (dtype as above)
+int mg3m_segsum(int dtype, const void* ws, void* out, int nseg, long long n,
+                void* stream) {
+  if (!ws || !out || nseg < 1 || n < 1) return -1;
+  const size_t es = dtype == 0 ? 4 : 2;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * es) == 0;
+  const long long items = vec ? n / 4 : n;
+  const long long want = (items + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    mg3m_segsum_kernel<float><<<blocks, 256, 0, s>>>(
+        (const float*)ws, (float*)out, nseg, n, vec);
+  else if (dtype == 1)
+    mg3m_segsum_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        (const float*)ws, (__nv_bfloat16*)out, nseg, n, vec);
+  else
+    return -1;
+  return (int)cudaGetLastError();
 }
 
 // out: [outH][fh] (axis 0) or [outW][fw] (axis 1) int32 on the device

@@ -566,9 +566,13 @@ def _trace_only() -> None:
 
 def _longest_first(cell: tuple) -> tuple:
     """Submission order of a grid: train cells first (three microbatch
-    traces each), deeper models first."""
+    traces each), the recurrent families first among them (their scans
+    trace longest: rwkv6-3b's train cell is the grid's longest on the
+    H100's host, PERF.md §6), then deeper models first."""
     arch, shape = cell
-    return SHAPES[shape]["kind"] != "train", -get_config(arch).n_layers
+    cfg = get_config(arch)
+    return (SHAPES[shape]["kind"] != "train",
+            cfg.family not in ("ssm", "hybrid"), -cfg.n_layers)
 
 
 def run_grid(cells: Optional[Sequence[tuple]] = None, jobs: int = 1

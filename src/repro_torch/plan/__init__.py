@@ -11,7 +11,8 @@ repository of plans so serving can warm-start.
 from repro_torch.plan.build import (ConvOp, ConvPlan, ExecSpec,
                                     assemble_plan, derive_exec_spec,
                                     grad_filter_scene, grad_input_scene,
-                                    make_plan, policy_tag, resolve_policy)
+                                    make_plan, policy_tag, resolve_policy,
+                                    wgrad_segments)
 from repro_torch.plan.registry import (PLAN_VERSION, PlanRegistry,
                                        default_registry, get_plan,
                                        plan_from_dict, plan_signature,
@@ -20,7 +21,7 @@ from repro_torch.plan.registry import (PLAN_VERSION, PlanRegistry,
 __all__ = [
     "ConvOp", "ConvPlan", "ExecSpec", "assemble_plan", "derive_exec_spec",
     "grad_filter_scene", "grad_input_scene", "make_plan", "policy_tag",
-    "resolve_policy",
+    "resolve_policy", "wgrad_segments",
     "PLAN_VERSION", "PlanRegistry", "default_registry", "get_plan",
     "plan_from_dict", "plan_signature", "plan_to_dict",
     "set_default_registry",

@@ -30,6 +30,15 @@ Backward ops as scenes (as in the reference):
   that dgrad records ``uses_reference=True`` and runs the exact autograd
   adjoint of the PyTorch oracle.
 
+  A WGRAD plan splits its exec scene's long reduction (the forward's
+  output pixels x batch) into segments of whole taps
+  (``wgrad_segments``; ``ConvPlan.seg_taps``): TB11/TB88 walk each in
+  blocks of their own into f32 partials and ``kernels.mg3m_conv.
+  segment_sum`` adds them in segment order.  ``grad_filter_scene`` marks
+  such an exec scene by its type (``WgradScene``), so every plan over it
+  (a shard's inner plan, a tuning candidate) splits it the same way.
+  FPROP and DGRAD plans never split.
+
 ``policy="tuned"`` (alias ``"auto"``) resolves through the tune cache
 (``tune.autotune.resolve_schedule``, keyed by the plan's device) and never
 measures; a cache miss, like ``"analytic"``, selects under the active cost
@@ -46,8 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.mapping import (ScheduleChoice, select_schedule,
-                                      smem_budget)
-from repro_torch.core.scene import ConvScene, round_up
+                                      smem_budget, split_tb18_error,
+                                      wgrad_segments)
+from repro_torch.core.scene import ConvScene, WgradScene, round_up
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.kernels import mg3m_conv as kernels
 from repro_torch.kernels import ref
@@ -93,7 +103,9 @@ def policy_tag(policy: PolicySpec) -> str:
 def resolve_policy(scene: ConvScene, policy: PolicySpec,
                    device: DeviceSpec = None) -> ScheduleChoice:
     """One-time schedule resolution for a plan on ``device`` (default the
-    card), within the device's shared memory per block.
+    card), within the device's shared memory per block, for the scene's
+    reduction split where it is split (a ``WgradScene``: TB18 is then
+    never chosen, and forced alone it raises).
 
       None / "analytic"     multi-grained selection under the device's
                             active cost model (calibrated when an artifact
@@ -234,11 +246,13 @@ def grad_input_scene(scene: ConvScene) -> ConvScene:
 
 def grad_filter_scene(scene: ConvScene) -> ConvScene:
     """The dFLT convolution's scene: batch-contracted conv with filter
-    spatial = outHxoutW, rhs-dilated by the forward stride."""
+    spatial = outHxoutW, rhs-dilated by the forward stride.  A
+    ``WgradScene`` where its plans split the reduction
+    (``WgradScene.seg_taps`` > 0), else a plain ``ConvScene``."""
     why = _wgrad_blocker(scene)
     if why:
         raise ValueError(f"wgrad of {scene.describe()} has no MG3M scene: {why}")
-    return ConvScene(
+    exec_scene = WgradScene(
         B=scene.IC, IC=scene.B, OC=scene.OC,
         inH=scene.inH, inW=scene.inW,
         fltH=scene.outH, fltW=scene.outW,
@@ -247,6 +261,9 @@ def grad_filter_scene(scene: ConvScene) -> ConvScene:
         dilH=scene.dilH, dilW=scene.dilW,
         fdilH=scene.stdH, fdilW=scene.stdW,
         dtype=scene.dtype)
+    if exec_scene.seg_taps:
+        return exec_scene
+    return ConvScene(**exec_scene.__dict__)
 
 
 def _dgrad_blocker(scene: ConvScene) -> Optional[str]:
@@ -318,16 +335,19 @@ def _launch_operands(inp: torch.Tensor, flt: torch.Tensor, spec: ExecSpec
             _pad_axis(_pad_axis(flt, 2, spec.kp), 3, spec.mp))
 
 
-def _kernel_blocks(spec: ExecSpec, choice: ScheduleChoice) -> dict:
+def _kernel_blocks(spec: ExecSpec, choice: ScheduleChoice,
+                   seg_taps: int) -> dict:
     """The blocking keyword arguments of the grain's wrapper (the
     compiled tile comes from the choice: the exec spec is the
-    reference's, field for field)."""
+    reference's, field for field), and a split reduction's ``seg_taps``
+    where there is one."""
+    split = {"seg_taps": seg_taps} if seg_taps else {}
     if spec.schedule == "TB11":
-        return {"tile": choice.tile}
+        return {"tile": choice.tile, **split}
     if spec.schedule == "TB18":
         return {"bm": spec.bm, "tile": choice.tile}
     return {"bm": spec.bm, "bn": spec.bn, "bk": spec.bk,
-            "tile": choice.tile}
+            "tile": choice.tile, **split}
 
 
 def _conv_body(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene,
@@ -335,8 +355,8 @@ def _conv_body(inp: torch.Tensor, flt: torch.Tensor, scene: ConvScene,
     """Kernel dispatch from a precomputed spec: launch operands, the
     grain's wrapper, slice-back to the true output."""
     inp_a, flt_a = _launch_operands(inp, flt, spec)
-    out = kernels.WRAPPERS[spec.schedule](inp_a, flt_a, scene,
-                                          **_kernel_blocks(spec, choice))
+    out = kernels.WRAPPERS[spec.schedule](
+        inp_a, flt_a, scene, **_kernel_blocks(spec, choice, scene.seg_taps))
     out = out[:, :, :spec.m, :spec.n]
     if (spec.out_h, spec.out_w) not in ((0, 0), (scene.outH, scene.outW)):
         out = out[:spec.out_h, :spec.out_w]
@@ -403,6 +423,19 @@ class ConvPlan:
     choice: Optional[ScheduleChoice] = None  # None on reference plans
     spec: Optional[ExecSpec] = None
 
+    @property
+    def seg_taps(self) -> int:
+        """Taps per segment of the launch's split reduction, the exec
+        scene's (0: not split)."""
+        return 0 if self.exec_scene is None else self.exec_scene.seg_taps
+
+    @property
+    def segments(self) -> int:
+        """Reduction segments of the launch (1 where it is not split)."""
+        if not self.seg_taps:
+            return 1
+        return len(wgrad_segments(self.exec_scene))
+
     def execute(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Run the planned op: (inp, flt) for FPROP, (d_out, flt) for DGRAD,
         (inp, d_out) for WGRAD.  Operands must lie on the plan's backend."""
@@ -426,16 +459,17 @@ class ConvPlan:
 
     def kernel_call(self, a: torch.Tensor, b: torch.Tensor):
         """``(wrapper, inp, flt, blocks)``: the grain's kernel wrapper and
-        the exact operands and blocking ``execute(a, b)`` launches it with
-        — for holding a kernel against its plain version
-        (``kernels.mg3m_conv.conv_plain(inp, flt, plan.exec_scene)``) at
-        the shapes this plan serves."""
+        the exact operands and blocking (a split reduction's ``seg_taps``
+        included) ``execute(a, b)`` launches it with — for holding a
+        kernel against its plain version (``kernels.mg3m_conv.
+        conv_plain(inp, flt, plan.exec_scene, plan.seg_taps)``) at the
+        shapes this plan serves."""
         if self.uses_reference:
             raise ValueError(f"{self.describe()} runs no kernel")
         a, b = _OPERANDS[self.op.value](a, b)
         inp, flt = _launch_operands(a, b, self.spec)
         return (kernels.WRAPPERS[self.spec.schedule], inp, flt,
-                _kernel_blocks(self.spec, self.choice))
+                _kernel_blocks(self.spec, self.choice, self.seg_taps))
 
     def io_shapes(self) -> Tuple[Tuple[int, ...], Tuple[int, ...],
                                  Tuple[int, ...]]:
@@ -462,7 +496,8 @@ class ConvPlan:
     def describe(self) -> str:
         how = ("torch-reference" if self.uses_reference else
                f"{self.choice.schedule}"
-               f"({self.spec.bm}/{self.spec.bn}/{self.spec.bk})")
+               f"({self.spec.bm}/{self.spec.bn}/{self.spec.bk})"
+               + (f" S={self.segments}" if self.seg_taps else ""))
         return (f"plan({self.op.value} {how} policy={self.policy} "
                 f"be={self.backend} {self.scene.describe()})")
 
@@ -478,7 +513,10 @@ def make_plan(scene: ConvScene, op: Union[ConvOp, str] = ConvOp.FPROP, *,
     "auto": the tune cache of the device's backend), a forced
     "TB11"/"TB18"/"TB88", or an exact ``ScheduleChoice``; ``None`` aliases
     "analytic".  A forced policy on an op that cannot dispatch to the
-    kernels raises ``ValueError`` naming that op."""
+    kernels raises ``ValueError`` naming that op, and so does an exact
+    TB18 choice on a split reduction.  An FPROP plan over a
+    ``WgradScene`` (a shard's inner plan, a tuning candidate) splits its
+    reduction as the WGRAD plan does."""
     op = ConvOp(op)
     dev = resolve_device(device)
     tag = policy_tag(policy)
@@ -529,6 +567,8 @@ def _make_plan_inner(scene: ConvScene, op: ConvOp, policy: PolicySpec,
     choice = spec = None
     if not uses_reference:
         choice = resolve_policy(exec_scene, policy, device=dev)
+        if choice.schedule == "TB18" and exec_scene.seg_taps:
+            raise ValueError(split_tb18_error(exec_scene))
         spec = derive_exec_spec(exec_scene, choice, out_hw)
     m = default_metrics()
     m.counter("repro.plan.builds").inc()

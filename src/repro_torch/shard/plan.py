@@ -37,9 +37,12 @@ reuse the operand transforms of the one-device executors
 (``plan.build.dgrad_operands`` / ``wgrad_operands`` / ``wgrad_finish``),
 so the per-shard plan is always an *fprop-form* plan over the
 partition's sub-exec-scene and the partition axes mean the same thing for
-every op.  ``sharded_conv_with_plans`` (``repro_torch.shard.autodiff``)
-closes the loop: an autograd Function whose backward passes are
-themselves sharded plans.
+every op.  A WGRAD plan's inner plans split their reduction as the
+one-device plan does: the sub-scene of a split wgrad exec scene is a
+``WgradScene`` too, and a batch, oc or h partition keeps its reduction,
+and so its segments.  ``sharded_conv_with_plans``
+(``repro_torch.shard.autodiff``) closes the loop: an autograd Function
+whose backward passes are themselves sharded plans.
 
 Uneven partitions zero-pad the partitioned dim up to ``n * sub_dim`` and
 slice the result back — zero lanes are linear-safe (the serving layer's

@@ -23,6 +23,11 @@ clipping is the identity.
 ``resolve_schedule`` is the hot-path entry behind ``policy="tuned"``:
 cache hit -> cached choice, miss -> selection under the active
 (calibrated, when an artifact exists) cost model.  It never measures.
+
+A ``WgradScene`` (a wgrad exec scene whose plans split its reduction) is
+tuned as those plans launch it: the split read from the scene (and from
+its measurement proxy), TB18 left out, the second pass timed with the
+kernel, the record kept under its own key (``cache.scene_signature``).
 """
 from __future__ import annotations
 

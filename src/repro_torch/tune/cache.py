@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.analysis.footprint import tiles
 from repro_torch.core.mapping import SCHEDULES, ScheduleChoice
-from repro_torch.core.scene import ConvScene, dtype_name
+from repro_torch.core.scene import ConvScene, WgradScene, dtype_name
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.obs.metrics import default_metrics
 from repro_torch.obs.trace import default_tracer
@@ -85,13 +85,16 @@ def scene_signature(scene: ConvScene, *, backend: str,
     """Canonical cache key for a scene, field for field the reference's:
     every geometric dim, dtype, backend, code version (default
     ``CODE_VERSION``); the dilation axes (the backward scenes of strided
-    forwards) are appended only when active."""
+    forwards) are appended only when active, and ``|split=wgrad`` where
+    the scene's plans split its reduction (a ``WgradScene``): its launches
+    differ from the same dims' in fprop form."""
     dt = dtype_name(scene.dtype)
+    split = "|split=wgrad" if scene.seg_taps else ""
     return (f"v={version or CODE_VERSION}|be={backend}|dt={dt}"
             f"|B={scene.B}|IC={scene.IC}|OC={scene.OC}"
             f"|in={scene.inH}x{scene.inW}|flt={scene.fltH}x{scene.fltW}"
             f"|pad={scene.padH},{scene.padW}|std={scene.stdH},{scene.stdW}"
-            f"{scene.dilation_suffix()}")
+            f"{scene.dilation_suffix()}{split}")
 
 
 def parse_signature(key: str) -> Dict[str, str]:
@@ -105,7 +108,8 @@ def parse_signature(key: str) -> Dict[str, str]:
 
 def scene_from_signature(key: str) -> ConvScene:
     """Inverse of ``scene_signature`` (sans backend/version): the scene a
-    cache entry was tuned for.  The dilation fields are optional."""
+    cache entry was tuned for.  The dilation fields are optional; a
+    ``|split=wgrad`` key gives a ``WgradScene``."""
     p = parse_signature(key)
     inH, inW = p["in"].split("x")
     fltH, fltW = p["flt"].split("x")
@@ -118,10 +122,11 @@ def scene_from_signature(key: str) -> ConvScene:
         if name in p:
             x, y = p[name].split(",")
             extra.update({a: int(x), b: int(y)})
-    return ConvScene(B=int(p["B"]), IC=int(p["IC"]), OC=int(p["OC"]),
-                     inH=int(inH), inW=int(inW), fltH=int(fltH),
-                     fltW=int(fltW), padH=int(padH), padW=int(padW),
-                     stdH=int(stdH), stdW=int(stdW), dtype=p["dt"], **extra)
+    cls = WgradScene if p.get("split") == "wgrad" else ConvScene
+    return cls(B=int(p["B"]), IC=int(p["IC"]), OC=int(p["OC"]),
+               inH=int(inH), inW=int(inW), fltH=int(fltH), fltW=int(fltW),
+               padH=int(padH), padW=int(padW), stdH=int(stdH),
+               stdW=int(stdW), dtype=p["dt"], **extra)
 
 
 def choice_to_dict(choice: ScheduleChoice) -> Dict:

@@ -183,7 +183,7 @@ def samples_from_cache(cache: cache_mod.ScheduleCache, *,
         try:
             scene = cache_mod.scene_from_signature(key)
             proxy = rec.get("proxy")
-            msc = ConvScene(**{**scene.__dict__, **proxy}) if proxy else scene
+            msc = dataclasses.replace(scene, **proxy) if proxy else scene
             choice = cache_mod.choice_from_dict(rec["choice"])
         except (KeyError, TypeError, ValueError):
             skipped += 1

@@ -33,6 +33,7 @@ tuned artifact.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Optional, Tuple
@@ -76,7 +77,7 @@ def proxy_scene(scene: ConvScene, *, measure_batch: Optional[int] = None,
         min_w = 1 + max(ceil_div(need_w - 1, scene.dilW), 0)
         d["inH"] = min(scene.inH, max(measure_max_hw, min_h))
         d["inW"] = min(scene.inW, max(measure_max_hw, min_w))
-    return ConvScene(**d)
+    return dataclasses.replace(scene, **d)   # a WgradScene stays one
 
 
 def make_operands(scene: ConvScene, seed: int = 0,
@@ -165,9 +166,20 @@ def measure_choice(scene: ConvScene, choice: ScheduleChoice, *,
     raises scores ``inf`` and counts in ``repro.tune.measure_failures``
     (re-raised when the CUDA context is left unusable)."""
     from repro_torch.kernels import mg3m_conv  # local: keeps tune light
-    from repro_torch.plan import build as plan_build
 
     dev = resolve_device(device)
+    held = mg3m_conv.workspace_keys()
+    try:
+        return _measure(scene, choice, dev, iters, warmup, timeout_s)
+    finally:   # a candidate's split partials go with its plan
+        mg3m_conv.release_workspaces(keep=held)
+
+
+def _measure(scene: ConvScene, choice: ScheduleChoice, dev: torch.device,
+             iters: int, warmup: int, timeout_s: float) -> float:
+    from repro_torch.kernels import mg3m_conv  # local: keeps tune light
+    from repro_torch.plan import build as plan_build
+
     m = default_metrics()
     m.counter("repro.tune.measurements").inc()
     with default_tracer().span("repro.tune.measure",

@@ -20,7 +20,9 @@ Each block runs on any compiled tile of its grain that holds it
 (``tile_candidates``).
 
 Dilated scenes enumerate the same space: the blocks depend only on the
-MM_unit dims (M, N, K), which dilation never changes.
+MM_unit dims (M, N, K), which dilation never changes.  A split reduction
+(a ``WgradScene``'s) drops TB18, which takes none, and sizes TB11's
+resident filter for the split.
 """
 from __future__ import annotations
 
@@ -80,7 +82,10 @@ def enumerate_space(scene: ConvScene,
                     schedules: Sequence[str] = SCHEDULES,
                     vmem_budget: int = SMEM_BUDGET
                     ) -> Tuple[CandidatePoint, ...]:
-    """All feasible points: kernel tiles whose shared memory fits."""
+    """All feasible points: kernel tiles whose shared memory fits, the
+    reduction split where the scene splits it."""
+    if len(mapping.wgrad_segments(scene)) > 1:
+        schedules = tuple(s for s in schedules if s != "TB18")
     points = []
     for schedule in schedules:
         for bm, bn, bk in block_candidates(scene, schedule):
