@@ -106,7 +106,14 @@ Phases, each of which raises (non-zero exit) on failure:
                (q (32, 2048, 128), k/v (4, 2048, 128), causal), f32 and
                bf16, each held against its
                plain version: f32 within 1e-4 (conv) / 2e-4 (attention),
-               bf16 within 2e-2.
+               bf16 within 2e-2.  Flash's backward kernels
+               (``flash_attention_bwd``) on ``FLASH_BWD_SHAPES`` (D = 112,
+               a group of 8, a ragged S; causal and not), f32 and bf16,
+               against ``flash_attention_bwd_plain`` within 2e-4 / 2e-2 of
+               max |g|, each run twice and bitwise equal; the forward's
+               ``o`` with its log-sum-exp bitwise the ``o`` without it,
+               and the log-sum-exp within ``LSE_TOL`` (1e-5 f32, 4e-3
+               bf16) of the plain version's.
   9. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
                heads, bf16, seeded random weights) on the card: the
                reference's cross-form oracle (prefill(255) + decode_step ==
@@ -172,17 +179,24 @@ Phases, each of which raises (non-zero exit) on failure:
                for one card), AdamW with f32 moments, every layer
                checkpointed.  First, at the training path's flash shape
                (q (16, 4096, 128), k/v (2, 4096, 128), causal, f32 and
-               bf16), the kernel against its plain version and
-               ``FlashAttention``'s backward (the reference's chunked
-               attention recomputed) against autograd of the plain
-               version.  Then, with the launch counts set to 0, a
+               bf16), the kernel against its plain version,
+               ``flash_attention_bwd`` (the backward kernels) against
+               ``flash_attention_bwd_plain`` within 2e-4 (f32) / 2e-2
+               (bf16) of max |g| and bitwise from run to run, and
+               ``FlashAttention``'s backward against autograd of the plain
+               version; the backward kernels held the same way (the
+               log-sum-exp too) at zamba2-7b's training shape (q (32,
+               4096, 112), g = 1, bf16) and ``train_lm``'s (q (32, 256,
+               64), k/v (16, 256, 64), f32), both causal.  Then, with the
+               launch counts set to 0, a
                gradient-only step (every parameter's gradient finite and
                nonzero), a warm-up step and 3 timed steps on one fixed
                batch: the loss must be finite, end below where it
                started and, after the warm-up, reach at least
                ``LM_TRAIN_FALL`` below it, flash must launch 2 x 36 times
                per microbatch (forward and recomputation) and its
-               backward run 36 times; step ms (CUDA events), tokens/s and
+               backward run 36 times, each launching the backward
+               kernels once; step ms (CUDA events), tokens/s and
                peak memory.  Before it, zamba2-7b at full width with its
                depth cut to one group (6 Mamba2 layers and the shared
                attention block; the 81 layers do not fit with the
@@ -190,19 +204,27 @@ Phases, each of which raises (non-zero exit) on failure:
                the same way with the counts set to 0: a gradient-only step
                (every gradient finite and nonzero) and one update step;
                causal_conv1d must launch 2 x 6 times per microbatch and
-               its backward run 6 times.
+               its backward run 6 times; flash's backward kernels once
+               per ``FlashAttention`` backward.
  14. LM gradient oracle  reduced qwen2.5-3b, zamba2-7b and rwkv6-3b (f32):
                one train step (2 microbatches of 1 x 64 tokens) on the
                card and on the CPU from the same weights; gradients within
                1e-4 of max |g| per leaf, parameters after the update
                within 1e-4 where the gradient's sign is fixed (within
                2 lr elsewhere); both kernels' backward must have run on
-               the card.  Then the training path's kernel rows: flash at
-               the training shape (launches from phase 13) with the
-               recomputing backward's time per layer beside SDPA's
-               backward, and causal_conv1d at zamba2-7b's training shape
-               (x [1, 4096, 7296] bf16; launches from phase 13's zamba2-7b
-               steps) with its backward's time.
+               the card, flash's through its kernels once per backward.
+               Then the training path's kernel rows: flash at the
+               training shape (launches from phase 13), the backward
+               kernels' row ``flash_attention_bwd_train_path`` at the same
+               shape (device ms, plain, bound, SDPA's backward as the
+               library, by graph replay and held to the plain version,
+               ``flash_attention_vjp``'s recomputation as
+               ``recompute_ms``, phase 13's launches, the backward
+               kernels' HGMMA/HMMA counts), and causal_conv1d at
+               zamba2-7b's training shape (x [1, 4096, 7296] bf16;
+               launches from phase 13's zamba2-7b steps) with its
+               backward's time and bound beside ``F.conv1d``'s
+               backward.
  15. analyze  ``repro_torch.launch.analyze`` on the card over the six
                paper CNNs' uncapped fprop/dgrad/wgrad scenes (every
                feasible (schedule, blocking, tile) point verified
@@ -225,7 +247,8 @@ Phases, each of which raises (non-zero exit) on failure:
                ``flash_attention_fwd_f32`` row (kernel, plain version,
                SDPA in f32, bound at 67 TFLOP/s) at ``train_lm``'s shape,
                its launches counted from 0 over the two ``train_lm`` runs
-               (``serve_lm``'s printed apart).  Then the four conv
+               (``serve_lm``'s printed apart), where the backward kernels
+               must launch once per ``FlashAttention`` backward.  Then the four conv
                examples at their defaults, the MG3M launch counts set to 0
                before each and read after: ``quickstart``, ``serve_conv``
                (its plan artifact in the temporary directory),
@@ -362,7 +385,9 @@ kernels, flash twice; each conv grain has a second row,
 ``<name>_main_path``, and each
 grain the train step launches a row ``<name>_train_path`` at its longest
 plan of the step; flash and causal_conv1d have ``<name>_train_path`` rows
-from phases 13 and 14, with ``backward_ms``; flash's f32 kernel the row
+from phases 13 and 14 (causal_conv1d's with ``backward_ms``), and the
+backward kernels the row ``flash_attention_bwd_train_path``; flash's f32
+kernel the row
 ``flash_attention_fwd_f32`` from phase 16; each conv grain a row
 ``<name>_shard_path`` from phase 17 at its longest sub-scene launch of the
 forced partitions, its launches those of phase 17's sharded serving and
@@ -1687,11 +1712,16 @@ LM_KERNELS = {
                       "src/repro/kernels/causal_conv1d.py:38"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:75"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:75"),
 }
+# the backward's tolerances are of max |g| per gradient
 LM_TOL = {("causal_conv1d", "float32"): 1e-4,
           ("flash_attention_fwd", "float32"): 2e-4,
+          ("flash_attention_bwd", "float32"): 2e-4,
           ("causal_conv1d", "bfloat16"): 2e-2,
-          ("flash_attention_fwd", "bfloat16"): 2e-2}
+          ("flash_attention_fwd", "bfloat16"): 2e-2,
+          ("flash_attention_bwd", "bfloat16"): 2e-2}
 # (B, L, D, K): tests/test_kernels.py:88-90
 CONV1D_SHAPES = [(2, 32, 16, 4), (1, 7, 5, 3), (3, 100, 64, 4),
                  (2, 16, 16, 2), (1, 64, 128, 4)]
@@ -1701,6 +1731,18 @@ FLASH_SHAPES = [(2, 64, 64, 4, 4, 32), (2, 64, 64, 8, 2, 32),
                 (1, 128, 128, 4, 1, 64), (2, 96, 96, 2, 2, 16),
                 (2, 255, 255, 8, 4, 112)]
 FLASH_SHAPES += [shape[:5] + (128,) for shape in FLASH_SHAPES]
+# the backward kernels' small cases: D = 112 with a ragged S, a group of 8,
+# D = 16 and D = 128 with S not a multiple of 64 and T != S
+FLASH_BWD_SHAPES = [(2, 255, 255, 8, 4, 112), (1, 128, 128, 8, 1, 64),
+                    (2, 96, 96, 2, 2, 16), (1, 200, 130, 4, 2, 128)]
+# the forward's log-sum-exp against the plain version's, absolute.  The
+# bf16 kernel sums l over P rounded to bf16 (the P that multiplies V), each
+# term within bf16's unit roundoff 2^-8 of its value, so ln l is within
+# about 2^-8 of the exact one, plus f32 rounding: 4e-3.  The first causal
+# rows, with few keys, keep that error unaveraged (1.03e-3 to 1.28e-3 read
+# on an H100, against 1.9e-4 to 6.8e-4 non-causal).  f32 adds f32 terms
+# (4.8e-7 read on the small shapes): 1e-5.
+LSE_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 # the dense path's prefill (qwen2.5-3b, 2 x 2048 tokens): q (2*16, 2048,
 # 128), k/v (2*2, 2048, 128), 8 query heads per kv head, causal
 DENSE_FLASH = (2, 2048, 2048, 16, 2, 128)
@@ -1742,10 +1784,62 @@ def _hold(torch, name, dtype, got, want, errs, what, key=None):
     errs[k] = max(errs.get(k, 0.0), err)
 
 
+def _hold_grads(torch, dtype, got, want, errs, what, key):
+    """Hold the backward kernels' (dq, dk, dv) to the plain version's
+    within ``LM_TOL`` of max |g| per gradient; the worst ratio is kept
+    under ``(key, dtype)``."""
+    tol = LM_TOL[("flash_attention_bwd", dtype)]
+    for name, g, w in zip("qkv", got, want):
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max()).item()
+        if not rel <= tol:
+            raise AssertionError(f"flash_attention_bwd {dtype} d{name}: "
+                                 f"{rel} of max |g| from its plain version "
+                                 f"(tol {tol}) on {what}")
+        errs[(key, dtype)] = max(errs.get((key, dtype), 0.0), rel)
+
+
+def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
+    """The forward kernel with its log-sum-exp: ``o`` bitwise the ``o`` of
+    the launch without it, the log-sum-exp within ``LSE_TOL`` of
+    ``flash_attention_plain``'s (kept under ``("lse:" + key, dtype)``).
+    Then the backward kernels on (q, k, v, dout) and that output and
+    log-sum-exp, run twice: bitwise equal, and held to
+    ``flash_attention_bwd_plain`` (``_hold_grads``)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd,
+                                                     flash_attention_plain)
+
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    if not torch.equal(out, flash_attention_fwd(q, k, v, causal=causal)):
+        raise AssertionError(f"flash_attention_fwd {dtype}: o with the "
+                             f"log-sum-exp is not bitwise o without it on "
+                             f"{what}")
+    want = flash_attention_plain(q, k, v, causal=causal, return_lse=True)[1]
+    err = (lse - want).abs().max().item()
+    if not err <= LSE_TOL[dtype]:
+        raise AssertionError(f"flash_attention_fwd {dtype}: log-sum-exp "
+                             f"{err} from its plain version (tol "
+                             f"{LSE_TOL[dtype]}) on {what}")
+    errs[("lse:" + key, dtype)] = max(errs.get(("lse:" + key, dtype), 0.0),
+                                      err)
+    del want
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {dtype} is not bitwise "
+                             f"from run to run on {what}")
+    _hold_grads(torch, dtype, got, flash_attention_bwd_plain(
+        q, k, v, out, lse, dout, causal=causal), errs, what, key)
+
+
 def lm_kernel_phase(torch):
     """causal_conv1d and flash attention on the reference's test shapes and
     the LM path's, f32 and bf16, each launch held against the plain
-    version on the same operands.  Returns max abs errors."""
+    version on the same operands; flash's backward kernels on
+    ``FLASH_BWD_SHAPES``.  Returns max abs errors (of max |g| for the
+    backward)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.causal_conv1d import (causal_conv1d,
                                                    causal_conv1d_plain)
@@ -1788,6 +1882,15 @@ def lm_kernel_phase(torch):
                     _hold(torch, "flash_attention_fwd", dtype, got, want,
                           errs, what, key="flash_dense")
                 checks += 1
+        for b, s, t, hq, hkv, d in FLASH_BWD_SHAPES:
+            q, k, v = rand(b * hq, s, d), rand(b * hkv, t, d), \
+                rand(b * hkv, t, d)
+            dout = rand(b * hq, s, d)
+            for causal in (True, False):
+                flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs,
+                                f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                                f"causal={causal}", "flash_attention_bwd")
+                checks += 2
     torch.cuda.synchronize()
     print(f"LM kernels: {checks} launches held against their plain "
           f"versions in {time.perf_counter() - t0:.1f} s; max abs err "
@@ -1797,16 +1900,20 @@ def lm_kernel_phase(torch):
 
 def _lm_counts():
     from repro_torch.kernels.causal_conv1d import causal_conv1d
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     return {"causal_conv1d": causal_conv1d.launches,
-            "flash_attention_fwd": flash_attention_fwd.launches}
+            "flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
 
 
 def _reset_lm_counts():
     from repro_torch.kernels.causal_conv1d import causal_conv1d
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     causal_conv1d.launches = 0
     flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
 
 
 def _serve(torch, cfg, model, prompts, join: bool):
@@ -1840,7 +1947,7 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "mg3m" in low:
         return "mg3m_conv"
-    if "flash_fwd" in low:
+    if "flash_fwd" in low or "flash_bwd" in low:
         return "flash_attention"
     if "causal_conv1d" in low:
         return "causal_conv1d"
@@ -2008,8 +2115,8 @@ def lm_path(torch, np):
             if not (r.done and len(r.out) == MAX_NEW
                     and all(0 <= t < cfg.vocab for t in r.out)):
                 raise AssertionError(f"request {r.rid} not served: {r}")
-        for name, n in counts.items():
-            if n == 0:
+        for name in ("causal_conv1d", "flash_attention_fwd"):
+            if counts[name] == 0:
                 raise AssertionError(f"{name} never launched on the LM "
                                      f"path: {counts}")
 
@@ -2670,6 +2777,9 @@ LM_TRAIN_FALL = 0.3
 HYBRID_TRAIN_ARCH = LM_ARCH
 # the training path's flash shape: one microbatch of qwen2.5-3b at seq 4096
 TRAIN_FLASH = (1, LM_TRAIN_SEQ, LM_TRAIN_SEQ, 16, 2, 128)
+# train_lm's flash shape at its defaults: batch 8, seq 256, 4 heads of 64
+# over 2 kv heads (f32)
+TRAIN_LM_FLASH = (8, 256, 256, 4, 2, 64)
 ORACLE_ARCHS = ("qwen2.5-3b", "zamba2-7b", "rwkv6-3b")
 LM_GRAD_TOL = 1e-4             # of max |g| per leaf, f32
 
@@ -2683,9 +2793,15 @@ def _flash_operands(torch, shape, dtype, gen):
 def flash_train_checks(torch, errs):
     """At the training path's flash shape (q (16, 4096, 128), k/v (2, 4096,
     128), causal), f32 and bf16: the forward kernel against its plain
-    version, and ``FlashAttention``'s backward (the recomputed chunked
-    attention) against autograd of the plain version, within the
-    forward's tolerance of max |g| (``LM_TOL``)."""
+    version; the backward kernels against ``flash_attention_bwd_plain``
+    (2e-4 / 2e-2 of max |g|) and bitwise from run to run; and
+    ``FlashAttention``'s backward (the kernels) against autograd of the
+    plain version, within the forward's tolerance of max |g|
+    (``LM_TOL``).  Then the backward kernels as ``flash_bwd_check`` holds
+    them at the other training paths' shapes: zamba2-7b's shared attention
+    (q (32, 4096, 112), g = 1, bf16) and ``train_lm``'s (``TRAIN_LM_FLASH``,
+    f32), both causal; errors kept under ``("flash_bwd:<path>", dtype)``."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import (FlashAttention,
                                                      flash_attention_bshd,
                                                      flash_attention_plain)
@@ -2703,7 +2819,11 @@ def flash_train_checks(torch, errs):
               got.transpose(1, 2).reshape(-1, s, d), want, errs,
               f"q {tuple(qf.shape)} k {tuple(kf.shape)} (training shape)",
               key="flash_train")
-        del got, want, qf, kf, vf
+        dof = dout.transpose(1, 2).reshape(-1, s, d).contiguous()
+        flash_bwd_check(torch, qf, kf, vf, dof, True, dtype, errs,
+                        f"q {tuple(qf.shape)} k {tuple(kf.shape)} (training "
+                        f"shape)", "flash_train_bwd_kernels")
+        del got, want, qf, kf, vf, dof
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         out = FlashAttention.apply(*leaves, True, 512, 1024)
         grads = torch.autograd.grad(out, leaves, dout)
@@ -2722,6 +2842,21 @@ def flash_train_checks(torch, errs):
             key = ("flash_train_bwd", dtype)
             errs[key] = max(errs.get(key, 0.0), rel)
         del out, grads, pout, want, leaves, plain
+    z = get_config(HYBRID_TRAIN_ARCH)
+    for label, shape, dtype in (
+            (z.name, (1, LM_TRAIN_SEQ, LM_TRAIN_SEQ, z.n_heads, z.n_kv_heads,
+                      z.d_head), "bfloat16"),
+            ("train_lm", TRAIN_LM_FLASH, "float32")):
+        b, s, t, h, hkv, d = shape
+        tdt = getattr(torch, dtype)
+        q, k, v, dout = (torch.randn(dims, generator=gen).to("cuda", tdt)
+                         for dims in ((b * h, s, d), (b * hkv, t, d),
+                                      (b * hkv, t, d), (b * h, s, d)))
+        flash_bwd_check(torch, q, k, v, dout, True, dtype, errs,
+                        f"q {tuple(q.shape)} k {tuple(k.shape)} ({label}'s "
+                        f"training shape)", f"flash_bwd:{label}")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
 
@@ -2765,7 +2900,7 @@ def lm_train_phase(torch, np) -> dict:
     must be finite, end below where it started and fall at least
     ``LM_TRAIN_FALL`` after the warm-up.  Flash must launch twice per
     layer per microbatch (the forward and the checkpoint's recomputation)
-    and its backward run once.
+    and its backward run once, launching the backward kernels once.
     Returns the run (``lm_train_run``'s) and its numbers."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.configs.registry import get_config
@@ -2835,11 +2970,14 @@ def lm_train_phase(torch, np) -> dict:
                              f"steps: {losses}")
     bwd_step = cfg.n_layers * LM_TRAIN_N_MB
     if counts["flash_attention_fwd"] != per_step * n_steps or \
-            bwd != bwd_step * n_steps:
+            bwd != bwd_step * n_steps or \
+            counts["flash_attention_bwd"] != bwd:
         raise AssertionError(f"{cfg.name}: flash launched "
-                             f"{counts['flash_attention_fwd']} times and its "
-                             f"backward ran {bwd} times in {n_steps} steps; "
-                             f"expected {per_step} and {bwd_step} per step")
+                             f"{counts['flash_attention_fwd']} times, its "
+                             f"backward ran {bwd} times and launched its "
+                             f"kernels {counts['flash_attention_bwd']} times "
+                             f"in {n_steps} steps; expected {per_step}, "
+                             f"{bwd_step} and {bwd_step} per step")
     ms = float(np.median(step_ms))
     tok_s = LM_TRAIN_BATCH * LM_TRAIN_SEQ / (ms / 1e3)
     print(f"  {cfg.name} train: {n_grads} gradients finite and nonzero "
@@ -2848,8 +2986,13 @@ def lm_train_phase(torch, np) -> dict:
           f"{[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s; peak "
           f"memory {peak_gb:.1f} GB; flash launched "
           f"{counts['flash_attention_fwd']} times, its backward "
-          f"{bwd} times in {n_steps} steps ({per_step} and {bwd_step} "
-          f"per step); FlashAttention backward vs the plain version's "
+          f"{bwd} times (the backward kernels "
+          f"{counts['flash_attention_bwd']} times) in {n_steps} steps "
+          f"({per_step} and {bwd_step} per step); the backward kernels vs "
+          f"flash_attention_bwd_plain "
+          f"{errs[('flash_train_bwd_kernels', 'float32')]:.2e} (f32), "
+          f"{errs[('flash_train_bwd_kernels', 'bfloat16')]:.2e} (bf16), "
+          f"FlashAttention backward vs the plain version's "
           f"autograd {errs[('flash_train_bwd', 'float32')]:.2e} (f32), "
           f"{errs[('flash_train_bwd', 'bfloat16')]:.2e} (bf16) of max |g|")
     print(f"LM train phase: {time.perf_counter() - t_phase:.1f} s")
@@ -2867,13 +3010,15 @@ def hybrid_train_step(torch) -> dict:
     gradient-only step (every gradient finite and nonzero) and one update
     step, whose loss must be finite; causal_conv1d must launch twice per
     Mamba2 layer per microbatch (forward and recomputation) and its
-    backward run once.  Returns the counts, the update step's ms and the
-    peak memory; the model is dropped."""
+    backward run once; flash's backward kernels must launch once per
+    ``FlashAttention`` backward.  Returns the counts, the update step's ms
+    and the peak memory; the model is dropped."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.causal_conv1d import CausalConv1d
+    from repro_torch.kernels.flash_attention import FlashAttention
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import init_params
     from repro_torch.parallel import ctx
@@ -2903,6 +3048,7 @@ def hybrid_train_step(torch) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _reset_lm_counts()
         c0 = CausalConv1d.backward_calls
+        f0 = FlashAttention.backward_calls
         _, gm = grads_step(state, batch)
         bad = [k for k, g in gm["grads"].items()
                if not (torch.isfinite(g).all() and g.abs().max() > 0)]
@@ -2916,6 +3062,7 @@ def hybrid_train_step(torch) -> dict:
         end.synchronize()
         counts = _lm_counts()
         conv_bwd = CausalConv1d.backward_calls - c0
+        flash_bwd = FlashAttention.backward_calls - f0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss, ms = float(m["loss"]), start.elapsed_time(end)
     del model, state, step, grads_step, batch, m
@@ -2934,12 +3081,18 @@ def hybrid_train_step(torch) -> dict:
                              f"its backward ran {conv_bwd} times in 2 steps; "
                              f"expected {2 * per_step} and {per_step} per "
                              f"step")
+    if not flash_bwd or counts["flash_attention_bwd"] != flash_bwd:
+        raise AssertionError(f"{cfg.name} (one group): FlashAttention's "
+                             f"backward ran {flash_bwd} times and launched "
+                             f"the backward kernels "
+                             f"{counts['flash_attention_bwd']} times")
     print(f"  {cfg.name} train (one group): {n_grads} gradients finite and "
           f"nonzero; loss {loss:.4f}; update step {ms:.1f} ms (CUDA events, "
           f"one step), {LM_TRAIN_BATCH * LM_TRAIN_SEQ / (ms / 1e3):.0f} "
           f"tokens/s; peak memory {peak_gb:.1f} GB; causal_conv1d launched "
           f"{counts['causal_conv1d']} times, its backward {conv_bwd} times, "
-          f"flash {counts['flash_attention_fwd']} times in 2 steps")
+          f"flash {counts['flash_attention_fwd']} times and its backward "
+          f"kernels {counts['flash_attention_bwd']} times in 2 steps")
     return {"counts": counts, "conv_bwd": conv_bwd, "step_ms": ms,
             "peak_gb": peak_gb}
 
@@ -2988,7 +3141,8 @@ def lm_grad_oracle(torch) -> None:
     gradient exceeds 1e-4 of the leaf's max |g| (its sign fixed), and
     within 2 lr elsewhere (Adam's first step moves each element by about
     lr * sign(g)).  The card's ``FlashAttention`` and ``CausalConv1d``
-    backward must each have run."""
+    backward must each have run, ``FlashAttention``'s launching the
+    backward kernels once per call."""
     import copy
 
     from repro_torch.configs.registry import get_config, reduced
@@ -2998,7 +3152,7 @@ def lm_grad_oracle(torch) -> None:
 
     t0 = time.perf_counter()
     out = {"flash_bwd": 0, "conv_bwd": 0, "causal_conv1d": 0,
-           "flash_attention_fwd": 0}
+           "flash_attention_fwd": 0, "flash_attention_bwd": 0}
     worst = {}
     for arch in ORACLE_ARCHS:
         cfg = reduced(get_config(arch))
@@ -3044,14 +3198,17 @@ def lm_grad_oracle(torch) -> None:
                     f"gradient is firm, {d.max().item():.3e} anywhere")
             g_err, p_err = max(g_err, err), max(p_err, e_firm)
         worst[arch] = (g_err, p_err)
-    if not (out["flash_bwd"] and out["conv_bwd"]):
-        raise AssertionError(f"a kernel's backward never ran on the card: "
-                             f"{out}")
+    if not (out["flash_bwd"] and out["conv_bwd"]) or \
+            out["flash_attention_bwd"] != out["flash_bwd"]:
+        raise AssertionError(f"a kernel's backward never ran on the card, "
+                             f"or flash's did not launch its kernels once "
+                             f"per call: {out}")
     print(f"LM gradient oracle (card vs CPU, f32, reduced configs): worst "
           f"gradient / updated-parameter error "
           f"{ {a: f'{g:.2e} / {p:.2e}' for a, (g, p) in worst.items()} } "
           f"(tol {LM_GRAD_TOL}); on the card FlashAttention backward ran "
-          f"{out['flash_bwd']} times, CausalConv1d backward "
+          f"{out['flash_bwd']} times (its kernels "
+          f"{out['flash_attention_bwd']} times), CausalConv1d backward "
           f"{out['conv_bwd']} times; forward launches "
           f"{ {k: out[k] for k in ('causal_conv1d', 'flash_attention_fwd')} }; "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3060,17 +3217,17 @@ def lm_grad_oracle(torch) -> None:
 def lm_train_rows(torch, train, hybrid, errs):
     """The training path's kernel rows: flash at the training shape (q
     (16, 4096, 128) bf16, causal), its launches those of the qwen2.5-3b
-    train phase, beside the recomputing backward's time per layer and
-    SDPA's backward (a yardstick); and causal_conv1d at the hybrid's
+    train phase, beside SDPA (a yardstick); the backward kernels' row at
+    the same shape (``flash_bwd_row``); and causal_conv1d at the hybrid's
     training shape (zamba2-7b, x [1, 4096, 7296] bf16), its launches those
-    of ``hybrid_train_step``'s two steps, beside its backward's time."""
+    of ``hybrid_train_step``'s two steps, beside its backward's time and
+    bound and ``F.conv1d``'s backward."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.causal_conv1d import (causal_conv1d,
                                                    causal_conv1d_grads,
                                                    causal_conv1d_plain)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_plain,
-                                                     flash_attention_vjp)
+                                                     flash_attention_plain)
     from repro_torch.kernels.meta import causal_conv1d_flops, flash_flops
     from repro_torch.launch import roofline as R
 
@@ -3092,14 +3249,8 @@ def lm_train_rows(torch, train, hybrid, errs):
     ks, vs = (x.repeat_interleave(h // hkv, 1) for x in (ks, vs))
     lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True))
-    bwd_ms = time_ms(torch, lambda: flash_attention_vjp(q4, k4, v4, do4),
-                     iters=3)
-    leaves = [x.detach().requires_grad_(True) for x in (qs, ks, vs)]
-    with torch.enable_grad():
-        ref = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    dref = do4.transpose(1, 2).contiguous()
-    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        ref, leaves, dref, retain_graph=True), iters=3)
+    bwd = flash_bwd_row(torch, train, errs, (q4, k4, v4, do4),
+                        (q, kk, v), (qs, ks, vs))
     flops = flash_flops(b * h, s, s, d, True)
     nbytes = (q.numel() + kk.numel() + v.numel() + got.numel()) * 2
     ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
@@ -3113,17 +3264,15 @@ def lm_train_rows(torch, train, hybrid, errs):
         "max_abs_err_bf16": errs[("flash_train", "bfloat16")],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": lib_ms, "backward_ms": bwd_ms,
-        "library_backward_ms": lib_bwd_ms,
+        "library_ms": lib_ms,
         "shape": f"q ({b * h}, {s}, {d}) bf16 causal, {h} heads over {hkv} "
                  f"kv ({LM_TRAIN_ARCH} train microbatch)",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+    rows.append(bwd)
     print(f"  flash_attention_fwd_train_path at q ({b * h}, {s}, {d}) bf16: "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {max(ops_ms, bytes_ms):.4f} ms; backward per layer "
-          f"(recomputed chunked attention) {bwd_ms:.3f} ms, SDPA's backward "
-          f"{lib_bwd_ms:.3f} ms (CUDA events, host included)")
-    del q4, k4, v4, do4, q, kk, v, got, qs, ks, vs, leaves, ref, dref
+          f"bound {max(ops_ms, bytes_ms):.4f} ms")
+    del q4, k4, v4, do4, q, kk, v, got, qs, ks, vs
 
     zcfg = get_config(LM_ARCH)
     (_, _, c), kw, _, _ = lm_shapes(zcfg)
@@ -3139,10 +3288,24 @@ def lm_train_rows(torch, train, hybrid, errs):
     lib_ms = device_ms(torch, lambda: F.conv1d(xt, wt, padding=kw - 1,
                                                groups=c))
     bwd_ms = time_ms(torch, lambda: causal_conv1d_grads(x, w, dy))
+    # F.conv1d's backward, the same function's gradients (CUDA events: the
+    # autograd engine does not run under graph capture)
+    leaves = [t.detach().requires_grad_(True) for t in (xt, wt)]
+    with torch.enable_grad():
+        ref = F.conv1d(*leaves, padding=kw - 1, groups=c)[..., :LM_TRAIN_SEQ]
+    dyt = dy.transpose(1, 2).contiguous()
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ref, leaves, dyt, retain_graph=True))
+    del leaves, ref, dyt
     flops = causal_conv1d_flops(1, LM_TRAIN_SEQ, c, kw)
     nbytes = (x.numel() + w.numel() + got.numel()) * 2
     ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
         nbytes / R.HBM_BW * 1e3
+    # the backward: two products (dx, dw) of the forward's size; x, w, dy
+    # read once, dx, dw written once
+    bwd_bound = max(2 * flops / R.PEAK_FLOPS_BF16,
+                    (2 * x.numel() + 2 * w.numel() + dy.numel()) * 2
+                    / R.HBM_BW) * 1e3
     source, replaces = LM_KERNELS["causal_conv1d"]
     rows.append({
         "name": "causal_conv1d_train_path", "route": "cuda",
@@ -3153,14 +3316,124 @@ def lm_train_rows(torch, train, hybrid, errs):
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": lib_ms, "backward_ms": bwd_ms,
+        "backward_bound_ms": bwd_bound, "library_backward_ms": lib_bwd_ms,
         "shape": f"x [1, {LM_TRAIN_SEQ}, {c}] bf16, K={kw} ({LM_ARCH} train "
                  f"microbatch; launches from its one-group train steps)",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
     print(f"  causal_conv1d_train_path at x [1, {LM_TRAIN_SEQ}, {c}] bf16: "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, F.conv1d "
           f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms; backward "
-          f"(torch ops) {bwd_ms:.3f} ms")
+          f"(torch ops) {bwd_ms:.3f} ms, bound {bwd_bound:.4f} ms, F.conv1d's "
+          f"backward {lib_bwd_ms:.3f} ms (CUDA events)")
     return rows
+
+
+def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
+    """The ``flash_attention_bwd_train_path`` row at the training shape
+    (q (16, 4096, 128), k/v (2, 4096, 128) bf16, causal): the backward
+    kernels' device time (CUDA-graph replay), ``flash_attention_bwd_plain``'s
+    and ``flash_attention_vjp``'s (the reference's chunked attention
+    recomputed, the training path's backward before the kernels; CUDA
+    events), SDPA's backward (device time by graph replay: SDPA's forward
+    and ``torch.autograd.grad`` captured together, less its forward alone,
+    whichever backend SDPA picks, named in ``library``; its gradients,
+    summed over each group, held to the plain version's at
+    ``_hold_grads``'s tolerance), the bound (``meta.flash_bwd_flops`` at 989 TFLOP/s bf16
+    against q, k, v, o, dO, lse read and dq, dk, dv written at 3.35 TB/s),
+    phase 13's launches, the backward kernels' HGMMA/HMMA counts, and the
+    errors ``flash_train_checks`` kept (the log-sum-exp's, and the
+    gradients' at the other training paths' shapes).  ``bshd`` is (q, k,
+    v, dout) in the model's layout, ``kernel`` (q, k, v) in the kernels',
+    ``sdpa`` (q, k, v) with K and V repeated to the query heads."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd,
+                                                     flash_attention_vjp)
+    from repro_torch.kernels.meta import flash_bwd_flops
+    from repro_torch.launch import roofline as R
+
+    F = torch.nn.functional
+    b, s, t, h, hkv, d = TRAIN_FLASH
+    q, kk, v = kernel
+    do = bshd[3].transpose(1, 2).reshape(-1, s, d).contiguous()
+    out, lse = flash_attention_fwd(q, kk, v, causal=True, return_lse=True)
+
+    def run():
+        return flash_attention_bwd(q, kk, v, out, lse, do, causal=True)
+
+    k_ms = device_ms(torch, run)
+    p_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, kk, v, out, lse, do, causal=True), iters=3)
+    re_ms = time_ms(torch, lambda: flash_attention_vjp(*bshd), iters=3)
+    dref = do.view(b, h, s, d)
+    leaves = [x.detach().requires_grad_(True) for x in sdpa]
+
+    def library():
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            return torch.autograd.grad(o, leaves, dref)
+
+    lib_ms = device_ms(torch, library) - device_ms(
+        torch, lambda: F.scaled_dot_product_attention(*sdpa, is_causal=True))
+    try:
+        backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+            *sdpa, None, 0.0, True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        backend = "not read"
+    grads = run()
+    lib = library()
+    _hold_grads(torch, "bfloat16", (
+        lib[0].reshape(b * h, s, d),
+        *(g.view(b, hkv, h // hkv, t, d).float().sum(2).reshape(-1, t, d)
+          for g in lib[1:])),
+        flash_attention_bwd_plain(q, kk, v, out, lse, do, causal=True),
+        {}, "SDPA's backward at the training shape", "sdpa_bwd")
+    del leaves, lib
+    flops = flash_bwd_flops(b * h, s, t, d, True)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (q, kk, v, out, lse, do, *grads))
+    ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
+        nbytes / R.HBM_BW * 1e3
+    tc = {n: c for n, c in tensor_core_counts(
+        cuda_build.build("flash_attention.cu")[0]).items() if "flash_bwd" in n}
+    source, replaces = LM_KERNELS["flash_attention_bwd"]
+    print(f"  flash_attention_bwd_train_path at q ({b * h}, {s}, {d}) bf16: "
+          f"kernels {k_ms:.4f} ms, plain {p_ms:.3f} ms, SDPA's backward "
+          f"{lib_ms:.4f} ms ({backend}), the recomputing backward "
+          f"(flash_attention_vjp) {re_ms:.3f} ms, bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
+          f"{train['counts']['flash_attention_bwd']} launches in phase 13")
+    return {
+        "name": "flash_attention_bwd_train_path", "route": "cuda",
+        "source": source, "replaces": replaces,
+        "note": "no TPU kernel of its own: the gradient of "
+                "flash_attention_fwd's function, which the reference's "
+                "training takes by XLA autodiff of "
+                "src/repro/models/layers.py:176",
+        "launches": train["counts"]["flash_attention_bwd"],
+        "max_abs_err": errs[("flash_train_bwd_kernels", "float32")],
+        "max_abs_err_bf16": errs[("flash_train_bwd_kernels", "bfloat16")],
+        "err_of": "max |g|",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": lib_ms,
+        "library": f"scaled_dot_product_attention's backward ({backend}; "
+                   f"K, V repeated to the query heads): its forward and "
+                   f"backward less its forward",
+        "recompute_ms": re_ms,
+        "max_lse_err": {f"{n[4:]}/{dt}": e
+                        for (n, dt), e in sorted(errs.items())
+                        if n.startswith("lse:")},
+        "max_abs_err_paths": {f"{n.split(':', 1)[1]}/{dt}": e
+                              for (n, dt), e in sorted(errs.items())
+                              if n.startswith("flash_bwd:")},
+        "tensor_core_counts": {n: {"HGMMA": c[0], "HMMA": c[1]}
+                               for n, c in tc.items()},
+        "shape": f"q ({b * h}, {s}, {d}), k/v ({b * hkv}, {t}, {d}) bf16 "
+                 f"causal ({LM_TRAIN_ARCH} train microbatch)",
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
 # --------------------------------------------------------------------------
@@ -3354,6 +3627,7 @@ def examples_phase(torch, tmp: str) -> dict:
     launch counts set to 0 after ``serve_lm`` and read after the two
     ``train_lm`` runs, returns its row at ``train_lm``'s shape."""
     from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.kernels.flash_attention import FlashAttention
 
     t0 = time.perf_counter()
     _reset_lm_counts()
@@ -3363,24 +3637,29 @@ def examples_phase(torch, tmp: str) -> dict:
         raise AssertionError(f"serve_lm: {[(r.done, r.out) for r in reqs]}")
     serve_launches = _lm_counts()["flash_attention_fwd"]
     _reset_lm_counts()
+    f0 = FlashAttention.backward_calls
     full_dir, cut_dir = (tempfile.mkdtemp(dir=tmp) for _ in range(2))
     argv = ["--steps", "20", "--ckpt-every", "10"]
     full = train_lm.main(argv + ["--ckpt-dir", full_dir])
     shutil.copytree(os.path.join(full_dir, "step_00000010"),
                     os.path.join(cut_dir, "step_00000010"))
     resumed = train_lm.main(argv + ["--ckpt-dir", cut_dir, "--resume"])
-    launches = _lm_counts()["flash_attention_fwd"]
+    counts = _lm_counts()
+    launches = counts["flash_attention_fwd"]
+    bwd_launches = counts["flash_attention_bwd"]
     if not all(math.isfinite(x) for x in full) or resumed != full[10:]:
         raise AssertionError(f"train_lm: resumed losses {resumed} differ "
                              f"from the uninterrupted run's {full[10:]}")
     if serve_launches == 0 or launches == 0:
         raise AssertionError(f"flash launched {serve_launches} times in "
                              f"serve_lm, {launches} in train_lm")
+    _held_flash_bwd("train_lm", counts, FlashAttention.backward_calls - f0)
     print(f"examples: serve_lm served {len(reqs)} requests (flash launched "
           f"{serve_launches} times); train_lm "
           f"{len(full)} steps, loss {full[0]:.4f} -> {full[-1]:.4f}, "
           f"resumed at step 10 bitwise equal (flash launched {launches} "
-          f"times over both runs, at the f32 row's shape); "
+          f"times over both runs, at the f32 row's shape, its f32 backward "
+          f"kernels {bwd_launches} times); "
           f"{time.perf_counter() - t0:.1f} s")
     row = flash_f32_row(torch, launches)
     conv_examples(torch, tmp)
@@ -3643,7 +3922,7 @@ def flash_f32_row(torch, launches: int) -> dict:
     from repro_torch.launch import roofline as R
 
     F = torch.nn.functional
-    b, s, h, hkv, d = 8, 256, 4, 2, 64
+    b, s, _, h, hkv, d = TRAIN_LM_FLASH
     gen = torch.Generator().manual_seed(19)
 
     def rand(*shape):
@@ -4204,6 +4483,20 @@ MESH_NEW = 8
 TP_FLASH = (1, MESH_SEQ, MESH_SEQ, 20, 4, 128)
 
 
+def _flash_bwd_calls() -> int:
+    from repro_torch.kernels.flash_attention import FlashAttention
+    return FlashAttention.backward_calls
+
+
+def _held_flash_bwd(label: str, counts: dict, calls: int) -> None:
+    """A ring's training steps ran ``FlashAttention``'s backward ``calls``
+    times: at least once, each launching the backward kernels once."""
+    if not calls or counts["flash_attention_bwd"] != calls:
+        raise AssertionError(f"{label}: FlashAttention's backward ran "
+                             f"{calls} times and launched the backward "
+                             f"kernels {counts['flash_attention_bwd']} times")
+
+
 def _ring_devices(torch, n):
     return (torch.device("cuda", 0),) * n
 
@@ -4288,10 +4581,12 @@ def mesh_dp(torch, np) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts()
+    f0 = _flash_bwd_calls()
     coll0 = SH.collective_bytes()
     with ctx.activation_sharding(hooks):
         got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
     counts = _lm_counts()
+    _held_flash_bwd(f"{cfg.name} ring", counts, _flash_bwd_calls() - f0)
     coll = {k: v // MESH_STEPS for k, v in _coll_delta(coll0).items()}
     peak = torch.cuda.max_memory_allocated() - base
     if not counts["flash_attention_fwd"]:
@@ -4449,10 +4744,12 @@ def mesh_tp(torch, np) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts()
+    f0 = _flash_bwd_calls()
     coll0 = SH.collective_bytes()
     with ctx.activation_sharding(hooks):
         got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
     counts = _lm_counts()
+    _held_flash_bwd(f"{cfg.name} ring", counts, _flash_bwd_calls() - f0)
     coll = {k: v // MESH_STEPS for k, v in _coll_delta(coll0).items()}
     peak = torch.cuda.max_memory_allocated() - base
     split = ring.replica_mismatches(rstate)
@@ -4997,9 +5294,13 @@ def ring_train(torch, np, cfg, mesh, plan, batches, label,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts()
+    f0 = _flash_bwd_calls()
     coll0 = SH.collective_bytes()
     with ctx.activation_sharding(hooks):
         got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
+    if "flash_attention_fwd" in _ring_kernels(cfg):
+        _held_flash_bwd(f"{cfg.name} ring", _lm_counts(),
+                        _flash_bwd_calls() - f0)
     launches = {k: v for k, v in _lm_counts().items()
                 if k in _ring_kernels(cfg)}
     coll = {k: v // len(batches) for k, v in _coll_delta(coll0).items()}
@@ -5475,6 +5776,11 @@ def phases(torch, np, tmp: str, card: str) -> int:
             if not bf16 or not all(sum(c) for c in bf16.values()):
                 raise AssertionError(f"the bf16 flash kernel issues no "
                                      f"tensor-core instruction: {bf16}")
+            bwd = {n: c for n, c in counts.items()
+                   if "flash_bwd" in n and "bf16" in n}
+            if len(bwd) != 10 or not all(c[1] for c in bwd.values()):
+                raise AssertionError(f"the bf16 flash backward kernels "
+                                     f"contain no HMMA: {bwd}")
 
     errs = {}
     t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-// Flash attention (forward) for Hopper (sm_90a).
+// Flash attention (forward and backward) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `flash_attention_fwd` (src/repro/kernels/
 // flash_attention.py:75, body `_kernel` :31): attention with an online
@@ -43,14 +43,31 @@
 // Where this kernel rounds: P is rounded once to bf16 before P V (the
 // Pallas kernel keeps p in f32), and l sums the rounded weights, so o is an
 // exact convex combination of V's rows with weights p~_j = p_j (1 + d_j),
-// |d_j| <= 2^-9.  The error this adds to o is sum_j (p_j / l)(d_j - d) v_j
-// with d the weighted mean of d_j: at most 2 * 2^-9 * max|v| = 0.0039 max|v|
-// in the worst case and, with independent roundings, about 2^-9 * max|v| *
-// sqrt(sum_j (p_j / l)^2) <= 2^-9 max|v| typically.  For the unit-normal
-// operands of the checks (max|v| about 4.5 over 2048 keys) that is under
-// 0.018 worst case and some 0.002 typical, inside the bf16 tolerance of
-// 2e-2 against `flash_attention_plain` (the output's own bf16 rounding adds
-// 2^-9 |o|).
+// |d_j| <= 2^-8 (bf16's unit roundoff).  The error this adds to o is
+// sum_j (p_j / l)(d_j - d) v_j with d the weighted mean of d_j: at most
+// 2 * 2^-8 * max|v| = 0.0078 max|v| in the worst case and, with independent
+// roundings, about 2^-8 * max|v| * sqrt(sum_j (p_j / l)^2) typically, which
+// is far smaller when the weights spread over many keys.  For the
+// unit-normal operands of the checks (max|v| about 4.5 over 2048 keys) the
+// typical error is some 0.004, inside the bf16 tolerance of 2e-2 against
+// `flash_attention_plain` (the output's own bf16 rounding adds 2^-8 |o|).
+//
+// The forward can also write each row's log-sum-exp (f32 [BH, S], natural
+// log of sum_j exp(scale q.k_j) over the unmasked keys: m + log l, the bf16
+// kernel's base-2 m converted), which the backward reads.  o is computed
+// exactly as without it.
+//
+// The backward (flash_bwd_dq_kernel and flash_bwd_dkdv_kernel in f32,
+// their _bf16_ counterparts on the tensor cores, below) is not the port of
+// a TPU kernel: the reference has none, and its training differentiates the
+// chunked JAX attention (src/repro/models/layers.py:176) with XLA.  It is
+// the hand-written gradient of this file's forward.  What bounds it:
+// operations, 10 BH S T D FLOPs (S, dP, dV, dK and dQ; halved under
+// causal) against q, k, v, o, dO, lse read once and dq, dk, dv written
+// once.  The dQ kernel recomputes S and dP (seven products in all), which
+// buys the absence of atomics: every gradient element is summed by one
+// block in a fixed order, so the gradients are bitwise the same from run
+// to run and a sequence's do not depend on its batch.
 //
 // flash_fwd_kernel (f32, the first version, kept for f32 operands: TF32
 // tensor cores would round the operands to 10 bits and miss the f32
@@ -82,6 +99,8 @@ constexpr int RPT = 4;       // query rows per thread (BQ = THREADS / TX * RPT)
 constexpr int CPT = BK / TX; // score columns per thread
 constexpr int PS = BK + 1;   // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -115,8 +134,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-                 int group, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int Tk, int group,
+                 float scale, int causal) {
   static_assert(D % TX == 0, "head dim must be a multiple of 8");
   constexpr int DP = D + 1;
   constexpr int DPT = D / TX;  // output columns per thread
@@ -231,12 +251,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DPT; ++j)
       store(ob + (size_t)qpos * D + tx + TX * j, acc[i][j] * inv_l);
   }
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int qpos = q0 + ty * RPT + i;
+      if (qpos < S) lse[(size_t)bh * S + qpos] = m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
+  }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int BHkv, int S, int Tk, float scale, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int BH, int BHkv, int S, int Tk, float scale,
+                   int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -247,24 +274,336 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, BH);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, BH / BHkv, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, BH / BHkv,
+      scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, int BH, int BHkv, int S, int Tk, float scale,
-                     int causal, cudaStream_t stream) {
+                     void* o, float* lse, int BH, int BHkv, int S, int Tk,
+                     float scale, int causal, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 112: return launch<T, 112>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 112: return launch<T, 112>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Backward, f32: FMA on the CUDA cores
+// ---------------------------------------------------------------------------
+// Both backward kernels take the forward's log-sum-exp (natural log of the
+// row's sum of exp(scale * q.k) over its unmasked keys), so P = exp(scale *
+// q.k - lse) is recomputed tile by tile and never stored; delta = rowsum(dO
+// o O).  The dQ kernel runs first and writes delta, which the dK/dV kernel
+// reads.  With dS = P o (dP - delta):
+//   dQ = scale * dS K        one block per (q head, 64 queries), walking
+//                            the key tiles up to the diagonal;
+//   dK = scale * dS^T Q,     one block per (kv head, 64 keys), walking its
+//   dV = P^T dO              group's q heads and, under `causal`, only the
+//                            query tiles from the diagonal on.
+// Every gradient element is summed by one block in a fixed order, with no
+// atomics and no sum across blocks: dq, dk and dv are bitwise the same from
+// run to run, and a sequence's gradients do not depend on the other
+// sequences of its batch.
+namespace bwd {
+
+constexpr int THREADS = 256;
+constexpr int RPT = 2;         // tile rows per thread (64 = THREADS / TX * RPT)
+static_assert(BQ == BK, "the causal walks start at the diagonal tile");
+
+// K, V, Q, dO tiles [64][D + 1], the P or dS tile [64][PS], lse and delta
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (4 * (size_t)BQ * (D + 1) + (size_t)BQ * PS + 2 * BQ);
+}
+
+// Rows [r0, r0 + 64) of a [n_rows][D] operand into a [64][D + 1] tile,
+// rows past n_rows zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n_rows) {
+  for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
+    const int r = e / D, c = e % D;
+    dst[r * (D + 1) + c] = r0 + r < n_rows ? src[(size_t)(r0 + r) * D + c] : 0.f;
+  }
+}
+
+// s[i][j] = a[row i] . b[row j] over D: thread (ty, tx) owns rows ty * RPT
+// + i of `a` and rows tx + TX * j of `b`.
+template <int D>
+__device__ __forceinline__ void tile_dot(const float* a, const float* b,
+                                         int ty, int tx,
+                                         float (&s)[RPT][CPT]) {
+  constexpr int DP = D + 1;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[RPT], bv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) av[i] = a[(ty * RPT + i) * DP + d];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) bv[j] = b[(tx + TX * j) * DP + d];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+// acc[i][j] += sum_c p[row ty * RPT + i][c] * b[c][tx + TX * j]
+template <int D>
+__device__ __forceinline__ void tile_acc(const float* p, const float* b,
+                                         int ty, int tx,
+                                         float (&acc)[RPT][D / TX]) {
+  constexpr int DP = D + 1;
+  for (int c = 0; c < BK; ++c) {
+    float pv[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) pv[i] = p[(ty * RPT + i) * PS + c];
+#pragma unroll
+    for (int j = 0; j < D / TX; ++j) {
+      const float bv = b[c * DP + tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], bv, acc[i][j]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    float* __restrict__ dq, int S, int Tk, int group,
+                    float scale, int causal) {
+  static_assert(D % TX == 0, "head dim must be a multiple of 8");
+  constexpr int DP = D + 1, DPT = D / TX;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;            // [BQ][DP]
+  float* dos = qs + BQ * DP;   // [BQ][DP]
+  float* ks = dos + BQ * DP;   // [BK][DP]
+  float* vs = ks + BK * DP;    // [BK][DP]
+  float* ps = vs + BK * DP;    // [BQ][PS]: dS
+  float* ls = ps + BQ * PS;    // [BQ]: lse
+  float* dl = ls + BQ;         // [BQ]: delta
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const size_t qoff = (size_t)bh * S * D;
+  const float* kb = k + (size_t)(bh / group) * Tk * D;
+  const float* vb = v + (size_t)(bh / group) * Tk * D;
+
+  load_rows<D>(qs, q + qoff, q0, S);
+  load_rows<D>(dos, dout + qoff, q0, S);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = ty * RPT + i, qpos = q0 + r;
+    float part = 0.f;
+    if (qpos < S) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j)
+        part = fmaf(dos[r * DP + tx + TX * j],
+                    o[qoff + (size_t)qpos * D + tx + TX * j], part);
+    }
+    part = row_sum(part);
+    if (tx == 0) {
+      ls[r] = qpos < S ? lse[(size_t)bh * S + qpos] : 0.f;
+      dl[r] = part;
+      if (qpos < S) delta[(size_t)bh * S + qpos] = part;
+    }
+  }
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+
+  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // lse, delta published; every thread done with K, V, dS
+    load_rows<D>(ks, kb, k0, Tk);
+    load_rows<D>(vs, vb, k0, Tk);
+    __syncthreads();
+    float s[RPT][CPT], dp[RPT][CPT];
+    tile_dot<D>(qs, ks, ty, tx, s);    // S = Q K^T
+    tile_dot<D>(dos, vs, ty, tx, dp);  // dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = ty * RPT + i, qpos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int key = k0 + tx + TX * j;
+        const bool ok = qpos < S && key < Tk && !(causal && key > qpos);
+        const float p = ok ? expf(fmaf(s[i][j], scale, -ls[r])) : 0.f;
+        ps[r * PS + tx + TX * j] = p * (dp[i][j] - dl[r]);
+      }
+    }
+    __syncthreads();  // the dS tile is complete
+    tile_acc<D>(ps, ks, ty, tx, acc);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qpos = q0 + ty * RPT + i;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j)
+      dq[qoff + (size_t)qpos * D + tx + TX * j] = acc[i][j] * scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int S, int Tk, int group,
+                      float scale, int causal) {
+  static_assert(D % TX == 0, "head dim must be a multiple of 8");
+  constexpr int DP = D + 1, DPT = D / TX;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;            // [BK][DP]
+  float* vs = ks + BK * DP;    // [BK][DP]
+  float* qs = vs + BK * DP;    // [BQ][DP]
+  float* dos = qs + BQ * DP;   // [BQ][DP]
+  float* ps = dos + BQ * DP;   // [BK][PS]: P^T, then dS^T
+  float* ls = ps + BK * PS;    // [BQ]
+  float* dl = ls + BQ;         // [BQ]
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int k0 = blockIdx.x * BK;
+  const int hk = blockIdx.y;
+  const size_t kvoff = (size_t)hk * Tk * D;
+  load_rows<D>(ks, k + kvoff, k0, Tk);
+  load_rows<D>(vs, v + kvoff, k0, Tk);
+
+  float dka[RPT][DPT], dva[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  // queries before k0 see none of these keys under `causal`
+  const int q_begin = causal ? k0 : 0;
+  for (int h = 0; h < group; ++h) {
+    const int bh = hk * group + h;
+    const size_t qoff = (size_t)bh * S * D;
+    for (int q0 = q_begin; q0 < S; q0 += BQ) {
+      __syncthreads();  // every thread is done with Q, dO and dS^T
+      load_rows<D>(qs, q + qoff, q0, S);
+      load_rows<D>(dos, dout + qoff, q0, S);
+      for (int r = tid; r < BQ; r += THREADS) {
+        const bool ok = q0 + r < S;
+        ls[r] = ok ? lse[(size_t)bh * S + q0 + r] : 0.f;
+        dl[r] = ok ? delta[(size_t)bh * S + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      float s[RPT][CPT], p[RPT][CPT];
+      tile_dot<D>(ks, qs, ty, tx, s);  // S^T = K Q^T
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int key = k0 + ty * RPT + i;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int c = tx + TX * j, qpos = q0 + c;
+          const bool ok = qpos < S && key < Tk && !(causal && key > qpos);
+          p[i][j] = ok ? expf(fmaf(s[i][j], scale, -ls[c])) : 0.f;
+          ps[(ty * RPT + i) * PS + c] = p[i][j];
+        }
+      }
+      __syncthreads();  // the P^T tile is complete
+      tile_acc<D>(ps, dos, ty, tx, dva);  // dV += P^T dO
+      tile_dot<D>(vs, dos, ty, tx, s);    // dP^T = V dO^T
+      __syncthreads();  // every thread is done reading P^T
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int c = tx + TX * j;
+          ps[(ty * RPT + i) * PS + c] = p[i][j] * (s[i][j] - dl[c]);
+        }
+      __syncthreads();  // the dS^T tile is complete
+      tile_acc<D>(ps, qs, ty, tx, dka);   // dK += dS^T Q
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int key = k0 + ty * RPT + i;
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const size_t at = kvoff + (size_t)key * D + tx + TX * j;
+      dk[at] = dka[i][j] * scale;
+      dv[at] = dva[i][j];
+    }
+  }
+}
+
+template <int D>
+cudaError_t bwd_launch(const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       void* dq, void* dk, void* dv, float* delta, int BH,
+                       int BHkv, int S, int Tk, float scale, int causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  flash_bwd_dq_kernel<D><<<dim3((S + BQ - 1) / BQ, BH), THREADS, smem,
+                           stream>>>(
+      qf, kf, vf, static_cast<const float*>(o), df, lse, delta,
+      static_cast<float*>(dq), S, Tk, BH / BHkv, scale, causal);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_kernel<D><<<dim3((Tk + BK - 1) / BK, BHkv), THREADS, smem,
+                             stream>>>(
+      qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, Tk, BH / BHkv, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_dispatch(int D, const void* q, const void* k, const void* v,
+                         const void* o, const float* lse, const void* dout,
+                         void* dq, void* dk, void* dv, float* delta, int BH,
+                         int BHkv, int S, int Tk, float scale, int causal,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 16: return bwd_launch<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 32: return bwd_launch<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 64: return bwd_launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 112: return bwd_launch<112>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return bwd_launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma m64nNk16), cp.async double buffering
@@ -519,8 +858,9 @@ __device__ __forceinline__ void stage_kv(bf16* dst, const bf16* src, int r0,
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                      int Tk, int group, float scale_log2, int causal) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int S, int Tk, int group,
+                      float scale_log2, int causal) {
   using C = Cfg<D>;
   constexpr int LD = C::LD, KSTEPS = C::KSTEPS, NT = C::NT, TILE = C::TILE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -665,6 +1005,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  // m is in base-2 units: the natural log-sum-exp is (m + log2 l) ln 2
+  if (lse != nullptr && t == 0) {
+    if (row_lo < S)
+      lse[(size_t)bh * S + row_lo] = (m_lo + log2f(fmaxf(l_lo, 1e-30f))) * LN2;
+    if (row_hi < S)
+      lse[(size_t)bh * S + row_hi] = (m_hi + log2f(fmaxf(l_hi, 1e-30f))) * LN2;
+  }
   bf16* ob = o + (size_t)bh * S * D;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -680,8 +1027,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int BHkv, int S, int Tk, float scale, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int BH, int BHkv, int S, int Tk, float scale,
+                   int causal, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::SMEM;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -692,20 +1039,426 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(BH, (S + BQ - 1) / BQ);
   flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Tk, BH / BHkv,
-      scale * 1.4426950408889634f, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, Tk,
+      BH / BHkv, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, int BH, int BHkv, int S, int Tk, float scale,
-                     int causal, cudaStream_t stream) {
+                     void* o, float* lse, int BH, int BHkv, int S, int Tk,
+                     float scale, int causal, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 32: return launch<32>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 64: return launch<64>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 112: return launch<112>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
-    case 128: return launch<128>(q, k, v, o, BH, BHkv, S, Tk, scale, causal, stream);
+    case 16: return launch<16>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 32: return launch<32>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 64: return launch<64>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 112: return launch<112>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return launch<128>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward, bf16: tensor cores (mma.sync m16n8k16), cp.async double buffering
+// ---------------------------------------------------------------------------
+// The same two kernels as the f32 backward (see `namespace bwd`), each one
+// warpgroup: a warp owns 16 rows of its block's 64 (keys in the dK/dV
+// kernel, queries in the dQ kernel) against all 64 columns of the other
+// operand's tile, so no product needs another warp's result and a step has
+// one barrier.  Every product is mma.sync m16n8k16 (bf16 in, f32
+// accumulators); operands come from shared memory by ldmatrix, row-major
+// tiles with rows of D + 8 elements (conflict-free, as Q's in the forward),
+// transposed on load (ldmatrix .trans) where the product reads a tile by
+// columns (dV = P^T dO, dK = dS^T Q, dQ = dS K).  P and dS come from the
+// accumulators in registers and feed the next product as its A fragments.
+// The tiles the block walks (Q and dO, or K and V) are double-buffered by
+// stage_q's 16-byte cp.async with zero-fill.
+//
+// Where this backward rounds: P and dS are rounded once to bf16 (unit
+// roundoff u = 2^-8) before the products that take them; S, dP, delta and
+// every sum stay in f32.  A rounded weight p~ = p (1 + e), |e| <= u, so
+// each gradient element is the exact sum of its terms each perturbed by at
+// most u: |dV~ - dV| <= u sum_q p |dO| and |dK~ - dK| <= u scale sum_q |dS|
+// |Q|, at most u = 0.0039 of the sums of |terms| and, with independent
+// roundings, about u / sqrt(n) of them over n terms.  The outputs' own bf16
+// rounding adds u |g|.  For the unit-normal operands of the checks that is
+// well inside 2e-2 of max |g| against `flash_attention_bwd_plain` (f32
+// throughout).  The log-sum-exp is f32 from the forward, in natural-log
+// units; the kernels use it as lse * log2(e) with exp2.
+
+// ldmatrix of four 8 x 8 b16 matrices, each transposed on load.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulators of a warp's 16 x 64 product (8 n8 tiles), rounded to
+// bf16 as the A fragments of a product over those 64 columns (4 k16 steps).
+__device__ __forceinline__ void to_a_frags(const float (&x)[8][4],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// acc (16 x 64) = a (the warp's 16 rows, row-major, stride LD) times b^T
+// (b: 64 rows, row-major, stride LD), over D: acc[r][c] = a[r] . b[c].
+template <int D>
+__device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
+                                         float (&acc)[8][4]) {
+  constexpr int LD = Cfg<D>::LD;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(smem_u32(a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8), af);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(smem_u32(b + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                       kk * 16 + ((lane >> 3) & 1) * 8),
+              bf);
+      mma16816(acc[2 * np], af, bf[0], bf[1]);
+      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += x (16 x 64, A fragments) times b (64 rows, row-major,
+// stride LD): acc[r][d] += sum_c x[r][c] b[c][d].
+template <int D>
+__device__ __forceinline__ void warp_xb(const uint32_t (&x)[4][4],
+                                        const bf16* b, float (&acc)[D / 8][4]) {
+  constexpr int LD = Cfg<D>::LD;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t bf[4];
+      ldsm_x4_t(smem_u32(b + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                 LD +
+                         np * 16 + (lane >> 4) * 8),
+                bf);
+      mma16816(acc[2 * np], x[kk], bf[0], bf[1]);
+      mma16816(acc[2 * np + 1], x[kk], bf[2], bf[3]);
+    }
+}
+
+template <int D>
+struct BwdCfg {
+  static constexpr int TILE = BQ * Cfg<D>::LD;  // elements of a 64-row tile
+  static constexpr size_t SMEM_DQ = sizeof(bf16) * 6 * (size_t)TILE;
+  static constexpr size_t SMEM_DKDV = SMEM_DQ + sizeof(float) * 4 * BQ;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ delta, bf16* __restrict__ dq,
+                         int S, int Tk, int group, float scale,
+                         float scale_log2, int causal) {
+  constexpr int LD = Cfg<D>::LD, NT = D / 8, TILE = BwdCfg<D>::TILE;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [TILE]
+  bf16* dos = qs + TILE;                          // [TILE]
+  bf16* ks = dos + TILE;                          // [2][TILE]
+  bf16* vs = ks + 2 * TILE;                       // [2][TILE]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const size_t qoff = (size_t)bh * S * D;
+  const bf16* kb = k + (size_t)(bh / group) * Tk * D;
+  const bf16* vb = v + (size_t)(bh / group) * Tk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  stage_q<D>(qs, q + qoff, q0, S);
+  stage_q<D>(dos, dout + qoff, q0, S);
+  stage_q<D>(ks, kb, 0, Tk);
+  stage_q<D>(vs, vb, 0, Tk);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) of the thread's two rows (columns 8c + 2t, +1,
+  // then the quad's sum), written once for the dK/dV kernel
+  float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = c * 8 + 2 * t;
+    if (row_lo < S) {
+      const size_t at = qoff + (size_t)row_lo * D + col;
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dout + at));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(o + at));
+      d_lo = fmaf(a.x, b.x, fmaf(a.y, b.y, d_lo));
+    }
+    if (row_hi < S) {
+      const size_t at = qoff + (size_t)row_hi * D + col;
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dout + at));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(o + at));
+      d_hi = fmaf(a.x, b.x, fmaf(a.y, b.y, d_hi));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    d_lo += __shfl_xor_sync(0xffffffffu, d_lo, off);
+    d_hi += __shfl_xor_sync(0xffffffffu, d_hi, off);
+  }
+  if (t == 0) {
+    if (row_lo < S) delta[(size_t)bh * S + row_lo] = d_lo;
+    if (row_hi < S) delta[(size_t)bh * S + row_hi] = d_hi;
+  }
+  const float l_lo = row_lo < S ? lse[(size_t)bh * S + row_lo] * LOG2E : 0.f;
+  const float l_hi = row_hi < S ? lse[(size_t)bh * S + row_hi] * LOG2E : 0.f;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile `it` landed; every warp is done with it - 1
+    if (it + 1 < n_tiles) {
+      const int nb = (it + 1) & 1;
+      stage_q<D>(ks + nb * TILE, kb, (it + 1) * BK, Tk);
+      stage_q<D>(vs + nb * TILE, vb, (it + 1) * BK, Tk);
+    }
+    cp_async_commit();
+    const bf16* kt = ks + (it & 1) * TILE;
+    const bf16* vt = vs + (it & 1) * TILE;
+    const int k0 = it * BK;
+
+    float p[8][4], dp[8][4];
+    warp_abt<D>(qs + warp * 16 * LD, kt, p);    // S = Q K^T
+    warp_abt<D>(dos + warp * 16 * LD, vt, dp);  // dP = dO V^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? row_lo : row_hi;
+        const bool ok = row < S && key < Tk && !(causal && key > row);
+        const float pe =
+            ok ? ex2(fmaf(p[n][e], scale_log2, -(e < 2 ? l_lo : l_hi))) : 0.f;
+        dp[n][e] = pe * (dp[n][e] - (e < 2 ? d_lo : d_hi));  // dS
+      }
+    uint32_t xf[4][4];
+    to_a_frags(dp, xf);
+    warp_xb<D>(xf, kt, acc);  // dQ += dS K
+  }
+  cp_async_wait_all();
+
+  bf16* qb = dq + qoff;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row_lo < S)
+      *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)row_lo * D + col) =
+          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
+    if (row_hi < S)
+      *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)row_hi * D + col) =
+          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                           int Tk, int group, float scale, float scale_log2,
+                           int causal) {
+  constexpr int LD = Cfg<D>::LD, NT = D / 8, TILE = BwdCfg<D>::TILE;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [TILE]
+  bf16* vs = ks + TILE;                           // [TILE]
+  bf16* qs = vs + TILE;                           // [2][TILE]
+  bf16* dos = qs + 2 * TILE;                      // [2][TILE]
+  float* ls = reinterpret_cast<float*>(dos + 2 * TILE);  // [2][BQ]: lse log2 e
+  float* dl = ls + 2 * BQ;                               // [2][BQ]: delta
+
+  const int hk = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // under causal the first tiles are heaviest
+  const size_t kvoff = (size_t)hk * Tk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  // queries before k0 see none of these keys under `causal`; the block walks
+  // its group's q heads, each over query tiles q_begin, q_begin + 64, ...
+  const int q_begin = causal ? k0 : 0;
+  const int n_q = q_begin < S ? (S - q_begin + BQ - 1) / BQ : 0;
+  const int total = group * n_q;
+
+  auto stage = [&](int it, int buf) {
+    const int bh = hk * group + it / n_q;
+    const int q0 = q_begin + it % n_q * BQ;
+    stage_q<D>(qs + buf * TILE, q + (size_t)bh * S * D, q0, S);
+    stage_q<D>(dos + buf * TILE, dout + (size_t)bh * S * D, q0, S);
+    for (int r = threadIdx.x; r < BQ; r += THREADS) {
+      const bool ok = q0 + r < S;
+      ls[buf * BQ + r] = ok ? lse[(size_t)bh * S + q0 + r] * LOG2E : 0.f;
+      dl[buf * BQ + r] = ok ? delta[(size_t)bh * S + q0 + r] : 0.f;
+    }
+  };
+
+  stage_q<D>(ks, k + kvoff, k0, Tk);
+  stage_q<D>(vs, v + kvoff, k0, Tk);
+  if (total > 0) stage(0, 0);
+  cp_async_commit();
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // step `it` landed; every warp is done with it - 1
+    if (it + 1 < total) stage(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    const int buf = it & 1;
+    const int q0 = q_begin + it % n_q * BQ;
+    const bf16* qt = qs + buf * TILE;
+    const bf16* dot = dos + buf * TILE;
+    const float* lt = ls + buf * BQ;
+    const float* dt = dl + buf * BQ;
+
+    float p[8][4];
+    warp_abt<D>(ks + warp * 16 * LD, qt, p);  // S^T = K Q^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1), qpos = q0 + c;
+        const int key = e < 2 ? key_lo : key_hi;
+        const bool ok = qpos < S && key < Tk && !(causal && key > qpos);
+        p[n][e] = ok ? ex2(fmaf(p[n][e], scale_log2, -lt[c])) : 0.f;
+      }
+    uint32_t xf[4][4];
+    to_a_frags(p, xf);
+    warp_xb<D>(xf, dot, dva);  // dV += P^T dO
+    float ds[8][4];
+    warp_abt<D>(vs + warp * 16 * LD, dot, ds);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[n][e] = p[n][e] * (ds[n][e] - dt[n * 8 + 2 * t + (e & 1)]);
+    to_a_frags(ds, xf);
+    warp_xb<D>(xf, qt, dka);  // dK += dS^T Q
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (key_lo < Tk) {
+      const size_t at = kvoff + (size_t)key_lo * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    }
+    if (key_hi < Tk) {
+      const size_t at = kvoff + (size_t)key_hi * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t bwd_launch(const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       void* dq, void* dk, void* dv, float* delta, int BH,
+                       int BHkv, int S, int Tk, float scale, int causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem_dq = BwdCfg<D>::SMEM_DQ;
+  constexpr size_t smem_dkdv = BwdCfg<D>::SMEM_DKDV;
+  if (smem_dq > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+    if (e != cudaSuccess) return e;
+  }
+  if (smem_dkdv > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
+    if (e != cudaSuccess) return e;
+  }
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* db = static_cast<const bf16*>(dout);
+  const float scale_log2 = scale * LOG2E;
+  flash_bwd_dq_bf16_kernel<D><<<dim3(BH, (S + BQ - 1) / BQ), THREADS,
+                                smem_dq, stream>>>(
+      qb, kb, vb, static_cast<const bf16*>(o), db, lse, delta,
+      static_cast<bf16*>(dq), S, Tk, BH / BHkv, scale, scale_log2, causal);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_bf16_kernel<D><<<dim3(BHkv, (Tk + BK - 1) / BK), THREADS,
+                                  smem_dkdv, stream>>>(
+      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, Tk, BH / BHkv, scale, scale_log2, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_dispatch(int D, const void* q, const void* k, const void* v,
+                         const void* o, const float* lse, const void* dout,
+                         void* dq, void* dk, void* dv, float* delta, int BH,
+                         int BHkv, int S, int Tk, float scale, int causal,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 16: return bwd_launch<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 32: return bwd_launch<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 64: return bwd_launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 112: return bwd_launch<112>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return bwd_launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -717,25 +1470,63 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (flash_fwd_bf16_kernel).
-// Returns the launch's cudaError_t (0 = launched); cudaErrorInvalidValue
-// for a head dim, shape or alignment it does not take.
+// lse: null, or f32 [BH, S] for each row's natural-log log-sum-exp of the
+// scaled, masked scores (what the backward reads).  Returns the launch's
+// cudaError_t (0 = launched); cudaErrorInvalidValue for a head dim, shape or
+// alignment it does not take.
 int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
-                               const void* v, void* o, int BH, int BHkv,
-                               int S, int Tk, int D, float scale, int causal,
-                               void* stream) {
+                               const void* v, void* o, void* lse, int BH,
+                               int BHkv, int S, int Tk, int D, float scale,
+                               int causal, void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || S <= 0 || Tk <= 0 ||
       BH > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(D, q, k, v, o, BH, BHkv, S, Tk, scale, causal, s);
+    return (int)dispatch<float>(D, q, k, v, o, static_cast<float*>(lse), BH,
+                                BHkv, S, Tk, scale, causal, s);
   if (dtype == 1) {
     // cp.async copies 16-byte rows: every operand must start 16-aligned
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
         16)
       return (int)cudaErrorInvalidValue;
-    return (int)tc::dispatch(D, q, k, v, o, BH, BHkv, S, Tk, scale, causal, s);
+    return (int)tc::dispatch(D, q, k, v, o, static_cast<float*>(lse), BH,
+                             BHkv, S, Tk, scale, causal, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dq [BH, S, D] and dk, dv [BHkv, Tk, D] of the forward's o
+// for the cotangent dout [BH, S, D], from q, k, v, o and the forward's lse
+// (f32 [BH, S]); delta is f32 [BH, S] scratch.  dtype 0 float32
+// (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel), 1 bfloat16 (their _bf16_
+// counterparts); two launches on `stream`, the dQ kernel first.  Returns
+// the first failed launch's cudaError_t, else 0.
+int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
+                               const void* v, const void* o, const void* lse,
+                               const void* dout, void* dq, void* dk, void* dv,
+                               void* delta, int BH, int BHkv, int S, int Tk,
+                               int D, float scale, int causal, void* stream) {
+  if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || S <= 0 || Tk <= 0 ||
+      BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 0)
+    return (int)bwd::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl, BH,
+                                  BHkv, S, Tk, scale, causal, s);
+  if (dtype == 1) {
+    // cp.async and the bf16x2 stores take 16- and 4-byte rows
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) %
+        16)
+      return (int)cudaErrorInvalidValue;
+    return (int)tc::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl, BH,
+                                 BHkv, S, Tk, scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-"""Flash attention (forward) for Hopper — wrappers, plain version, launches.
+"""Flash attention for Hopper — wrappers, plain versions, launches.
 
 Port of ``repro.kernels.flash_attention``: the Pallas TPU kernel
 ``flash_attention_fwd`` (flash_attention.py:75, body ``_kernel`` :31)
@@ -38,14 +38,26 @@ gets an empty output and the kernel's closed-form cost reported to
 ``flash_attention_fwd.launches``.
 
 Gradients: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
-forward through ``flash_attention_bshd`` (the kernel on the card) and
-saves q, k and v.  The reference has no backward kernel: its training
-differentiates the chunked JAX attention (``models/layers.py:176``) with
-XLA.  So the backward recomputes that function, ported as
-``flash_attention_chunked``, one query chunk at a time under autograd, and
-returns its vector-Jacobian product.  Per query chunk the recomputation
-holds ``q_chunk x T`` scores per head, never the full ``S x T`` softmax.
-Backward passes are counted in ``FlashAttention.backward_calls``.
+forward kernel with ``return_lse=True`` (each row's log-sum-exp, f32
+``(BH, S)``, natural log) and saves the kernel-layout q, k, v, the output
+and the log-sum-exp; its backward is ``flash_attention_bwd``:
+
+  on the card  two hand-written kernels in ``csrc/flash_attention.cu``
+               (bf16 products on the tensor cores by ``mma.sync``, f32 FMA
+               for f32): a dQ kernel that also writes ``delta = rowsum(dO o
+               O)``, then a dK/dV kernel per (kv head, 64 keys) that walks
+               its group's q heads.  No atomics: the gradients are bitwise
+               from run to run and independent of the rest of the batch.
+  on the CPU   ``flash_attention_bwd_plain``, the kernels' function in f32.
+
+The reference has no backward kernel: its training differentiates the
+chunked JAX attention (``models/layers.py:176``) with XLA.  Its port,
+``flash_attention_chunked`` and its vector-Jacobian product
+``flash_attention_vjp`` (each query chunk recomputed under autograd), is
+kept as the reference's differentiated function: an oracle in the tests
+and the "before" time in ``chip_smoke.py``, on no training path.  Backward
+passes are counted in ``FlashAttention.backward_calls``, the kernels'
+launches in ``flash_attention_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -74,12 +86,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.shape[0]}")
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: scores in f32 scaled by
-    ``D**-0.5``, masked to -1e30 above the diagonal under ``causal``, a
-    full softmax in f32, the product with V in f32, cast to q's dtype."""
-    _check(q, k, v)
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """f32 scores ``(BHkv, g, S, T)`` scaled by ``D**-0.5``, -1e30 above
+    the diagonal under ``causal``."""
     bh, s, d = q.shape
     bhkv, t, _ = k.shape
     qg = q.float().reshape(bhkv, bh // bhkv, s, d)
@@ -87,9 +96,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, NEG_INF)
+    return scores
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, return_lse: bool = False):
+    """The kernel's function in plain PyTorch: scores in f32 scaled by
+    ``D**-0.5``, masked to -1e30 above the diagonal under ``causal``, a
+    full softmax in f32, the product with V in f32, cast to q's dtype.
+    With ``return_lse``, also each row's log-sum-exp of the scores (f32
+    ``(BH, S)``, natural log): ``(out, lse)``."""
+    _check(q, k, v)
+    bh, s, d = q.shape
+    scores = _scores(q, k, causal)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("hgst,htd->hgsd", p, v.float())
-    return out.reshape(bh, s, d).to(q.dtype)
+    out = out.reshape(bh, s, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(bh, s)
 
 
 def flash_attention_bf16p_plain(q: torch.Tensor, k: torch.Tensor,
@@ -130,87 +155,205 @@ def library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared (builds on
     first call; see ``kernels.cuda_build``)."""
     lib = cuda_build.load(SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.flash_attention_fwd_launch.restype = ctypes.c_int
+        i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        ctypes.c_float, i32, ptr]
+    lib.flash_attention_fwd_launch.restype = i32
+    lib.flash_attention_bwd_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+        i32, i32, i32, ctypes.c_float, i32, ptr]
+    lib.flash_attention_bwd_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _check_card(name: str, *ts: torch.Tensor) -> None:
+    """The kernels' operand contract on the card: one CUDA device, one
+    dtype of ``_DTYPE_CODE``, contiguous, a supported head dim, bf16 rows
+    on 16-byte boundaries."""
+    q = ts[0]
+    if not (q.is_cuda and all(t.device == q.device for t in ts)):
+        raise ValueError(f"{name}: operands must be on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{name}: operands must all be float32 or "
+                         f"bfloat16, got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if q.shape[2] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[2]} has no kernel "
+                         f"instance; supported: {SUPPORTED_HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: bf16 operands must start on a 16-byte "
+                         f"boundary (the kernels copy 16-byte rows)")
+
+
+def _raise_on(rc: int, lib, name: str, q: torch.Tensor,
+              k: torch.Tensor) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed for q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}: "
+            f"{lib.flash_attention_error_string(rc).decode()} ({rc})")
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention_fwd: operands must be on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention_fwd: operands must all be float32 "
-                         f"or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: operands must be contiguous")
+            causal: bool, with_lse: bool):
+    _check_card("flash_attention_fwd", q, k, v)
     bh, s, d = q.shape
     bhkv, t, _ = k.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} has no kernel "
-                         f"instance; supported: {SUPPORTED_HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_fwd: bf16 operands must start on "
-                         "a 16-byte boundary (the kernel copies 16-byte "
-                         "rows)")
     out = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), bh, bhkv, s, t, d, d ** -0.5, int(causal), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd launch failed for q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}: "
-            f"{lib.flash_attention_error_string(rc).decode()} ({rc})")
-    return out
+            out.data_ptr(), None if lse is None else lse.data_ptr(), bh,
+            bhkv, s, t, d, d ** -0.5, int(causal), stream)
+    _raise_on(rc, lib, "flash_attention_fwd", q, k)
+    return out, lse
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, return_lse: bool = False):
     """q ``(BH, S, D)``; k, v ``(BHkv, T, D)``; BH % BHkv == 0 ->
-    ``(BH, S, D)`` in q's dtype."""
+    ``(BH, S, D)`` in q's dtype; with ``return_lse`` also each row's
+    log-sum-exp, f32 ``(BH, S)`` (natural log): ``(out, lse)``."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     return_lse=return_lse)
     if q.device.type == "meta":
         out = torch.empty_like(q)
-        meta.record_flash(q, k, v, out, causal)
-        return out
-    out = _launch(q, k, v, causal)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32,
+                          device="meta") if return_lse else None
+        meta.record_flash(q, k, v, out, causal, lse)
+        return (out, lse) if return_lse else out
+    out, lse = _launch(q, k, v, causal, return_lse)
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """The model's ``(B, S, H, D)`` -> the kernels' contiguous
+    ``(B*H, S, D)``."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def _heads_last(x: torch.Tensor, b: int) -> torch.Tensor:
+    """The kernels' ``(B*H, S, D)`` -> a ``(B, S, H, D)`` view."""
+    bh, s, d = x.shape
+    return x.reshape(b, bh // b, s, d).transpose(1, 2)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """Model-layout wrapper: q ``(B, S, H, D)``, k/v ``(B, T, Hkv, D)`` ->
     ``(B, S, H, D)``."""
-    b, s, h, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
-    qf = q.transpose(1, 2).reshape(b * h, s, d).contiguous()
-    kf = k.transpose(1, 2).reshape(b * hkv, t, d).contiguous()
-    vf = v.transpose(1, 2).reshape(b * hkv, t, d).contiguous()
-    of = flash_attention_fwd(qf, kf, vf, causal=causal)
-    return of.reshape(b, h, s, d).transpose(1, 2)
+    of = flash_attention_fwd(*map(_heads_first, (q, k, v)), causal=causal)
+    return _heads_last(of, q.shape[0])
 
 
 # ---------------------------------------------------------------------------
-# Gradients: the reference's chunked attention, recomputed in the backward
+# Gradients: the backward kernels, and the reference's chunked attention
 # ---------------------------------------------------------------------------
+def _check_bwd(q, k, v, out, lse, dout) -> None:
+    _check(q, k, v)
+    bh, s, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            tuple(lse.shape) != (bh, s):
+        raise ValueError(f"flash_attention_bwd takes out and dout shaped as "
+                         f"q {tuple(q.shape)} and lse ({bh}, {s}), got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}")
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernels' function in plain PyTorch, f32 throughout:
+    ``P = exp(scores - lse)`` from the forward's log-sum-exp (masked
+    scores give 0), ``delta = rowsum(dO o O)``, ``dV = P^T dO``, ``dP = dO
+    V^T``, ``dS = P o (dP - delta)``, ``dQ = scale dS K``, ``dK = scale
+    dS^T Q``, dK and dV summed over each kv head's group of q heads; cast
+    to the operands' dtypes.  q, out, dout ``(BH, S, D)``; k, v ``(BHkv,
+    T, D)``; lse f32 ``(BH, S)`` -> (dq, dk, dv)."""
+    _check_bwd(q, k, v, out, lse, dout)
+    bh, s, d = q.shape
+    bhkv = k.shape[0]
+    g = bh // bhkv
+    scale = d ** -0.5
+    p = torch.exp(_scores(q, k, causal)
+                  - lse.float().reshape(bhkv, g, s, 1))
+    do = dout.float().reshape(bhkv, g, s, d)
+    delta = (do * out.float().reshape(bhkv, g, s, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("hgst,hgsd->htd", p, do)
+    ds = p * (torch.einsum("hgsd,htd->hgst", do, v.float()) - delta)
+    dq = torch.einsum("hgst,htd->hgsd", ds, k.float()) * scale
+    dk = torch.einsum("hgst,hgsd->htd", ds,
+                      q.float().reshape(bhkv, g, s, d)) * scale
+    return dq.reshape(bh, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
+    _check_card("flash_attention_bwd", q, k, v, out, dout)
+    if not (lse.device == q.device and lse.dtype == torch.float32
+            and lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 "
+                         f"on {q.device}, got {lse.dtype} on {lse.device}")
+    bh, s, d = q.shape
+    bhkv, t, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bh, bhkv, s, t,
+            d, d ** -0.5, int(causal), stream)
+    _raise_on(rc, lib, "flash_attention_bwd", q, k)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_fwd`` for the cotangent ``dout``,
+    from its operands, its output and its log-sum-exp (``return_lse``):
+    q, out, dout ``(BH, S, D)``; k, v ``(BHkv, T, D)``; lse f32 ``(BH,
+    S)``.  The kernels on a CUDA tensor (or a raise), the plain version on
+    a CPU tensor, empty outputs and the kernels' closed-form cost on
+    ``meta``."""
+    _check_bwd(q, k, v, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal)
+    if q.device.type == "meta":
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        meta.record_flash_bwd((q, k, v, out, lse, dout), grads, causal)
+        return grads
+    grads = _launch_bwd(q, k, v, out, lse, dout, causal)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
+
+
 def _chunks(s: int, t: int, q_chunk: int, kv_chunk: int) -> Tuple[int, int]:
     """The reference's chunk contract: 0 = unchunked, a chunk longer than
     the sequence is cut to it, and the lengths must divide."""
@@ -276,7 +419,8 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
     before the product with V (f32 accumulation), the same ``ValueError``
     on chunks that do not divide the lengths.  Memory is O(q_chunk x
     kv_chunk) per (batch, head) per step.  Not a kernel and not a
-    wrapper's fallback: ``FlashAttention`` differentiates it."""
+    wrapper's fallback, and on no training path: an oracle and the
+    "before" time of the backward kernels (``flash_attention_vjp``)."""
     s, t = q.shape[1], k.shape[1]
     q_chunk, kv_chunk = _chunks(s, t, q_chunk, kv_chunk)
     return torch.cat([_q_block(q[:, i:i + q_chunk], k, v, i, causal,
@@ -284,33 +428,36 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable ``flash_attention_bshd``: the forward is the kernel
-    (the plain version on a CPU tensor); the backward is the VJP of
-    ``flash_attention_chunked`` (the reference's differentiated function)
-    recomputed one query chunk at a time, dK and dV summed over the chunks
-    in f32.  ``FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)``
-    with the model's (B, S, H, D) layout."""
+    """Differentiable ``flash_attention_bshd``: the forward kernel with its
+    log-sum-exp, the backward ``flash_attention_bwd`` (the kernels on the
+    card, the plain version on a CPU tensor).  The forward saves the
+    kernel-layout q, k, v, the output and the log-sum-exp, so the backward
+    transposes only dout.  Under activation checkpointing the forward runs
+    again and its recomputation saves tensors of its own.  The chunks are
+    the reference's contract, checked here; the kernels tile on their own.
+    ``FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)`` with the
+    model's (B, S, H, D) layout."""
 
     backward_calls = 0
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
         _chunks(q.shape[1], k.shape[1], q_chunk, kv_chunk)
-        ctx.save_for_backward(q, k, v)
-        ctx.attrs = (causal, q_chunk, kv_chunk)
-        return flash_attention_bshd(q, k, v, causal=causal)
+        qf, kf, vf = map(_heads_first, (q, k, v))
+        of, lse = flash_attention_fwd(qf, kf, vf, causal=causal,
+                                      return_lse=True)
+        ctx.save_for_backward(qf, kf, vf, of, lse)
+        ctx.causal = causal
+        return _heads_last(of, q.shape[0])
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
+        qf, kf, vf, of, lse = ctx.saved_tensors
         FlashAttention.backward_calls += 1
-
-        def vjp():
-            return flash_attention_vjp(q, k, v, dout, *ctx.attrs)
-
-        grads = meta.repeated((q, k, v, dout), ctx.attrs, vjp) \
-            if q.device.type == "meta" else vjp()
-        return grads + (None, None, None)
+        grads = flash_attention_bwd(qf, kf, vf, of, lse, _heads_first(dout),
+                                    causal=ctx.causal)
+        b = dout.shape[0]
+        return tuple(_heads_last(g, b) for g in grads) + (None, None, None)
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -321,7 +468,8 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dout``: each query chunk recomputed under autograd and
     differentiated on its own (the chunks are independent, as the
     reference's ``lax.map`` over them), dK and dV summed over the chunks
-    in f32 and cast to K's and V's dtypes."""
+    in f32 and cast to K's and V's dtypes.  The reference's differentiated
+    function: an oracle, on no training path."""
     q_chunk, kv_chunk = _chunks(q.shape[1], k.shape[1], q_chunk, kv_chunk)
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)

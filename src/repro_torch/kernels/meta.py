@@ -9,7 +9,12 @@ numbers ``chip_smoke.py``'s kernel rows take their bounds from:
 
   flash attention  ``4 * BH * S * T * D`` FLOPs (two products of 2 FLOPs
                    per multiply-add), halved under ``causal``; bytes q, k,
-                   v read once and the output written once.
+                   v read once and the output (and the log-sum-exp, when
+                   asked for) written once.
+  its backward     ``10 * BH * S * T * D`` FLOPs (the five products S, dP,
+                   dV, dK, dQ, whatever a design recomputes), halved under
+                   ``causal``; bytes q, k, v, o, dO and the log-sum-exp
+                   read once, dq, dk and dv written once.
   causal_conv1d    ``2 * K * B * L * D`` FLOPs; bytes x and w read once,
                    y written once.
 
@@ -17,21 +22,15 @@ The wrappers do not run their plain versions on ``meta``: the plain flash
 attention materializes the ``S x T`` scores, which a kernel keeps on chip,
 and would inflate the bytes and the peak memory of a trace about tenfold.
 
-Who listens: ``recording(recorder)`` installs an object with the methods
-``kernel(name, flops, dtype, nbytes)`` and ``repeat(key, fn)`` for the
-duration of a block.  With no recorder installed a meta call is still
-allowed (the output's shape is all it returns).
-
-``repeated`` marks a call whose work and allocations follow from its
-operands' shapes, strides and dtypes and its options alone:
-``FlashAttention``'s backward, which recomputes the chunked attention in
-PyTorch ops once per layer and microbatch.  The recorder may count the
-first such call as executed and replay its counts for the later ones.
+Who listens: ``recording(recorder)`` installs an object with the method
+``kernel(name, flops, dtype, nbytes)`` for the duration of a block.  With
+no recorder installed a meta call is still allowed (the output's shape is
+all it returns).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Iterator, List
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 
@@ -42,6 +41,13 @@ def flash_flops(bh: int, s: int, t: int, d: int, causal: bool) -> int:
     """FLOPs of one flash-attention forward over q ``(bh, s, d)`` and k/v
     ``(bhkv, t, d)`` (every query head counted)."""
     flops = 4 * bh * s * t * d
+    return flops // 2 if causal else flops
+
+
+def flash_bwd_flops(bh: int, s: int, t: int, d: int, causal: bool) -> int:
+    """FLOPs of one flash-attention backward over q ``(bh, s, d)`` and k/v
+    ``(bhkv, t, d)``: five products of ``2 * bh * s * t * d``."""
+    flops = 10 * bh * s * t * d
     return flops // 2 if causal else flops
 
 
@@ -62,10 +68,22 @@ def record(name: str, flops: int, dtype: torch.dtype, nbytes: int) -> None:
 
 
 def record_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 out: torch.Tensor, causal: bool) -> None:
+                 out: torch.Tensor, causal: bool,
+                 lse: Optional[torch.Tensor] = None) -> None:
     bh, s, d = q.shape
+    written = (out,) if lse is None else (out, lse)
     record("flash_attention_fwd", flash_flops(bh, s, k.shape[1], d, causal),
-           q.dtype, _nbytes(q, k, v, out))
+           q.dtype, _nbytes(q, k, v, *written))
+
+
+def record_flash_bwd(inputs: Sequence[torch.Tensor],
+                     grads: Sequence[torch.Tensor], causal: bool) -> None:
+    """``inputs`` (q, k, v, out, lse, dout), ``grads`` (dq, dk, dv)."""
+    q, k = inputs[0], inputs[1]
+    bh, s, d = q.shape
+    record("flash_attention_bwd",
+           flash_bwd_flops(bh, s, k.shape[1], d, causal), q.dtype,
+           _nbytes(*inputs, *grads))
 
 
 def record_causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -73,17 +91,6 @@ def record_causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     b, length, c = x.shape
     record("causal_conv1d", causal_conv1d_flops(b, length, c, w.shape[0]),
            x.dtype, _nbytes(x, w, y))
-
-
-def repeated(tensors, options: tuple, fn: Callable[[], Any]) -> Any:
-    """``fn()`` on meta ``tensors``, its work fixed by their shapes,
-    strides and dtypes and ``options``: the installed recorder may replay
-    an earlier call's counts (see the module docstring)."""
-    if not _RECORDERS:
-        return fn()
-    key = tuple((tuple(t.shape), t.stride(), t.dtype) for t in tensors) \
-        + tuple(options)
-    return _RECORDERS[-1].repeat(key, fn)
 
 
 @contextlib.contextmanager

@@ -32,11 +32,9 @@ included) and records:
 
 The LM kernels are not ATen ops: on ``meta`` their wrappers return an
 empty output and report their closed-form FLOPs and bytes
-(``kernels/meta.py``), which the counter adds.  ``FlashAttention``'s
-backward recomputes the chunked attention in ATen ops and is counted as
-executed: it runs once per shape, and its later calls (one per layer and
-microbatch) replay the first's counts and rise of the peak
-(``CostCounter.repeat``), which gives the trace that running each gives.  The counter leaves out what a trace cannot see: the caching
+(``kernels/meta.py``), which the counter adds; that includes
+``FlashAttention``'s backward (``flash_attention_bwd``), once per layer
+and microbatch.  The counter leaves out what a trace cannot see: the caching
 allocator's rounding, kernels' workspaces, and anything computed on the
 host.  On one device there are no collectives.
 
@@ -85,8 +83,7 @@ from concurrent.futures import ProcessPoolExecutor
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
-from torch.utils._python_dispatch import (TorchDispatchMode,
-                                          _disable_current_modes)
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
@@ -139,7 +136,6 @@ class CostCounter(TorchDispatchMode):
             lambda: [0, 0, 0])               # name -> [calls, flops, bytes]
         self._live: Dict[int, int] = {}
         self._arguments: set = set()
-        self._repeats: Dict[tuple, tuple] = {}
 
     # -- storages ----------------------------------------------------------
     def _track(self, t: torch.Tensor) -> None:
@@ -190,42 +186,6 @@ class CostCounter(TorchDispatchMode):
         rec[0] += 1
         rec[1] += flops
         rec[2] += nbytes
-
-    def repeat(self, key: tuple, fn) -> Any:
-        """``fn()`` (``kernels.meta.repeated``), counted as executed once
-        per ``key``.  A later call adds the first's FLOPs, bytes and
-        per-op counts, raises the peak to its live bytes plus what the
-        first rose above its own, and returns empty meta outputs of the
-        first's shapes, tracked live as the first's were."""
-        if key in self._repeats:
-            flops, nbytes, ops, rise, shapes = self._repeats[key]
-            for k, v in flops.items():
-                self.flops[k] += v
-            self.bytes_accessed += nbytes
-            for k, v in ops.items():
-                self.by_op[k] = [a + b for a, b in zip(self.by_op[k], v)]
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes + rise)
-            with _disable_current_modes():
-                out = tuple(torch.empty_strided(shape, stride, dtype=dt,
-                                                device="meta")
-                            for shape, stride, dt in shapes)
-            for t in out:
-                self._track(t)
-            return out
-        flops0, bytes0 = dict(self.flops), self.bytes_accessed
-        ops0 = {k: list(v) for k, v in self.by_op.items()}
-        entry, peak0 = self.live_bytes, self.peak_bytes
-        self.peak_bytes = entry
-        out = fn()
-        rise = self.peak_bytes - entry
-        self.peak_bytes = max(peak0, self.peak_bytes)
-        self._repeats[key] = (
-            {k: v - flops0.get(k, 0) for k, v in self.flops.items()},
-            self.bytes_accessed - bytes0,
-            {k: [a - b for a, b in zip(v, ops0.get(k, (0, 0, 0)))]
-             for k, v in self.by_op.items()},
-            rise, [(t.shape, t.stride(), t.dtype) for t in out])
-        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

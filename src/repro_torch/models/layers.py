@@ -10,8 +10,9 @@ points.  Differences from the reference:
     (``kernels.flash_attention``): forward the CUDA kernel on a card
     tensor, its plain version on a CPU one — one function on both
     devices, with the softmax weights kept in f32 (the reference's chunked
-    JAX version rounds them to V's dtype, ``layers.py:219``); backward the
-    gradient of the reference's chunked function, recomputed;
+    JAX version rounds them to V's dtype, ``layers.py:219``); backward
+    ``flash_attention_bwd`` (the backward kernels on a card tensor, their
+    plain version on a CPU one) from the forward's log-sum-exp;
   * ``attention_decode`` writes the new K and V into the cache in place
     (the reference returns updated copies) and returns the same tensors;
   * ``trunc_normal`` draws from a ``torch.Generator``: seeded weights
@@ -213,13 +214,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention through ``FlashAttention``: the flash
-    kernel forward, the reference's chunked attention differentiated
-    backward.
+    kernels forward and backward.
 
     Keeps the reference's chunk contract: ``S`` must be a multiple of
     ``min(q_chunk, S)`` and ``T`` of ``min(kv_chunk, T)`` (0 = unchunked),
-    else ``ValueError`` — the kernel itself tiles and masks on its own;
-    the chunks size the backward's recomputation.
+    else ``ValueError`` — the kernels tile and mask on their own.
     q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D)
     """
     return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)

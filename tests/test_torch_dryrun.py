@@ -30,7 +30,7 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_host_mesh, make_mesh_for, \
     make_production_mesh
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import init_params, layer_counts
 from repro_torch.train import step as S
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -230,36 +230,40 @@ def test_cost_is_affine_in_depth(arch):
     np.testing.assert_array_equal(c4, c1 + (c2 - c1) * 3)
 
 
-# (arch, seq, q_chunk, kv_chunk); at 512 the dense step's peak falls
-# inside the backward's recomputed chunks
+# (arch, seq, q_chunk, kv_chunk): at 512 the dense step's peak fell inside
+# the recomputing backward's chunks before the backward kernels
 @pytest.mark.parametrize("arch,seq,q_chunk,kv_chunk",
-                         [("qwen3-14b", 512, 256, 512),
+                         [("qwen2.5-3b", 512, 256, 512),
                           ("zamba2-7b", 64, 16, 32)])
-def test_repeated_backward_is_counted_as_executed(arch, seq, q_chunk,
-                                                  kv_chunk, monkeypatch):
-    """``FlashAttention``'s backward replayed from its first call per
-    shape gives the trace it gives executed every time, peak included."""
+def test_train_trace_records_the_backward_kernels(arch, seq, q_chunk,
+                                                  kv_chunk):
+    """``FlashAttention``'s backward is ``flash_attention_bwd`` on meta: a
+    train step's trace records it once per attention block and microbatch
+    at ``meta.flash_bwd_flops`` and its closed-form bytes, and neither the
+    counts nor the predicted peak depend on the reference's chunks any more
+    (only the recomputed chunked attention read them)."""
+    n_mb = 2
     cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=3,
                               q_chunk=q_chunk, kv_chunk=kv_chunk)
 
-    def trace():
-        return S.trace_train_step(cfg, "train_4k", MESH,
-                                  S.StepPlan(n_microbatches=2),
+    def trace(c):
+        return S.trace_train_step(c, "train_4k", MESH,
+                                  S.StepPlan(n_microbatches=n_mb),
                                   batch_override=2, seq_override=seq)
 
-    replays = []
-    repeat = dryrun.CostCounter.repeat
-
-    def spy(self, key, fn):
-        replays.append(key in self._repeats)
-        return repeat(self, key, fn)
-
-    monkeypatch.setattr(dryrun.CostCounter, "repeat", spy)
-    replayed = trace()
-    assert sum(replays) >= 1 and not all(replays)
-    monkeypatch.setattr(dryrun.CostCounter, "repeat",
-                        lambda self, key, fn: fn())
-    assert trace() == replayed
+    tr = trace(cfg)
+    blocks = cfg.n_layers if cfg.family != "hybrid" else \
+        layer_counts(cfg)[0]
+    calls = blocks * n_mb
+    bh, bhkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head  # a batch of 1
+    elt = 4                                                 # f32
+    nbytes = elt * (4 * bh * seq * d + 4 * bhkv * seq * d) + 4 * bh * seq
+    assert tr.by_op["kernel:flash_attention_bwd"] == [
+        calls, calls * meta.flash_bwd_flops(bh, seq, seq, d, True),
+        calls * nbytes]
+    assert tr.by_op["kernel:flash_attention_fwd"][0] == calls
+    assert tr.peak_bytes > tr.argument_bytes
+    assert trace(dataclasses.replace(cfg, q_chunk=0, kv_chunk=0)) == tr
 
 
 def test_argument_bytes_are_the_real_state():

@@ -10,7 +10,7 @@
 * Per-layer activation checkpointing (``remat_policy="nothing_saveable"``)
   gives the gradients of the uncheckpointed model.
 * The two kernels' autograd Functions: ``FlashAttention``'s backward (the
-  reference's chunked attention recomputed) against autograd of the
+  backward kernels' plain version on the CPU) against autograd of the
   kernel's plain version and against ``jax.vjp`` of the reference's
   ``layers.flash_attention``; ``CausalConv1d``'s against autograd of its
   plain version and ``jax.vjp`` of ``kernels.ref.causal_conv1d_ref``; both
