@@ -70,8 +70,9 @@ Phases, each of which raises (non-zero exit) on failure:
                printed, against the plain version split alike), then its
                device time beside the plan's, the bound and the PyTorch
                call for the same function (``F.conv2d``,
-               ``conv2d_input``, ``conv2d_weight``); ``mg3m_segsum`` at
-               its longest second pass, bitwise its plain version, beside
+               ``conv2d_input``, ``conv2d_weight``); ``mg3m_segsum`` on
+               every split wgrad plan's partials (S = 98 down to 2),
+               bitwise its plain version in f32 and bf16, beside
                ``torch.sum`` and its bound; the `oc:4` L0 wgrad shard
                beside the whole scene, unsplit and split; and the small-CNN
                launcher ``python -m repro_torch.launch.train_cnn
@@ -106,7 +107,12 @@ Phases, each of which raises (non-zero exit) on failure:
                (q (32, 2048, 128), k/v (4, 2048, 128), causal), f32 and
                bf16, each held against its
                plain version: f32 within 1e-4 (conv) / 2e-4 (attention),
-               bf16 within 2e-2.  Flash's backward kernels
+               bf16 within 2e-2.  causal_conv1d's backward kernels
+               (``causal_conv1d_bwd``) on the conv shapes, f32 and bf16,
+               run twice and bitwise equal, bitwise
+               ``causal_conv1d_bwd_plain``, and within 2e-4 / 2e-2 of max
+               |g| of ``F.conv1d``'s autograd gradients (TF32 off).
+               Flash's backward kernels
                (``flash_attention_bwd``) on ``FLASH_BWD_SHAPES`` (D = 112,
                a group of 8, a ragged S; causal and not), f32 and bf16,
                against ``flash_attention_bwd_plain`` within 2e-4 / 2e-2 of
@@ -204,15 +210,16 @@ Phases, each of which raises (non-zero exit) on failure:
                the same way with the counts set to 0: a gradient-only step
                (every gradient finite and nonzero) and one update step;
                causal_conv1d must launch 2 x 6 times per microbatch and
-               its backward run 6 times; flash's backward kernels once
-               per ``FlashAttention`` backward.
+               its backward run 6 times, launching its backward kernels
+               once each; flash's backward kernels once per
+               ``FlashAttention`` backward.
  14. LM gradient oracle  reduced qwen2.5-3b, zamba2-7b and rwkv6-3b (f32):
                one train step (2 microbatches of 1 x 64 tokens) on the
                card and on the CPU from the same weights; gradients within
                1e-4 of max |g| per leaf, parameters after the update
                within 1e-4 where the gradient's sign is fixed (within
                2 lr elsewhere); both kernels' backward must have run on
-               the card, flash's through its kernels once per backward.
+               the card, each through its kernels once per backward.
                Then the training path's kernel rows: flash at the
                training shape (launches from phase 13), the backward
                kernels' row ``flash_attention_bwd_train_path`` at the same
@@ -220,11 +227,15 @@ Phases, each of which raises (non-zero exit) on failure:
                library, by graph replay and held to the plain version,
                ``flash_attention_vjp``'s recomputation as
                ``recompute_ms``, phase 13's launches, the backward
-               kernels' HGMMA/HMMA counts), and causal_conv1d at
-               zamba2-7b's training shape (x [1, 4096, 7296] bf16;
-               launches from phase 13's zamba2-7b steps) with its
-               backward's time and bound beside ``F.conv1d``'s
-               backward.
+               kernels' HGMMA/HMMA counts), causal_conv1d at zamba2-7b's
+               training shape (x [1, 4096, 7296] bf16; launches from
+               phase 13's zamba2-7b steps), and its backward kernels' row
+               ``causal_conv1d_bwd_train_path``: held as in phase 8 at
+               that shape and at a TP shard's [2, 2048, 1920] in f32 and
+               bf16, then device ms (both passes), plain, bound,
+               ``F.conv1d``'s backward by graph replay (its forward and
+               backward less its forward), the TP shard's ms, and phase
+               13's launches.
  15. analyze  ``repro_torch.launch.analyze`` on the card over the six
                paper CNNs' uncapped fprop/dgrad/wgrad scenes (every
                feasible (schedule, blocking, tile) point verified
@@ -1313,27 +1324,48 @@ def train_kernel_phase(torch, run):
 
 
 def segsum_row(torch, run, second):
-    """The ``mg3m_segsum`` row: the second pass of the step's split wgrad
-    plans at its longest (device ms from ``train_kernel_phase``), its
-    partials summed by the kernel and by ``segment_sum_plain`` (bitwise
-    equal: both add s = 0, 1, ... in order), the bound (every partial
-    read once, the output written once) and ``torch.sum`` over the
-    segments, which computes the same function in an order of its own."""
+    """The ``mg3m_segsum`` row: the second pass of each of the step's split
+    wgrad plans (device ms on the plan's workspace, from
+    ``train_kernel_phase``), on seeded partials of its shape summed by the
+    kernel and by ``segment_sum_plain`` in f32 and bf16 (bitwise equal:
+    both add s = 0, 1, ... in order), then the kernel and ``torch.sum``
+    over the segments (which computes the same function in an order of its
+    own) timed in turns on those partials (device time, the mean of two
+    each), beside the bound (every partial read once, the output written
+    once).  The row's numbers are the longest pass's; ``splits`` lists
+    every (layer, S, outputs)."""
     from repro_torch.kernels import mg3m_conv as K
     from repro_torch.launch import roofline as R
 
-    s_ms, name, plan, parts = max(second, key=lambda t: t[0])
-    parts = torch.randn(parts.shape, generator=torch.Generator()
-                        .manual_seed(24)).cuda()
-    err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        got = K.segment_sum(parts, dtype)
-        want = K.segment_sum_plain(parts, dtype)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"mg3m_segsum {dtype} is not bitwise its plain version on "
-                f"{tuple(parts.shape)}: max abs err "
-                f"{(got.float() - want.float()).abs().max().item():.3e}")
+    gen = torch.Generator().manual_seed(24)
+    splits = []
+    for s_ms, name, plan, parts in second:
+        parts = torch.randn(parts.shape, generator=gen).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            got = K.segment_sum(parts, dtype)
+            want = K.segment_sum_plain(parts, dtype)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"mg3m_segsum {dtype} is not bitwise its plain version "
+                    f"on {tuple(parts.shape)}: max abs err "
+                    f"{(got.float() - want.float()).abs().max().item():.3e}")
+        n = parts[0].numel()
+        nbytes = 4 * (parts.numel() + n)
+        turns = {"kernel": [], "torch.sum": []}
+        for _ in range(2):
+            turns["kernel"].append(device_ms(
+                torch, lambda: K.segment_sum(parts, torch.float32)))
+            turns["torch.sum"].append(device_ms(
+                torch, lambda: parts.sum(dim=0)))
+        splits.append({
+            "layer": name, "segments": plan.segments, "outputs": n,
+            "ms": s_ms, "ms_beside_torch_sum": sum(turns["kernel"]) / 2,
+            "torch_sum_ms": sum(turns["torch.sum"]) / 2,
+            "bound_ms": nbytes / R.HBM_BW * 1e3,
+            "lib_err": (parts.sum(dim=0) - got).abs().max().item()})
+        del parts, got, want
+    t = max(splits, key=lambda t: t["ms"])
+    parts = torch.randn((t["segments"], t["outputs"]), generator=gen).cuda()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1341,29 +1373,34 @@ def segsum_row(torch, run, second):
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    lib_ms = device_ms(torch, lambda: parts.sum(dim=0))
-    lib_err = (parts.sum(dim=0) - got).abs().max().item()
-    n = parts[0].numel()
-    nbytes = 4 * (parts.numel() + n)
-    print(f"  mg3m_segsum: longest second pass {name} wgrad S="
-          f"{plan.segments} over {n} outputs {s_ms:.4f} ms (device), "
-          f"bitwise its plain version in f32 and bf16, plain {plain_ms:.3f} "
-          f"ms, torch.sum over the segments {lib_ms:.4f} ms (max abs diff "
-          f"{lib_err:.2e}), bound {nbytes / R.HBM_BW * 1e3:.4f} ms (bytes); "
-          f"{run['segsum']} launches in the train path")
+    del parts
+    for x in splits:
+        print(f"  mg3m_segsum: {x['layer']} wgrad S={x['segments']} over "
+              f"{x['outputs']} outputs {x['ms']:.4f} ms on the plan's "
+              f"workspace; on the same partials in turns "
+              f"{x['ms_beside_torch_sum']:.4f} ms, torch.sum over the "
+              f"segments {x['torch_sum_ms']:.4f} ms (device; max abs diff "
+              f"{x['lib_err']:.2e}); bound {x['bound_ms']:.4f} ms (bytes)")
+    print(f"  mg3m_segsum: bitwise its plain version in f32 and bf16 on "
+          f"every split; the longest pass {t['layer']}'s plain version "
+          f"{plain_ms:.3f} ms; {run['segsum']} launches in the train path")
+    nbytes = 4 * (t["segments"] + 1) * t["outputs"]
     return {"name": "mg3m_segsum", "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": "src/repro/kernels/mg3m_conv.py:333",
             "note": "no TPU kernel of its own: it does what _tb88_kernel's "
                     "acc_ref carried across the reduction's sequential "
                     "grid steps, for a split wgrad reduction",
-            "launches": run["segsum"], "max_abs_err": err, "ms": s_ms,
-            "plain_ms": plain_ms, "bound_ms": nbytes / R.HBM_BW * 1e3,
-            "bound_by": "bytes", "library_ms": lib_ms,
+            "launches": run["segsum"], "max_abs_err": 0.0, "ms": t["ms"],
+            "plain_ms": plain_ms, "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["torch_sum_ms"],
             "library": "torch.sum",
-            "shape": f"{name} wgrad's partials [{plan.segments}, {n}] f32 "
-                     f"(the longest second pass of the step)",
-            "gflop": (plan.segments - 1) * n / 1e9,
+            "shape": f"{t['layer']} wgrad's partials [{t['segments']}, "
+                     f"{t['outputs']}] f32 (the longest second pass of the "
+                     f"step)",
+            "splits": [{k: v for k, v in x.items() if k != "lib_err"}
+                       for x in splits],
+            "gflop": (t["segments"] - 1) * t["outputs"] / 1e9,
             "mbytes": nbytes / 1e6}
 
 
@@ -1714,14 +1751,19 @@ LM_KERNELS = {
                             "src/repro/kernels/flash_attention.py:75"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:75"),
+    "causal_conv1d_bwd": ("src/repro_torch/csrc/causal_conv1d.cu",
+                          "src/repro/kernels/causal_conv1d.py:38"),
 }
-# the backward's tolerances are of max |g| per gradient
+# the backward's tolerances are of max |g| per gradient (causal_conv1d's
+# against F.conv1d's autograd, TF32 off; its plain version is bitwise)
 LM_TOL = {("causal_conv1d", "float32"): 1e-4,
           ("flash_attention_fwd", "float32"): 2e-4,
           ("flash_attention_bwd", "float32"): 2e-4,
+          ("causal_conv1d_bwd", "float32"): 2e-4,
           ("causal_conv1d", "bfloat16"): 2e-2,
           ("flash_attention_fwd", "bfloat16"): 2e-2,
-          ("flash_attention_bwd", "bfloat16"): 2e-2}
+          ("flash_attention_bwd", "bfloat16"): 2e-2,
+          ("causal_conv1d_bwd", "bfloat16"): 2e-2}
 # (B, L, D, K): tests/test_kernels.py:88-90
 CONV1D_SHAPES = [(2, 32, 16, 4), (1, 7, 5, 3), (3, 100, 64, 4),
                  (2, 16, 16, 2), (1, 64, 128, 4)]
@@ -1834,10 +1876,51 @@ def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
         q, k, v, out, lse, dout, causal=causal), errs, what, key)
 
 
+def conv1d_bwd_check(torch, x, w, dy, dtype, errs, what, key):
+    """causal_conv1d's backward kernels on (x, w, dy), run twice: bitwise
+    equal, bitwise ``causal_conv1d_bwd_plain``, and within ``LM_TOL`` of
+    max |g| of ``F.conv1d``'s autograd gradients of the same function in
+    f32 (TF32 off), the worst ratio kept under ``(key, dtype)``."""
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d_bwd,
+                                                   causal_conv1d_bwd_plain)
+
+    F = torch.nn.functional
+    got = causal_conv1d_bwd(x, w, dy)
+    again = causal_conv1d_bwd(x, w, dy)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"causal_conv1d_bwd {dtype} is not bitwise "
+                             f"from run to run on {what}")
+    want = causal_conv1d_bwd_plain(x, w, dy)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want))
+        raise AssertionError(f"causal_conv1d_bwd {dtype} is not bitwise its "
+                             f"plain version on {what} (max abs diff "
+                             f"{diff:.3e})")
+    kw, length, c = w.shape[0], x.shape[1], x.shape[2]
+    leaves = [x.float().transpose(1, 2).contiguous().requires_grad_(True),
+              w.float().t().contiguous()[:, None, :].requires_grad_(True)]
+    with torch.enable_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                         allow_tf32=False):
+        y = F.conv1d(*leaves, padding=kw - 1, groups=c)[..., :length]
+        gx, gw = torch.autograd.grad(y, leaves,
+                                     dy.float().transpose(1, 2))
+    tol = LM_TOL[("causal_conv1d_bwd", dtype)]
+    for name, g, o in (("x", got[0], gx.transpose(1, 2)),
+                       ("w", got[1], gw[:, 0].t())):
+        rel = ((g.float() - o).abs().max() / o.abs().max()).item()
+        if not rel <= tol:
+            raise AssertionError(f"causal_conv1d_bwd {dtype} d{name}: {rel} "
+                                 f"of max |g| from F.conv1d's (tol {tol}) "
+                                 f"on {what}")
+        errs[(key, dtype)] = max(errs.get((key, dtype), 0.0), rel)
+
+
 def lm_kernel_phase(torch):
     """causal_conv1d and flash attention on the reference's test shapes and
     the LM path's, f32 and bf16, each launch held against the plain
-    version on the same operands; flash's backward kernels on
+    version on the same operands; causal_conv1d's backward kernels on the
+    reference's shapes (``conv1d_bwd_check``) and flash's on
     ``FLASH_BWD_SHAPES``.  Returns max abs errors (of max |g| for the
     backward)."""
     from repro_torch.configs.registry import get_config
@@ -1865,6 +1948,11 @@ def lm_kernel_phase(torch):
             _hold(torch, "causal_conv1d", dtype, causal_conv1d(x, w),
                   causal_conv1d_plain(x, w), errs, f"x {(b, l, d)} K={k}")
             checks += 1
+        for b, l, d, k in CONV1D_SHAPES:
+            conv1d_bwd_check(torch, rand(b, l, d), rand(k, d), rand(b, l, d),
+                             dtype, errs, f"x {(b, l, d)} K={k}",
+                             "causal_conv1d_bwd")
+            checks += 2
         for b, s, t, hq, hkv, d in flash_shapes:
             q, k, v = rand(b * hq, s, d), rand(b * hkv, t, d), \
                 rand(b * hkv, t, d)
@@ -1899,19 +1987,23 @@ def lm_kernel_phase(torch):
 
 
 def _lm_counts():
-    from repro_torch.kernels.causal_conv1d import causal_conv1d
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_bwd)
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     return {"causal_conv1d": causal_conv1d.launches,
+            "causal_conv1d_bwd": causal_conv1d_bwd.launches,
             "flash_attention_fwd": flash_attention_fwd.launches,
             "flash_attention_bwd": flash_attention_bwd.launches}
 
 
 def _reset_lm_counts():
-    from repro_torch.kernels.causal_conv1d import causal_conv1d
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_bwd)
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     causal_conv1d.launches = 0
+    causal_conv1d_bwd.launches = 0
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
 
@@ -3010,8 +3102,8 @@ def hybrid_train_step(torch) -> dict:
     gradient-only step (every gradient finite and nonzero) and one update
     step, whose loss must be finite; causal_conv1d must launch twice per
     Mamba2 layer per microbatch (forward and recomputation) and its
-    backward run once; flash's backward kernels must launch once per
-    ``FlashAttention`` backward.  Returns the counts, the update step's ms
+    backward run once, launching its backward kernels once; flash's
+    backward kernels must launch once per ``FlashAttention`` backward.  Returns the counts, the update step's ms
     and the peak memory; the model is dropped."""
     import dataclasses
 
@@ -3075,12 +3167,14 @@ def hybrid_train_step(torch) -> dict:
         raise AssertionError(f"{cfg.name} (one group): loss {loss}")
     per_step = cfg.n_layers * LM_TRAIN_N_MB
     if counts["causal_conv1d"] != 2 * 2 * per_step or \
-            conv_bwd != 2 * per_step:
+            conv_bwd != 2 * per_step or \
+            counts["causal_conv1d_bwd"] != conv_bwd:
         raise AssertionError(f"{cfg.name} (one group): causal_conv1d "
-                             f"launched {counts['causal_conv1d']} times and "
-                             f"its backward ran {conv_bwd} times in 2 steps; "
-                             f"expected {2 * per_step} and {per_step} per "
-                             f"step")
+                             f"launched {counts['causal_conv1d']} times, its "
+                             f"backward ran {conv_bwd} times and launched "
+                             f"its kernels {counts['causal_conv1d_bwd']} "
+                             f"times in 2 steps; expected {2 * per_step}, "
+                             f"{per_step} and {per_step} per step")
     if not flash_bwd or counts["flash_attention_bwd"] != flash_bwd:
         raise AssertionError(f"{cfg.name} (one group): FlashAttention's "
                              f"backward ran {flash_bwd} times and launched "
@@ -3090,8 +3184,9 @@ def hybrid_train_step(torch) -> dict:
           f"nonzero; loss {loss:.4f}; update step {ms:.1f} ms (CUDA events, "
           f"one step), {LM_TRAIN_BATCH * LM_TRAIN_SEQ / (ms / 1e3):.0f} "
           f"tokens/s; peak memory {peak_gb:.1f} GB; causal_conv1d launched "
-          f"{counts['causal_conv1d']} times, its backward {conv_bwd} times, "
-          f"flash {counts['flash_attention_fwd']} times and its backward "
+          f"{counts['causal_conv1d']} times, its backward {conv_bwd} times "
+          f"(its kernels {counts['causal_conv1d_bwd']} times), flash "
+          f"{counts['flash_attention_fwd']} times and its backward "
           f"kernels {counts['flash_attention_bwd']} times in 2 steps")
     return {"counts": counts, "conv_bwd": conv_bwd, "step_ms": ms,
             "peak_gb": peak_gb}
@@ -3141,8 +3236,8 @@ def lm_grad_oracle(torch) -> None:
     gradient exceeds 1e-4 of the leaf's max |g| (its sign fixed), and
     within 2 lr elsewhere (Adam's first step moves each element by about
     lr * sign(g)).  The card's ``FlashAttention`` and ``CausalConv1d``
-    backward must each have run, ``FlashAttention``'s launching the
-    backward kernels once per call."""
+    backward must each have run, each launching its backward kernels once
+    per call."""
     import copy
 
     from repro_torch.configs.registry import get_config, reduced
@@ -3152,7 +3247,8 @@ def lm_grad_oracle(torch) -> None:
 
     t0 = time.perf_counter()
     out = {"flash_bwd": 0, "conv_bwd": 0, "causal_conv1d": 0,
-           "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+           "causal_conv1d_bwd": 0, "flash_attention_fwd": 0,
+           "flash_attention_bwd": 0}
     worst = {}
     for arch in ORACLE_ARCHS:
         cfg = reduced(get_config(arch))
@@ -3199,17 +3295,19 @@ def lm_grad_oracle(torch) -> None:
             g_err, p_err = max(g_err, err), max(p_err, e_firm)
         worst[arch] = (g_err, p_err)
     if not (out["flash_bwd"] and out["conv_bwd"]) or \
-            out["flash_attention_bwd"] != out["flash_bwd"]:
+            out["flash_attention_bwd"] != out["flash_bwd"] or \
+            out["causal_conv1d_bwd"] != out["conv_bwd"]:
         raise AssertionError(f"a kernel's backward never ran on the card, "
-                             f"or flash's did not launch its kernels once "
-                             f"per call: {out}")
+                             f"or did not launch its kernels once per "
+                             f"call: {out}")
     print(f"LM gradient oracle (card vs CPU, f32, reduced configs): worst "
           f"gradient / updated-parameter error "
           f"{ {a: f'{g:.2e} / {p:.2e}' for a, (g, p) in worst.items()} } "
           f"(tol {LM_GRAD_TOL}); on the card FlashAttention backward ran "
           f"{out['flash_bwd']} times (its kernels "
           f"{out['flash_attention_bwd']} times), CausalConv1d backward "
-          f"{out['conv_bwd']} times; forward launches "
+          f"{out['conv_bwd']} times (its kernels "
+          f"{out['causal_conv1d_bwd']} times); forward launches "
           f"{ {k: out[k] for k in ('causal_conv1d', 'flash_attention_fwd')} }; "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -3220,11 +3318,10 @@ def lm_train_rows(torch, train, hybrid, errs):
     train phase, beside SDPA (a yardstick); the backward kernels' row at
     the same shape (``flash_bwd_row``); and causal_conv1d at the hybrid's
     training shape (zamba2-7b, x [1, 4096, 7296] bf16), its launches those
-    of ``hybrid_train_step``'s two steps, beside its backward's time and
-    bound and ``F.conv1d``'s backward."""
+    of ``hybrid_train_step``'s two steps, and its backward kernels' row
+    (``conv1d_bwd_row``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.causal_conv1d import (causal_conv1d,
-                                                   causal_conv1d_grads,
                                                    causal_conv1d_plain)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
@@ -3287,25 +3384,10 @@ def lm_train_rows(torch, train, hybrid, errs):
     p_ms = time_ms(torch, lambda: causal_conv1d_plain(x, w))
     lib_ms = device_ms(torch, lambda: F.conv1d(xt, wt, padding=kw - 1,
                                                groups=c))
-    bwd_ms = time_ms(torch, lambda: causal_conv1d_grads(x, w, dy))
-    # F.conv1d's backward, the same function's gradients (CUDA events: the
-    # autograd engine does not run under graph capture)
-    leaves = [t.detach().requires_grad_(True) for t in (xt, wt)]
-    with torch.enable_grad():
-        ref = F.conv1d(*leaves, padding=kw - 1, groups=c)[..., :LM_TRAIN_SEQ]
-    dyt = dy.transpose(1, 2).contiguous()
-    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        ref, leaves, dyt, retain_graph=True))
-    del leaves, ref, dyt
     flops = causal_conv1d_flops(1, LM_TRAIN_SEQ, c, kw)
     nbytes = (x.numel() + w.numel() + got.numel()) * 2
     ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
         nbytes / R.HBM_BW * 1e3
-    # the backward: two products (dx, dw) of the forward's size; x, w, dy
-    # read once, dx, dw written once
-    bwd_bound = max(2 * flops / R.PEAK_FLOPS_BF16,
-                    (2 * x.numel() + 2 * w.numel() + dy.numel()) * 2
-                    / R.HBM_BW) * 1e3
     source, replaces = LM_KERNELS["causal_conv1d"]
     rows.append({
         "name": "causal_conv1d_train_path", "route": "cuda",
@@ -3315,17 +3397,110 @@ def lm_train_rows(torch, train, hybrid, errs):
         "max_abs_err_bf16": errs[("causal_conv1d", "bfloat16")],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": lib_ms, "backward_ms": bwd_ms,
-        "backward_bound_ms": bwd_bound, "library_backward_ms": lib_bwd_ms,
+        "library_ms": lib_ms,
         "shape": f"x [1, {LM_TRAIN_SEQ}, {c}] bf16, K={kw} ({LM_ARCH} train "
                  f"microbatch; launches from its one-group train steps)",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
     print(f"  causal_conv1d_train_path at x [1, {LM_TRAIN_SEQ}, {c}] bf16: "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, F.conv1d "
-          f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms; backward "
-          f"(torch ops) {bwd_ms:.3f} ms, bound {bwd_bound:.4f} ms, F.conv1d's "
-          f"backward {lib_bwd_ms:.3f} ms (CUDA events)")
+          f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms")
+    del x, w, dy, got, xt, wt
+    rows.append(conv1d_bwd_row(torch, hybrid, errs))
     return rows
+
+
+# a Mamba2 TP shard's conv channels at zamba2-7b's prefill (row 4c's shape)
+CONV1D_TP_SHARD = (2, 2048, 1920)
+
+
+def conv1d_bwd_row(torch, hybrid, errs):
+    """The ``causal_conv1d_bwd_train_path`` row: the backward kernels held
+    by ``conv1d_bwd_check`` (bitwise their plain version and from run to
+    run; ``F.conv1d``'s gradients within ``LM_TOL`` of max |g|) in f32 and
+    bf16 at zamba2-7b's training shape (x [1, 4096, 7296]) and at a TP
+    shard's ``CONV1D_TP_SHARD``; then in bf16 at the training shape their
+    device time (CUDA-graph replay, both passes), the plain version's (CUDA
+    events), ``F.conv1d``'s backward in device time (its forward and
+    ``torch.autograd.grad`` captured in one graph, less its forward alone)
+    and the bound (``meta``'s closed form: 2 x the forward's FLOPs at 989
+    TFLOP/s; x, w, dy read and dx, dw written once at 3.35 TB/s; the f32
+    partials apart); the TP shard's device time beside; launches those of
+    ``hybrid_train_step``'s two steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.causal_conv1d import (bwd_segments,
+                                                   causal_conv1d_bwd,
+                                                   causal_conv1d_bwd_plain)
+    from repro_torch.kernels.meta import causal_conv1d_flops
+    from repro_torch.launch import roofline as R
+
+    F = torch.nn.functional
+    (_, _, c), kw, _, _ = lm_shapes(get_config(LM_ARCH))
+    train = (1, LM_TRAIN_SEQ, c)
+    gen = torch.Generator().manual_seed(27)
+    ops = {}
+    for shape in (train, CONV1D_TP_SHARD):
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            x = torch.randn(shape, generator=gen).to("cuda", tdt)
+            w = (torch.randn((kw, shape[2]), generator=gen) * 0.2).to("cuda",
+                                                                      tdt)
+            dy = torch.randn(shape, generator=gen).to("cuda", tdt)
+            conv1d_bwd_check(torch, x, w, dy, dtype, errs, f"x {shape}",
+                             "causal_conv1d_bwd")
+            ops[(shape, dtype)] = (x, w, dy)
+    x, w, dy = ops[(train, "bfloat16")]
+    k_ms = device_ms(torch, lambda: causal_conv1d_bwd(x, w, dy))
+    p_ms = time_ms(torch, lambda: causal_conv1d_bwd_plain(x, w, dy), iters=3)
+    tp_ms = device_ms(torch, lambda: causal_conv1d_bwd(
+        *ops[(CONV1D_TP_SHARD, "bfloat16")]))
+    xt, wt = x.transpose(1, 2).contiguous(), w.t().contiguous()[:, None, :]
+    leaves = [t.detach().requires_grad_(True) for t in (xt, wt)]
+    dyt = dy.transpose(1, 2).contiguous()
+
+    def library():
+        with torch.enable_grad():
+            y = F.conv1d(*leaves, padding=kw - 1, groups=c)[..., :train[1]]
+            return torch.autograd.grad(y, leaves, dyt)
+
+    lib_ms = device_ms(torch, library) - device_ms(
+        torch, lambda: F.conv1d(xt, wt, padding=kw - 1, groups=c))
+    flops = 2 * causal_conv1d_flops(*train, kw)
+    nbytes = (3 * x.numel() + 2 * w.numel()) * 2
+    ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
+        nbytes / R.HBM_BW * 1e3
+    segs = bwd_segments(*train[:2])
+    source, replaces = LM_KERNELS["causal_conv1d_bwd"]
+    print(f"  causal_conv1d_bwd_train_path at x {list(train)} bf16: kernels "
+          f"{k_ms:.4f} ms (both passes, S={segs}), plain {p_ms:.3f} ms, "
+          f"F.conv1d's backward {lib_ms:.4f} ms (device time), bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); at x "
+          f"{list(CONV1D_TP_SHARD)} {tp_ms:.4f} ms; "
+          f"{hybrid['counts']['causal_conv1d_bwd']} launches in "
+          f"{hybrid['conv_bwd']} backward passes")
+    del ops, x, w, dy, xt, wt, leaves, dyt
+    return {
+        "name": "causal_conv1d_bwd_train_path", "route": "cuda",
+        "source": source, "replaces": replaces,
+        "note": "no TPU kernel of its own: the gradient of causal_conv1d's "
+                "function, which the reference's training takes by XLA "
+                "autodiff of causal_conv1d_ref (src/repro/models/"
+                "mamba2.py:149)",
+        "launches": hybrid["counts"]["causal_conv1d_bwd"],
+        "max_abs_err": errs[("causal_conv1d_bwd", "float32")],
+        "max_abs_err_bf16": errs[("causal_conv1d_bwd", "bfloat16")],
+        "err_of": "max |g| of F.conv1d's gradients (bitwise the plain "
+                  "version)",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": lib_ms,
+        "library": "F.conv1d's backward (depthwise): its forward and "
+                   "backward less its forward",
+        "tp_shard_ms": tp_ms, "segments": segs,
+        "shape": f"x {list(train)} bf16, K={kw} ({LM_ARCH} train "
+                 f"microbatch; launches from its one-group train steps)",
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "partials_mbytes": 2 * 4 * segs * kw * c / 1e6}
 
 
 def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
@@ -5264,8 +5439,10 @@ def ring_train(torch, np, cfg, mesh, plan, batches, label,
     ``TP_NORM_TOL`` relative, later ones printed; the collective bytes
     per step equal to the dry run's model; each kernel of the family's
     path launched as often as its layers, rows, microbatches and shards
-    and the checkpoint's recomputation make it.  One device runs first
-    and is freed before the ring's state is laid out."""
+    and the checkpoint's recomputation make it, and causal_conv1d's
+    backward kernels once per ``CausalConv1d`` backward.  One device runs
+    first and is freed before the ring's state is laid out."""
+    from repro_torch.kernels.causal_conv1d import CausalConv1d
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import init_params
     from repro_torch.parallel import ctx, ring
@@ -5295,12 +5472,19 @@ def ring_train(torch, np, cfg, mesh, plan, batches, label,
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts()
     f0 = _flash_bwd_calls()
+    c0 = CausalConv1d.backward_calls
     coll0 = SH.collective_bytes()
     with ctx.activation_sharding(hooks):
         got, ms, got_norms = _timed_steps(torch, step, rstate, batches)
     if "flash_attention_fwd" in _ring_kernels(cfg):
         _held_flash_bwd(f"{cfg.name} ring", _lm_counts(),
                         _flash_bwd_calls() - f0)
+    conv_bwd = CausalConv1d.backward_calls - c0
+    if "causal_conv1d" in _ring_kernels(cfg) and not (
+            conv_bwd and _lm_counts()["causal_conv1d_bwd"] == conv_bwd):
+        raise AssertionError(f"{cfg.name} ring: CausalConv1d's backward ran "
+                             f"{conv_bwd} times and launched its kernels "
+                             f"{_lm_counts()['causal_conv1d_bwd']} times")
     launches = {k: v for k, v in _lm_counts().items()
                 if k in _ring_kernels(cfg)}
     coll = {k: v // len(batches) for k, v in _coll_delta(coll0).items()}

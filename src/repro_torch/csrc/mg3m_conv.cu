@@ -891,40 +891,171 @@ __global__ void __launch_bounds__(gemm_threads(BM, BC, TM, TC),
   gemm_body<T, BM, BC, TM, TC, false>(in, flt, out, ws, g);
 }
 
-// The second pass of a split reduction (replaces no TPU kernel: the Pallas
-// grid walks a reduction in order on one core): out[i] = ws[0][i] +
-// ws[1][i] + ... + ws[nseg - 1][i], one f32 add each in that order, cast
-// to T.  Bound by bytes (nseg f32 reads and one store per output); four
-// outputs a thread, 16-byte reads, where n and the pointers allow.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    mg3m_segsum_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                       int nseg, long long n, bool vec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (vec) {
-    const float4* w4 = reinterpret_cast<const float4*>(ws);
-    const long long n4 = n / 4;
-    for (; i < n4; i += stride) {
-      float4 a = w4[i];
-      for (int s = 1; s < nseg; ++s) {
-        const float4 b = w4[(size_t)s * n4 + i];
-        a.x += b.x;
-        a.y += b.y;
-        a.z += b.z;
-        a.w += b.w;
-      }
-      const float x[4] = {a.x, a.y, a.z, a.w};
-      stv<4>(out + 4 * i, x);
-    }
+// ---- segsum: begin.  This block is the same in mg3m_conv.cu and
+// causal_conv1d.cu but for the kernel's name (tests/test_torch_causal_
+// conv1d_bwd.py holds the two copies equal). ----
+//
+// The second pass of a reduction split into segments (replaces no TPU
+// kernel: a Pallas grid walks a reduction in order on one core and carries
+// its sum from step to step): out[i] = ws[0][i] + ws[1][i] + ... +
+// ws[nseg - 1][i], one f32 add each in that order, cast to T.  No atomics:
+// the order never depends on which block finishes first.
+//
+// Bound by bytes (every partial read once, every output written once).
+// The splits give few outputs and many segments (the ResNet trunk's L2
+// wgrad 36 864 outputs of 98 segments, L0's 9 408; the conv1d backward's
+// dw 29 184 of 32), so the pass has to keep many loads in flight with few
+// threads.  Two walks, picked by the number of segments (both measured on
+// the H100 at the ResNet trunk's splits):
+//   * up to SEGSUM_STAGE_MIN segments, a thread owns V outputs and loads
+//     SEGSUM_AHEAD values of their segments at once (SEGSUM_AHEAD / V
+//     segments), all independent, before it adds them in order; one
+//     thread per output where there are fewer than SEGSUM_VEC_MIN (so a
+//     small split still spreads over every SM), four (16-byte loads) from
+//     there on, where the pointers allow;
+//   * past that, where this walk would wait for more than two rounds of
+//     loads, a block's threads copy all the segments of 32 neighbouring
+//     outputs (SEGSUM_STAGE_ROWS at a time) into shared memory with
+//     cp.async, all in flight at once, and its first warp adds them in
+//     order.
+constexpr int SEGSUM_THREADS = 128;
+constexpr int SEGSUM_AHEAD = 32;
+constexpr long long SEGSUM_VEC_MIN = 1 << 17;
+constexpr int SEGSUM_STAGE_MIN = 64;
+constexpr int SEGSUM_STAGE_ROWS = 128;
+
+template <int V>
+__device__ __forceinline__ void segsum_load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
   } else {
-    for (; i < n; i += stride) {
-      float a = ws[i];
-      for (int s = 1; s < nseg; ++s) a += ws[(size_t)s * n + i];
-      out[i] = from_f<T>(a);
-    }
+    v[0] = *p;
   }
 }
+template <int V>
+__device__ __forceinline__ void segsum_store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+template <int V>
+__device__ __forceinline__ void segsum_store(__nv_bfloat16* p,
+                                             const float (&v)[V]) {
+  if constexpr (V == 4) {
+    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                           __floats2bfloat162_rn(v[2], v[3])};
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void segsum_walk(const float* __restrict__ ws,
+                                            T* __restrict__ out, int nseg,
+                                            long long n) {
+  constexpr int U = SEGSUM_AHEAD / V;
+  const long long i =
+      ((long long)blockIdx.x * SEGSUM_THREADS + threadIdx.x) * V;
+  if (i >= n) return;
+  const float* p = ws + i;
+  float acc[V], b[U][V];
+  segsum_load<V>(p, acc);
+  for (int s = 1; s < nseg; s += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s + u < nseg) segsum_load<V>(p + (size_t)(s + u) * n, b[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s + u < nseg) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] += b[u][j];
+      }
+  }
+  segsum_store<V>(out + i, acc);
+}
+
+template <typename T>
+__device__ __forceinline__ void segsum_staged(const float* __restrict__ ws,
+                                              T* __restrict__ out, int nseg,
+                                              long long n) {
+  constexpr int WARPS = SEGSUM_THREADS / 32;
+  __shared__ float buf[SEGSUM_STAGE_ROWS][32];
+  const int col = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long c = (long long)blockIdx.x * 32 + col;
+  const bool live = c < n;
+  float acc[1] = {0.f};
+  for (int r0 = 0; r0 < nseg; r0 += SEGSUM_STAGE_ROWS) {
+    const int rows = min(SEGSUM_STAGE_ROWS, nseg - r0);
+    if (live)
+      for (int r = warp; r < rows; r += WARPS) {
+        const unsigned d = (unsigned)__cvta_generic_to_shared(&buf[r][col]);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                     "l"(ws + (size_t)(r0 + r) * n + c) : "memory");
+      }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (warp == 0 && live) {
+      int r = 0;
+      if (r0 == 0) acc[0] = buf[r++][col];
+      for (; r < rows; ++r) acc[0] += buf[r][col];
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && live) segsum_store<1>(out + c, acc);
+}
+
+template <typename T, int V, bool STAGED>
+__global__ void __launch_bounds__(SEGSUM_THREADS) mg3m_segsum_kernel(
+    const float* __restrict__ ws, T* __restrict__ out, int nseg,
+    long long n) {
+  if constexpr (STAGED)
+    segsum_staged<T>(ws, out, nseg, n);
+  else
+    segsum_walk<T, V>(ws, out, nseg, n);
+}
+
+template <typename T, int V, bool STAGED>
+static int segsum_run(const float* ws, void* out, int nseg, long long n,
+                      cudaStream_t stream) {
+  const long long per_block = STAGED ? 32 : (long long)SEGSUM_THREADS * V;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  const auto kernel = mg3m_segsum_kernel<T, V, STAGED>;
+  kernel<<<blocks, SEGSUM_THREADS, 0, stream>>>(ws, static_cast<T*>(out),
+                                                nseg, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int segsum_pick(const float* ws, void* out, int nseg, long long n,
+                       bool vec, cudaStream_t stream) {
+  if (nseg > SEGSUM_STAGE_MIN)
+    return segsum_run<T, 1, true>(ws, out, nseg, n, stream);
+  return vec ? segsum_run<T, 4, false>(ws, out, nseg, n, stream)
+             : segsum_run<T, 1, false>(ws, out, nseg, n, stream);
+}
+
+// out[i] = sum over s in order of ws[s][i], i < n; dtype 0 float32, 1
+// bfloat16; -1 for arguments the kernel does not take
+static int segsum_launch(int dtype, const void* ws, void* out, int nseg,
+                         long long n, cudaStream_t stream) {
+  if (!ws || !out || nseg < 1 || n < 1 || (dtype != 0 && dtype != 1))
+    return -1;
+  const float* w = static_cast<const float*>(ws);
+  const size_t es = dtype == 0 ? 4 : 2;
+  const bool vec = n >= SEGSUM_VEC_MIN && n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * es) == 0;
+  if (dtype == 0) return segsum_pick<float>(w, out, nseg, n, vec, stream);
+  return segsum_pick<__nv_bfloat16>(w, out, nseg, n, vec, stream);
+}
+// ---- segsum: end ----
 
 // ---------------------------------------------------------------------------
 // host side
@@ -1183,23 +1314,7 @@ int mg3m_tb88(int dtype, const void* in, const void* flt, void* out,
 // out[i] = sum over s in order of ws[s][i], i < n, cast (dtype as above)
 int mg3m_segsum(int dtype, const void* ws, void* out, int nseg, long long n,
                 void* stream) {
-  if (!ws || !out || nseg < 1 || n < 1) return -1;
-  const size_t es = dtype == 0 ? 4 : 2;
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % (4 * es) == 0;
-  const long long items = vec ? n / 4 : n;
-  const long long want = (items + 255) / 256;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    mg3m_segsum_kernel<float><<<blocks, 256, 0, s>>>(
-        (const float*)ws, (float*)out, nseg, n, vec);
-  else if (dtype == 1)
-    mg3m_segsum_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        (const float*)ws, (__nv_bfloat16*)out, nseg, n, vec);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+  return segsum_launch(dtype, ws, out, nseg, n, (cudaStream_t)stream);
 }
 
 // out: [outH][fh] (axis 0) or [outW][fw] (axis 1) int32 on the device

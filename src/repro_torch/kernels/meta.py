@@ -17,6 +17,11 @@ numbers ``chip_smoke.py``'s kernel rows take their bounds from:
                    read once, dq, dk and dv written once.
   causal_conv1d    ``2 * K * B * L * D`` FLOPs; bytes x and w read once,
                    y written once.
+  its backward     ``4 * K * B * L * D`` FLOPs (dx's and dw's products);
+                   bytes x, w and dy read once, dx and dw written once.
+                   Listed apart as ``causal_conv1d_bwd_partials``: dw's
+                   f32 partials ``[S, K, D]``, written and read once, and
+                   the ``(S - 1) * K * D`` adds of the second pass.
 
 The wrappers do not run their plain versions on ``meta``: the plain flash
 attention materializes the ``S x T`` scores, which a kernel keeps on chip,
@@ -91,6 +96,20 @@ def record_causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     b, length, c = x.shape
     record("causal_conv1d", causal_conv1d_flops(b, length, c, w.shape[0]),
            x.dtype, _nbytes(x, w, y))
+
+
+def record_causal_conv1d_bwd(x: torch.Tensor, w: torch.Tensor,
+                             dy: torch.Tensor, dx: torch.Tensor,
+                             dw: torch.Tensor, segments: int) -> None:
+    """The backward of ``record_causal_conv1d``; ``segments`` S, the
+    partials' leading dimension."""
+    b, length, c = x.shape
+    record("causal_conv1d_bwd",
+           2 * causal_conv1d_flops(b, length, c, w.shape[0]), x.dtype,
+           _nbytes(x, w, dy, dx, dw))
+    n = w.numel()
+    record("causal_conv1d_bwd_partials", (segments - 1) * n, torch.float32,
+           2 * 4 * segments * n)
 
 
 @contextlib.contextmanager
