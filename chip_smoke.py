@@ -107,7 +107,10 @@ Phases, each of which raises (non-zero exit) on failure:
                (q (32, 2048, 128), k/v (4, 2048, 128), causal), f32 and
                bf16, each held against its
                plain version: f32 within 1e-4 (conv) / 2e-4 (attention),
-               bf16 within 2e-2.  causal_conv1d's backward kernels
+               bf16 within 2e-2; flash's f32 kernel on FLASH_SHAPES also
+               within ``XTF32_TOL`` of ``flash_attention_3xtf32_plain``,
+               bitwise from run to run and with its log-sum-exp.
+               causal_conv1d's backward kernels
                (``causal_conv1d_bwd``) on the conv shapes, f32 and bf16,
                run twice and bitwise equal, bitwise
                ``causal_conv1d_bwd_plain``, and within 2e-4 / 2e-2 of max
@@ -255,11 +258,14 @@ Phases, each of which raises (non-zero exit) on failure:
                step-10 checkpoint alone: the resumed losses bitwise equal
                to the uninterrupted run's.  Their reduced f32 models run
                the f32 flash kernel, which each must launch: the
-               ``flash_attention_fwd_f32`` row (kernel, plain version,
-               SDPA in f32, bound at 67 TFLOP/s) at ``train_lm``'s shape,
-               its launches counted from 0 over the two ``train_lm`` runs
-               (``serve_lm``'s printed apart), where the backward kernels
-               must launch once per ``FlashAttention`` backward.  Then the four conv
+               ``flash_attention_fwd_f32`` and ``flash_attention_bwd_f32``
+               rows (kernels, plain versions, SDPA in f32, bounds at the
+               f32 FMA and three-term TF32 rates) at ``train_lm``'s shape
+               and the training path's, the kernels held to both plain
+               versions, their launches counted from 0 over the two
+               ``train_lm`` runs (``serve_lm``'s printed apart), where the
+               backward kernels must launch once per ``FlashAttention``
+               backward.  Then the four conv
                examples at their defaults, the MG3M launch counts set to 0
                before each and read after: ``quickstart``, ``serve_conv``
                (its plan artifact in the temporary directory),
@@ -398,8 +404,9 @@ grain the train step launches a row ``<name>_train_path`` at its longest
 plan of the step; flash and causal_conv1d have ``<name>_train_path`` rows
 from phases 13 and 14 (causal_conv1d's with ``backward_ms``), and the
 backward kernels the row ``flash_attention_bwd_train_path``; flash's f32
-kernel the row
-``flash_attention_fwd_f32`` from phase 16; each conv grain a row
+kernels the rows
+``flash_attention_fwd_f32`` and ``flash_attention_bwd_f32`` from phase 16;
+each conv grain a row
 ``<name>_shard_path`` from phase 17 at its longest sub-scene launch of the
 forced partitions, its launches those of phase 17's sharded serving and
 training; flash a row ``flash_attention_fwd_tp_shard`` from phase 19 at
@@ -1785,6 +1792,15 @@ FLASH_BWD_SHAPES = [(2, 255, 255, 8, 4, 112), (1, 128, 128, 8, 1, 64),
 # on an H100, against 1.9e-4 to 6.8e-4 non-causal).  f32 adds f32 terms
 # (4.8e-7 read on the small shapes): 1e-5.
 LSE_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+# the f32 kernel (three TF32 terms) against flash_attention_3xtf32_plain,
+# which takes the same exact products and sums them in another order:
+# sqrt(3D) u sqrt(D) D^-0.5 = 1.2e-6 in a score, sqrt(3T) u |o| = 6.6e-6 in
+# a row of P V at T = 4096, the largest of 10^7 outputs about five such
+# deviations out (csrc/flash_attention.cu's header derives it)
+XTF32_TOL = 5e-5
+# the tensor cores' dense TF32 rate (H100 SXM datasheet); the f32 kernel's
+# three terms a product leave a third of it
+PEAK_FLOPS_TF32 = 495e12
 # the dense path's prefill (qwen2.5-3b, 2 x 2048 tokens): q (2*16, 2048,
 # 128), k/v (2*2, 2048, 128), 8 query heads per kv head, causal
 DENSE_FLASH = (2, 2048, 2048, 16, 2, 128)
@@ -1839,6 +1855,31 @@ def _hold_grads(torch, dtype, got, want, errs, what, key):
                                  f"{rel} of max |g| from its plain version "
                                  f"(tol {tol}) on {what}")
         errs[(key, dtype)] = max(errs.get((key, dtype), 0.0), rel)
+
+
+def _hold_f32_flash(torch, q, k, v, causal, got, errs, what, key):
+    """The f32 kernel's ``got`` beside its other contracts: within
+    ``XTF32_TOL`` of ``flash_attention_3xtf32_plain`` (kept under ``(key,
+    "float32")``), bitwise from run to run, and bitwise the ``o`` of the
+    launch with the log-sum-exp."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_3xtf32_plain, flash_attention_fwd)
+
+    emu = flash_attention_3xtf32_plain(q, k, v, causal=causal)
+    err = (got - emu).abs().max().item()
+    if not err <= XTF32_TOL:
+        raise AssertionError(f"flash_attention_fwd float32: {err} from "
+                             f"flash_attention_3xtf32_plain (tol "
+                             f"{XTF32_TOL}) on {what}")
+    errs[(key, "float32")] = max(errs.get((key, "float32"), 0.0), err)
+    del emu
+    again = flash_attention_fwd(q, k, v, causal=causal)
+    with_lse, _ = flash_attention_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
+    if not (torch.equal(got, again) and torch.equal(got, with_lse)):
+        raise AssertionError(f"flash_attention_fwd float32 is not bitwise "
+                             f"from run to run, or with the log-sum-exp, "
+                             f"on {what}")
 
 
 def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
@@ -1963,6 +2004,10 @@ def lm_kernel_phase(torch):
                         f"causal={causal}")
                 _hold(torch, "flash_attention_fwd", dtype, got, want, errs,
                       what)
+                if dtype == "float32" and (b, s, t, hq, hkv, d) in \
+                        FLASH_SHAPES:
+                    _hold_f32_flash(torch, q, k, v, causal, got, errs,
+                                    what, "flash_f32")
                 if d == 128:
                     _hold(torch, "flash_attention_fwd", dtype, got, want,
                           errs, what, key="flash_d128")
@@ -3551,11 +3596,7 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
 
     lib_ms = device_ms(torch, library) - device_ms(
         torch, lambda: F.scaled_dot_product_attention(*sdpa, is_causal=True))
-    try:
-        backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
-            *sdpa, None, 0.0, True)).name
-    except (AttributeError, RuntimeError, TypeError, ValueError):
-        backend = "not read"
+    backend = _sdpa_backend(torch, *sdpa)
     grads = run()
     lib = library()
     _hold_grads(torch, "bfloat16", (
@@ -3792,7 +3833,7 @@ def roofline_phase(measured: dict, mesh_runs: Optional[dict] = None
     print(f"roofline phase {time.perf_counter() - t0:.1f} s")
 
 
-def examples_phase(torch, tmp: str) -> dict:
+def examples_phase(torch, tmp: str) -> list:
     """The two LM examples in-process on the card: ``serve_lm`` at its
     defaults, then ``train_lm --steps 20`` (checkpoints every 10) and the
     same run resumed from its step-10 checkpoint alone, whose 10 losses
@@ -3800,7 +3841,7 @@ def examples_phase(torch, tmp: str) -> dict:
     models are reduced f32 configs, so flash runs its f32 kernel
     (``flash_fwd_kernel``), which each example must launch: with the
     launch counts set to 0 after ``serve_lm`` and read after the two
-    ``train_lm`` runs, returns its row at ``train_lm``'s shape."""
+    ``train_lm`` runs, returns the f32 rows (``flash_f32_rows``)."""
     from repro_torch.examples import serve_lm, train_lm
     from repro_torch.kernels.flash_attention import FlashAttention
 
@@ -3836,9 +3877,9 @@ def examples_phase(torch, tmp: str) -> dict:
           f"times over both runs, at the f32 row's shape, its f32 backward "
           f"kernels {bwd_launches} times); "
           f"{time.perf_counter() - t0:.1f} s")
-    row = flash_f32_row(torch, launches)
+    rows = flash_f32_rows(torch, launches, bwd_launches)
     conv_examples(torch, tmp)
-    return row
+    return rows
 
 
 def _example(torch, name: str, fn):
@@ -4085,54 +4126,153 @@ def mg3m_cnn_oracle(torch, plans, device: str = "cuda") -> None:
                              f"{rel[worst]:.3e} relative (all: {rel})")
 
 
-def flash_f32_row(torch, launches: int) -> dict:
-    """The f32 flash kernel (``flash_fwd_kernel``) at ``train_lm``'s
-    default shape (batch 8, seq 256, 4 heads of 64 over 2 kv heads,
-    causal): kernel, plain version and ``scaled_dot_product_attention``
-    in f32 (TF32 off), beside the bound at the f32 rate: the
-    ``flash_attention_fwd_f32`` row, its launches the examples'."""
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_plain)
-    from repro_torch.kernels.meta import flash_flops
+def _f32_bounds(flops: int, nbytes: int) -> dict:
+    """The f32 work's bounds: its bytes at 3.35 TB/s against its FLOPs at
+    the CUDA cores' f32 rate (67 TFLOP/s) and at a third of the tensor
+    cores' TF32 rate (three terms a product, 165 TFLOP/s), ms.  The
+    least time the card could take at f32 accuracy is the second."""
     from repro_torch.launch import roofline as R
 
-    F = torch.nn.functional
-    b, s, _, h, hkv, d = TRAIN_LM_FLASH
-    gen = torch.Generator().manual_seed(19)
-
-    def rand(*shape):
-        return torch.randn(shape, generator=gen).cuda()
-
-    q, kk, v = rand(b * h, s, d), rand(b * hkv, s, d), rand(b * hkv, s, d)
-    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, kk, v))
-    k4, v4 = (t.repeat_interleave(h // hkv, 1) for t in (k4, v4))
-    got = flash_attention_fwd(q, kk, v, causal=True)
-    errs = {}
-    _hold(torch, "flash_attention_fwd", "float32", got,
-          flash_attention_plain(q, kk, v, causal=True), errs, "f32 row")
-    k_ms = device_ms(torch, lambda: flash_attention_fwd(q, kk, v,
-                                                        causal=True))
-    p_ms = time_ms(torch, lambda: flash_attention_plain(q, kk, v,
-                                                        causal=True))
-    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
-    flops = flash_flops(b * h, s, s, d, True)
-    nbytes = (q.numel() + kk.numel() + v.numel() + got.numel()) * 4
-    ops_ms = flops / R.PEAK_FLOPS_F32 * 1e3
     bytes_ms = nbytes / R.HBM_BW * 1e3
+    xtf32_ms = flops / (PEAK_FLOPS_TF32 / 3) * 1e3
+    return {"bound_ms": max(xtf32_ms, bytes_ms),
+            "bound_by": "operations" if xtf32_ms >= bytes_ms else "bytes",
+            "bound_3xtf32_ms": xtf32_ms,
+            "bound_f32_fma_ms": flops / R.PEAK_FLOPS_F32 * 1e3,
+            "bytes_ms": bytes_ms, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6}
+
+
+def _sdpa_backend(torch, q, k, v) -> str:
+    """The backend SDPA picks for causal (q, k, v), or "not read"."""
+    try:
+        return torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+            q, k, v, None, 0.0, True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        return "not read"
+
+
+def flash_f32_rows(torch, launches: int, bwd_launches: int) -> list:
+    """The f32 flash kernels at ``train_lm``'s default shape
+    (``TRAIN_LM_FLASH``: batch 8, seq 256, 4 heads of 64 over 2 kv heads)
+    and at the training path's (``TRAIN_FLASH``: q (16, 4096, 128), k/v
+    (2, 4096, 128)), causal, the launches the examples' (phase 16).  The
+    ``flash_attention_fwd_f32`` row: ``flash_fwd_kernel`` (device time)
+    held within 2e-4 of ``flash_attention_plain`` and ``XTF32_TOL`` of
+    ``flash_attention_3xtf32_plain``, bitwise from run to run and with its
+    log-sum-exp; the plain version (CUDA events); SDPA in f32 (TF32 off;
+    device time, its backend named); the bounds of ``_f32_bounds``.  The
+    ``flash_attention_bwd_f32`` row: the f32 backward kernels
+    (``flash_attention_bwd``, device time) and their plain version on
+    that forward's output and log-sum-exp, SDPA's backward pinned to the
+    memory-efficient kernel (device time: its forward and
+    ``torch.autograd.grad`` captured together less its forward), the
+    bounds of ``meta.flash_bwd_flops``.  Each row has the ``train_lm``
+    shape's numbers at its top level and the training shape's under
+    ``"training_shape"``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain)
+    from repro_torch.kernels.meta import flash_bwd_flops, flash_flops
+
+    F = torch.nn.functional
+    efficient = torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION
+    gen = torch.Generator().manual_seed(19)
+    fwd, bwd = {}, {}
+    for label, shape in (("train_lm", TRAIN_LM_FLASH),
+                         ("training", TRAIN_FLASH)):
+        b, s, t, h, hkv, d = shape
+        big = label == "training"
+        q, kk, v, do = (torch.randn(dims, generator=gen).cuda()
+                        for dims in ((b * h, s, d), (b * hkv, t, d),
+                                     (b * hkv, t, d), (b * h, s, d)))
+        q4, k4, v4 = (x.view(b, -1, x.shape[1], d) for x in (q, kk, v))
+        k4, v4 = (x.repeat_interleave(h // hkv, 1) for x in (k4, v4))
+        what = f"q {tuple(q.shape)} k {tuple(kk.shape)} ({label} shape)"
+        got, lse = flash_attention_fwd(q, kk, v, causal=True,
+                                       return_lse=True)
+        errs = {}
+        _hold(torch, "flash_attention_fwd", "float32", got,
+              flash_attention_plain(q, kk, v, causal=True), errs, what)
+        _hold_f32_flash(torch, q, kk, v, True, got, errs, what, "xtf32")
+        k_ms = device_ms(torch, lambda: flash_attention_fwd(q, kk, v,
+                                                            causal=True))
+        p_ms = time_ms(torch, lambda: flash_attention_plain(q, kk, v,
+                                                            causal=True),
+                       iters=3 if big else 20)
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        backend = _sdpa_backend(torch, q4, k4, v4)
+        nbytes = (q.numel() + kk.numel() + v.numel() + got.numel()) * 4
+        fwd[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                      "library": f"scaled_dot_product_attention f32 "
+                                 f"({backend}; K, V repeated)",
+                      "max_abs_err": errs[("flash_attention_fwd",
+                                           "float32")],
+                      "xtf32_err": errs[("xtf32", "float32")],
+                      "shape": f"q ({b * h}, {s}, {d}), k/v ({b * hkv}, "
+                               f"{t}, {d}) f32 causal ({label})",
+                      **_f32_bounds(flash_flops(b * h, s, t, d, True),
+                                    nbytes)}
+        # the backward kernels on this forward's output and log-sum-exp
+        grads = flash_attention_bwd(q, kk, v, got, lse, do, causal=True)
+        _hold_grads(torch, "float32", grads, flash_attention_bwd_plain(
+            q, kk, v, got, lse, do, causal=True), errs, what, "bwd")
+        b_ms = device_ms(torch, lambda: flash_attention_bwd(
+            q, kk, v, got, lse, do, causal=True), iters=5 if big else 20)
+        bp_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+            q, kk, v, got, lse, do, causal=True), iters=3 if big else 20)
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+        dref = do.view(b, h, s, d)
+
+        def library():
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                return torch.autograd.grad(o, leaves, dref)
+
+        with torch.nn.attention.sdpa_kernel(efficient):
+            lib_b_ms = device_ms(torch, library, iters=5 if big else 20) \
+                - device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), iters=5 if big else 20)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in (q, kk, v, got, lse, do, *grads))
+        bwd[label] = {"ms": b_ms, "plain_ms": bp_ms, "library_ms": lib_b_ms,
+                      "library": "scaled_dot_product_attention's backward "
+                                 "f32 (EFFICIENT_ATTENTION; K, V repeated): "
+                                 "its forward and backward less its "
+                                 "forward",
+                      "max_abs_err": errs[("bwd", "float32")],
+                      "shape": fwd[label]["shape"],
+                      **_f32_bounds(flash_bwd_flops(b * h, s, t, d, True),
+                                    nbytes)}
+        print(f"  flash_attention_fwd_f32 at {fwd[label]['shape']}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA (f32, {backend}) "
+              f"{lib_ms:.4f} ms, bound {fwd[label]['bound_ms']:.4f} ms "
+              f"(3xTF32 {fwd[label]['bound_3xtf32_ms']:.4f}, f32 FMA "
+              f"{fwd[label]['bound_f32_fma_ms']:.4f}); errors "
+              f"{fwd[label]['max_abs_err']:.3e} (plain), "
+              f"{fwd[label]['xtf32_err']:.3e} (3xTF32 emulation)")
+        print(f"  flash_attention_bwd_f32 at {fwd[label]['shape']}: kernels "
+              f"{b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA's backward "
+              f"(efficient) {lib_b_ms:.4f} ms, bound "
+              f"{bwd[label]['bound_ms']:.4f} ms (f32 FMA "
+              f"{bwd[label]['bound_f32_fma_ms']:.4f}); "
+              f"{bwd[label]['max_abs_err']:.3e} of max |g|")
+        del q, kk, v, do, q4, k4, v4, got, lse, grads, leaves, dref
+        torch.cuda.empty_cache()
     source, replaces = LM_KERNELS["flash_attention_fwd"]
-    print(f"  flash_attention_fwd_f32 at q ({b * h}, {s}, {d}) f32 causal: "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA (f32) "
-          f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms")
-    return {"name": "flash_attention_fwd_f32", "route": "cuda",
-            "source": source, "replaces": replaces, "launches": launches,
-            "max_abs_err": errs[("flash_attention_fwd", "float32")],
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms,
-            "shape": f"q ({b * h}, {s}, {d}), k/v ({b * hkv}, {s}, {d}) f32 "
-                     f"causal (train_lm's default)",
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    rows = []
+    for name, parts, n in (("flash_attention_fwd_f32", fwd, launches),
+                           ("flash_attention_bwd_f32", bwd, bwd_launches)):
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": n, **parts["train_lm"],
+               "training_shape": parts["training"]}
+        rows.append(row)
+    rows[1]["note"] = ("no TPU kernel of its own: the gradient of "
+                       "flash_attention_fwd's function (row "
+                       "flash_attention_bwd_train_path)")
+    rows[1]["err_of"] = "max |g|"
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -5960,6 +6100,11 @@ def phases(torch, np, tmp: str, card: str) -> int:
             if not bf16 or not all(sum(c) for c in bf16.values()):
                 raise AssertionError(f"the bf16 flash kernel issues no "
                                      f"tensor-core instruction: {bf16}")
+            f32 = {n: c for n, c in counts.items()
+                   if "flash_fwd_kernel" in n}
+            if not f32 or not all(c[1] for c in f32.values()):
+                raise AssertionError(f"the f32 flash kernel issues no "
+                                     f"tensor-core instruction: {f32}")
             bwd = {n: c for n, c in counts.items()
                    if "flash_bwd" in n and "bf16" in n}
             if len(bwd) != 10 or not all(c[1] for c in bwd.values()):
@@ -5993,7 +6138,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     rows += lm_train_rows(torch, lm_train, hybrid, lm_errs)
     analyze_phase(torch, list(sched.registry.plans().values())
                   + [p for _, _, p in train_run["walk"]] + tuned_plans)
-    rows.append(examples_phase(torch, tmp))
+    rows += examples_phase(torch, tmp)
     rows += shard_phase(torch, tmp, errs)
     measured = measured_steps(dense, lm_train)
     lm_train.clear()

@@ -10,12 +10,13 @@
 //   all float32 or all bfloat16; o = softmax(q k^T * D^-0.5 [+ mask]) v.
 //
 // Two kernels share that contract.  Both keep the Pallas grid's sequential
-// kv axis as a loop inside a block over 64-key tiles, so m, l and acc never
+// kv axis as a loop inside a block over key tiles, so m, l and acc never
 // leave registers; under `causal` the loop stops at the tile that reaches
 // the diagonal (tiles wholly above it are neither loaded nor computed, and
 // only the diagonal and ragged-T tiles are masked); ragged S and T edges are
-// masked in the kernel, so nothing is padded to tiles.  Neither splits the
-// kv axis nor uses atomics: the result is deterministic.
+// masked in the kernel, so nothing is padded to tiles.  Neither uses
+// atomics (the f32 kernel's warps may split a block's key walk and merge in
+// a fixed order): the result is deterministic.
 //
 // flash_fwd_bf16_kernel (bf16, the LM path).  What bounds it: operations.
 // At zamba2-7b's prefill (BH = 64, S = T = 2048, D = 112, causal) it does
@@ -69,20 +70,73 @@
 // block in a fixed order, so the gradients are bitwise the same from run
 // to run and a sequence's do not depend on its batch.
 //
-// flash_fwd_kernel (f32, the first version, kept for f32 operands: TF32
-// tensor cores would round the operands to 10 bits and miss the f32
-// tolerance of 2e-4).  128 threads; thread (ty, tx) = (tid / 8, tid % 8)
-// owns query rows 4*ty .. 4*ty+3, score columns tx + 8j (j < 8) of each key
-// tile and output columns tx + 8j (j < D/8); f32 FMA on the CUDA cores,
-// every operand from shared memory.  Q and K tiles use a row stride of D+1
-// and the P tile 65, which keeps a warp's shared reads on distinct banks.
+// flash_fwd_kernel (f32: train_lm, serve_lm and the f32 copies of the oracles
+// and rings; below `namespace tc`).  What bounds it: operations. At the
+// training shape (q (16, 4096, 128), k/v (2, 4096, 128), causal) it does 68.72
+// GFLOP against 75.5 MB of operands, some 900 FLOP per byte. Two rates bound
+// it: the CUDA cores' f32 FMA at 67 TFLOP/s (1.026 ms there) and the tensor
+// cores' TF32 at 495 TFLOP/s, of which three terms a product leave 165 (0.416
+// ms).  This version replaces the first, which ran f32 FMA on the CUDA cores
+// with every operand read from shared memory (PERF.md §6 row 5d).  Both
+// products run on the tensor cores as mma.sync m16n8k8 tf32 in three terms
+// (3xTF32, the split of CUTLASS's OpMultiplyAddFastF32, which PyTorch's f32
+// memory-efficient attention runs): each operand x is split once into hi =
+// rna(x) and lo = rna(x - hi) (cvt.rna.tf32.f32: to nearest, ties away from
+// zero; the 13 low bits then cleared), and a b is summed as lo_a hi_b + hi_a
+// lo_b + hi_a hi_b in f32 accumulators.
+//
+// Where it rounds: hi + lo is within 2^-22 |x| of x (each rounding keeps
+// 11 significant bits), the dropped lo_a lo_b is below 2^-22 |a b|, and a
+// product of two tf32 values is exact in f32, so each product is within
+// about 2^-21 |a b| of the f32 one, no more than f32's own rounding of the
+// sums over D or T terms.  On unit-normal operands (causal; (BH, S, D) =
+// (4, 128, 64), (8, 255, 112), (4, 256, 128), (8, 512, 128)) the
+// three-term emulation `flash_attention_3xtf32_plain` is within 0.56e-6 to
+// 1.05e-6 of a float64 result where plain f32 is within 0.69e-6 to
+// 1.33e-6, and one TF32 term within 1.00e-3 to 1.60e-3, which misses the
+// f32 tolerance of 2e-4 (tests/test_torch_flash_f32.py).  The kernel is
+// held to `flash_attention_plain` at that 2e-4, and to the emulation at
+// 5e-5: both take the same exact products and differ only in the order of
+// their f32 additions (u = 2^-24 each), exp's last bits and where the
+// online softmax rescales.  With independent roundings a score's sum of
+// 3D terms is off by about sqrt(3D) u sqrt(D) D^-0.5 = 1.2e-6 at D = 128
+// (unit-normal q and k: partial sums near sqrt(D)), a relative error in
+// p; a row of P V over 3T terms by about sqrt(3T) u |o| = 6.6e-6 at T =
+// 4096 (|o| <= 1 over that many keys).  The largest of some 10^7 outputs
+// sits about five such deviations out, 3.3e-5: 5e-5.
+//
+// Its layout.  A block is WQ x KS warps over BQ = 16 WQ queries: warp
+// (wm, wk) owns query rows 16 wm .. 16 wm + 15 and, of each stage of KS x
+// BK keys, the wk-th BK; with KS > 1 the warps' partial (m, l, acc) merge
+// at the end in the order wk = 0, 1, ... (no atomics, the same sum from
+// run to run).  Thread (g, t) = (lane / 4, lane % 4) holds mma's
+// accumulator layout: rows g and g + 8, columns 2t and 2t + 1 of each n8
+// tile.  The S accumulators feed the online softmax in registers (a row's
+// max reduced over the quad by xor-shuffles, its sum kept per thread to the
+// end, as the bf16 kernel does), and P is split and used as P V's A
+// operand where it stands: A wants columns t and t + 4 where the thread
+// holds 2t and 2t + 1, so P V's k = t is key 2t and k = t + 4 key 2t + 1,
+// and V's B fragment is read in that order (rows 2t and 2t + 1, column g):
+// no shuffle.  K and V stages are double-buffered by 16-byte cp.async with
+// zero-fill past T, the next stage's copy in flight during this one's
+// products; one barrier a stage.  Every tile (Q, K, V) has rows of LD = D
+// + 4 floats: 16-byte aligned for cp.async, and LD mod 32 is 4 (D = 32,
+// 64, 128) or 20 (D = 16, 112), 4 times an odd number, so a warp's
+// fragment reads fall on 32 distinct banks: K's B (key g, column t) and
+// Q's A (row g, column t) on banks 4g + t or 20g + t (mod 32), V's B (row
+// 2t, column g) on 8t + g.  Q is split once: for D <= 64 into registers (D
+// of them a thread); for D = 112 and 128, where D more registers beside the
+// D / 2 of acc would spill, into shared memory (hi and lo, staged once and
+// read as A fragments, 8 words a k8 step).  K and V are split as a warp
+// reads its fragments.  Query tiles run heaviest first (blockIdx.y
+// reversed); under `causal` a warp skips a key tile wholly above its rows.
+// A row's o depends only on its query, its keys and its position.
 //
 // D is a template parameter (16, 32, 64, 112, 128: the reference's tests,
 // zamba2-7b and the dense configs' d_head); the C entry point refuses any
-// other.  At D = 128 the f32 kernel's thread owns 4 rows x 16 output
-// columns and takes 113 KB of shared memory (the launch opts in above
-// 48 KB); the bf16 kernel's P V is wgmma m64n128k16 (64 accumulator
-// registers per thread), its K and V rows two whole swizzle atoms.
+// other.  The bf16 kernel's P V at D = 128 is wgmma m64n128k16 (64
+// accumulator registers per thread), its K and V rows two whole swizzle
+// atoms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -91,206 +145,21 @@
 
 namespace {
 
+// Tiles of the f32 backward (`namespace bwd`)
 constexpr int BQ = 64;       // queries per block
 constexpr int BK = 64;       // keys per staged tile
-constexpr int THREADS = 128;
-constexpr int TX = 8;        // threads sharing one query row
-constexpr int RPT = 4;       // query rows per thread (BQ = THREADS / TX * RPT)
+constexpr int TX = 8;        // threads sharing one tile row
 constexpr int CPT = BK / TX; // score columns per thread
 constexpr int PS = BK + 1;   // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 1; off < TX; off <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 __device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
   for (int off = 1; off < TX; off <<= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
-                          (size_t)BK * D + (size_t)BQ * PS);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int Tk, int group,
-                 float scale, int causal) {
-  static_assert(D % TX == 0, "head dim must be a multiple of 8");
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / TX;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;            // [BQ][DP]
-  float* ks = qs + BQ * DP;    // [BK][DP]
-  float* vs = ks + BK * DP;    // [BK][D]
-  float* ps = vs + BK * D;     // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const T* qb = q + (size_t)bh * S * D;
-  const T* kb = k + (size_t)(bh / group) * Tk * D;
-  const T* vb = v + (size_t)(bh / group) * Tk * D;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    qs[r * DP + c] = q0 + r < S ? to_f32(qb[(size_t)(q0 + r) * D + c]) : 0.f;
-  }
-
-  float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-  }
-
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every thread is done with the previous K, V, P
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const bool ok = k0 + r < Tk;
-      const size_t at = (size_t)(k0 + r) * D + c;
-      ks[r * DP + c] = ok ? to_f32(kb[at]) : 0.f;
-      vs[r * D + c] = ok ? to_f32(vb[at]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = qs[(ty * RPT + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = ks[(tx + TX * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty * RPT + i;
-      const int qpos = q0 + r;
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = k0 + tx + TX * j;
-        float sv = s[i][j] * scale;
-        if (kpos >= Tk || (causal && kpos > qpos)) sv = NEG_INF;
-        s[i][j] = sv;
-        tmax = fmaxf(tmax, sv);
-      }
-      const float m_new = fmaxf(m[i], row_max(tmax));
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[r * PS + tx + TX * j] = p;
-        rsum += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(rsum);
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= corr;
-      m[i] = m_new;
-    }
-    __syncthreads();  // the P tile is complete
-
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = ps[(ty * RPT + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float vv = vs[c * D + tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-  T* ob = o + (size_t)bh * S * D;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qpos = q0 + ty * RPT + i;
-    if (qpos >= S) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      store(ob + (size_t)qpos * D + tx + TX * j, acc[i][j] * inv_l);
-  }
-  if (lse != nullptr && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int qpos = q0 + ty * RPT + i;
-      if (qpos < S) lse[(size_t)bh * S + qpos] = m[i] + logf(fmaxf(l[i], 1e-30f));
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int BH, int BHkv, int S, int Tk, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, BH / BHkv,
-      scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, float* lse, int BH, int BHkv, int S, int Tk,
-                     float scale, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
-    case 112: return launch<T, 112>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1465,6 +1334,407 @@ cudaError_t bwd_dispatch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32 forward: tensor cores in three TF32 terms (mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::smem_u32;
+
+constexpr int BK = 32;  // keys a warp takes from each stage
+
+// The block: WQ x KS warps over BQ = 16 WQ queries; warp (wm, wk) owns
+// query rows 16 wm .. 16 wm + 15 and the wk-th BK keys of every stage of
+// KS x BK keys.  Every tile has rows of LD = D + 4 floats.
+template <int D, int WQ, int KS>
+struct Cfg {
+  static_assert(D % 8 == 0, "tiles are cut into 8 x 8 blocks");
+  static constexpr int LD = D + 4;
+  static constexpr int BQ = 16 * WQ;
+  static constexpr int THREADS = 32 * WQ * KS;
+  static constexpr int STAGE = KS * BK;      // keys staged per step
+  static constexpr bool QREG = D <= 64;      // Q's splits in registers
+  static constexpr int QTILE = BQ * LD;      // floats of one Q tile
+  static constexpr int KVTILE = STAGE * LD;  // floats of one K or V stage
+  static constexpr int SLOT = 16 * LD + 32;  // one warp's partial acc, m, l
+  // Q (QREG), or Q's hi and lo; then K and V, double-buffered
+  static constexpr size_t SMEM =
+      sizeof(float) * ((QREG ? 1 : 2) * (size_t)QTILE + 4 * (size_t)KVTILE);
+  static_assert(KS == 1 || (KS - 1) * WQ * SLOT <= 4 * KVTILE,
+                "the partials of the key split reuse the K/V stages");
+};
+
+// The n8 tiles of P V whose V fragments are split and held at once: the
+// largest divisor of NT = D / 8 up to 8.
+__host__ __device__ constexpr int group_of(int nt) {
+  return nt % 8 == 0   ? 8
+         : nt % 7 == 0 ? 7
+         : nt % 4 == 0 ? 4
+         : nt % 2 == 0 ? 2
+                       : 1;
+}
+
+// rna(x) as a tf32 bit pattern with its 13 low bits cleared, which is also
+// the f32 value rna(x) exactly (cvt.rna clears them on the H100; the mask
+// keeps x - hi exact should a target leave them).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x = hi + lo + e, |e| <= 2^-22 |x|: hi = rna(x), lo = rna(x - hi), where
+// x - hi is exact in f32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col).
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [r0, r0 + ROWS) of a [n_rows][D] operand into shared rows of stride
+// D + 4 by 16-byte cp.async, rows past n_rows zero-filled.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int n_rows) {
+  constexpr int CH = D / 4, LD = D + 4;
+  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(smem_u32(dst + r * LD + c * 4),
+               src + (size_t)(ok ? r0 + r : 0) * D + c * 4, ok);
+  }
+}
+
+template <int D, int WQ, int KS>
+__global__ void __launch_bounds__(Cfg<D, WQ, KS>::THREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S, int Tk, int group,
+                 float scale, int causal) {
+  using C = Cfg<D, WQ, KS>;
+  constexpr int LD = C::LD, BQ = C::BQ, STAGE = C::STAGE;
+  constexpr int THREADS = C::THREADS, KSTEPS = D / 8, NT = D / 8;
+  constexpr int SN = BK / 8, NG = group_of(NT);
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;  // [BQ][LD]: Q; unless QREG, then its hi and lo
+  float* kbuf = smem + (C::QREG ? 1 : 2) * C::QTILE;      // [2][STAGE][LD]
+  float* vbuf = kbuf + 2 * C::KVTILE;                     // [2][STAGE][LD]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const float* kb = k + (size_t)(bh / group) * Tk * D;
+  const float* vb = v + (size_t)(bh / group) * Tk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % WQ, wk = warp / WQ;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wm * 16;                        // the warp's rows in the tile
+  const int first = q0 + r0, last = first + 15;  // and their positions
+  const int row_lo = first + g, row_hi = row_lo + 8;
+
+  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int n_stages = (k_end + STAGE - 1) / STAGE;
+
+  stage<D, BQ, THREADS>(qs, q + (size_t)bh * S * D, q0, S);
+  stage<D, STAGE, THREADS>(kbuf, kb, 0, Tk);
+  stage<D, STAGE, THREADS>(vbuf, vb, 0, Tk);
+  cp_async_commit();
+
+  uint32_t qh[C::QREG ? KSTEPS : 1][4], ql[C::QREG ? KSTEPS : 1][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+
+  for (int it = 0; it < n_stages; ++it) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // stage `it` landed; every warp is done with it - 1
+    if (it + 1 < n_stages) {
+      const int nb = (it + 1) & 1;
+      stage<D, STAGE, THREADS>(kbuf + nb * C::KVTILE, kb, (it + 1) * STAGE, Tk);
+      stage<D, STAGE, THREADS>(vbuf + nb * C::KVTILE, vb, (it + 1) * STAGE, Tk);
+    }
+    cp_async_commit();
+    if (it == 0) {
+      if constexpr (C::QREG) {
+        // A fragments: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const float* qr = qs + (r0 + g) * LD + kk * 8 + t;
+          split(qr[0], qh[kk][0], ql[kk][0]);
+          split(qr[8 * LD], qh[kk][1], ql[kk][1]);
+          split(qr[4], qh[kk][2], ql[kk][2]);
+          split(qr[8 * LD + 4], qh[kk][3], ql[kk][3]);
+        }
+      } else {
+        for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
+          const int at = e / D * LD + e % D;
+          uint32_t hi, lo;
+          split(qs[at], hi, lo);
+          qs[at] = __uint_as_float(hi);
+          qs[C::QTILE + at] = __uint_as_float(lo);
+        }
+        __syncthreads();
+      }
+    }
+    const int kt0 = it * STAGE + wk * BK;  // the warp's first key this stage
+    if (kt0 >= k_end || first >= S || (causal && kt0 > last)) continue;
+    const float* kt = kbuf + (it & 1) * C::KVTILE + wk * BK * LD;
+    const float* vt = vbuf + (it & 1) * C::KVTILE + wk * BK * LD;
+
+    // S = Q K^T, 16 rows x BK keys, k8 step kk over d; B fragment of key
+    // tile n: K[n * 8 + g][kk * 8 + t], K[n * 8 + g][kk * 8 + t + 4]
+    float s[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (C::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = qh[kk][e];
+          al[e] = ql[kk][e];
+        }
+      } else {
+        const float* qr = qs + (r0 + g) * LD + kk * 8 + t;
+        ah[0] = __float_as_uint(qr[0]);
+        ah[1] = __float_as_uint(qr[8 * LD]);
+        ah[2] = __float_as_uint(qr[4]);
+        ah[3] = __float_as_uint(qr[8 * LD + 4]);
+        al[0] = __float_as_uint(qr[C::QTILE]);
+        al[1] = __float_as_uint(qr[C::QTILE + 8 * LD]);
+        al[2] = __float_as_uint(qr[C::QTILE + 4]);
+        al[3] = __float_as_uint(qr[C::QTILE + 8 * LD + 4]);
+      }
+      uint32_t bh[SN][2], bl[SN][2];
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+        const float* kr = kt + (n * 8 + g) * LD + kk * 8 + t;
+        split(kr[0], bh[n][0], bl[n][0]);
+        split(kr[4], bh[n][1], bl[n][1]);
+      }
+      // small terms first, each over every key tile before the next term
+#pragma unroll
+      for (int n = 0; n < SN; ++n) mma1688(s[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+      for (int n = 0; n < SN; ++n) mma1688(s[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+      for (int n = 0; n < SN; ++n) mma1688(s[n], ah, bh[n][0], bh[n][1]);
+    }
+
+    // scale; mask only the tiles that reach past T or the warp's diagonal
+    const bool edge = kt0 + BK > Tk || (causal && kt0 + BK - 1 > first);
+    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (edge) {
+          const int key = kt0 + n * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_lo : row_hi;
+          if (key >= Tk || (causal && key > row)) x = NEG_INF;
+        }
+        s[n][e] = x;
+        if (e < 2)
+          mx_lo = fmaxf(mx_lo, x);
+        else
+          mx_hi = fmaxf(mx_hi, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+      s[n][0] = expf(s[n][0] - mn_lo);
+      s[n][1] = expf(s[n][1] - mn_lo);
+      s[n][2] = expf(s[n][2] - mn_hi);
+      s[n][3] = expf(s[n][3] - mn_hi);
+      sum_lo += s[n][0] + s[n][1];
+      sum_hi += s[n][2] + s[n][3];
+    }
+    l_lo = l_lo * c_lo + sum_lo;
+    l_hi = l_hi * c_hi + sum_hi;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= c_lo;
+      acc[n][1] *= c_lo;
+      acc[n][2] *= c_hi;
+      acc[n][3] *= c_hi;
+    }
+
+    // O += P V, 8 keys a step.  P's accumulators are the A operand as they
+    // stand: the thread holds keys 2t and 2t + 1 where A's k index is t
+    // and t + 4, so k = t is key 2t and k = t + 4 key 2t + 1, and V's B
+    // fragment is read in that order: rows 2t and 2t + 1, column g.
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      uint32_t ph[4], pl[4];
+      split(s[j][0], ph[0], pl[0]);  // row g,     key 2t
+      split(s[j][2], ph[1], pl[1]);  // row g + 8, key 2t
+      split(s[j][1], ph[2], pl[2]);  // row g,     key 2t + 1
+      split(s[j][3], ph[3], pl[3]);  // row g + 8, key 2t + 1
+      const float* vr = vt + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NT; n0 += NG) {
+        uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          split(vr[(n0 + n) * 8], bh[n][0], bl[n][0]);
+          split(vr[LD + (n0 + n) * 8], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+          mma1688(acc[n0 + n], pl, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+          mma1688(acc[n0 + n], ph, bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+          mma1688(acc[n0 + n], ph, bh[n][0], bh[n][1]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  if constexpr (KS > 1) {
+    // the key split's partials merge in the order wk = 1, 2, ... into warp
+    // wk = 0's, through the K/V stages' space (no copy is in flight: the
+    // last commit group was empty)
+    __syncthreads();
+    if (wk > 0) {
+      float* p = kbuf + ((wk - 1) * WQ + wm) * C::SLOT;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(p + g * LD + n * 8 + 2 * t) =
+            make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(p + (g + 8) * LD + n * 8 + 2 * t) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+      if (t == 0) {
+        p[16 * LD + g] = m_lo;
+        p[16 * LD + 8 + g] = m_hi;
+        p[16 * LD + 16 + g] = l_lo;
+        p[16 * LD + 24 + g] = l_hi;
+      }
+    }
+    __syncthreads();
+    if (wk > 0) return;
+    for (int w = 1; w < KS; ++w) {
+      const float* p = kbuf + ((w - 1) * WQ + wm) * C::SLOT;
+      const float pm_lo = p[16 * LD + g], pm_hi = p[16 * LD + 8 + g];
+      const float mn_lo = fmaxf(m_lo, pm_lo), mn_hi = fmaxf(m_hi, pm_hi);
+      const float a_lo = expf(m_lo - mn_lo), b_lo = expf(pm_lo - mn_lo);
+      const float a_hi = expf(m_hi - mn_hi), b_hi = expf(pm_hi - mn_hi);
+      l_lo = l_lo * a_lo + p[16 * LD + 16 + g] * b_lo;
+      l_hi = l_hi * a_hi + p[16 * LD + 24 + g] * b_hi;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(p + g * LD + n * 8 + 2 * t);
+        const float2 y =
+            *reinterpret_cast<const float2*>(p + (g + 8) * LD + n * 8 + 2 * t);
+        acc[n][0] = acc[n][0] * a_lo + x.x * b_lo;
+        acc[n][1] = acc[n][1] * a_lo + x.y * b_lo;
+        acc[n][2] = acc[n][2] * a_hi + y.x * b_hi;
+        acc[n][3] = acc[n][3] * a_hi + y.y * b_hi;
+      }
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+    }
+  }
+
+  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  float* ob = o + (size_t)bh * S * D;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row_lo < S)
+      *reinterpret_cast<float2*>(ob + (size_t)row_lo * D + col) =
+          make_float2(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
+    if (row_hi < S)
+      *reinterpret_cast<float2*>(ob + (size_t)row_hi * D + col) =
+          make_float2(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
+  }
+  if (lse != nullptr && t == 0) {
+    if (row_lo < S)
+      lse[(size_t)bh * S + row_lo] = m_lo + logf(fmaxf(l_lo, 1e-30f));
+    if (row_hi < S)
+      lse[(size_t)bh * S + row_hi] = m_hi + logf(fmaxf(l_hi, 1e-30f));
+  }
+}
+
+template <int D, int WQ, int KS>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int BH, int BHkv, int S, int Tk, float scale,
+                   int causal, cudaStream_t stream) {
+  using C = Cfg<D, WQ, KS>;
+  const int n_tiles = (S + C::BQ - 1) / C::BQ;
+  if (n_tiles > 65535) return cudaErrorInvalidValue;
+  if (C::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D, WQ, KS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  flash_fwd_kernel<D, WQ, KS><<<dim3(BH, n_tiles), C::THREADS, C::SMEM,
+                                    stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Tk,
+      BH / BHkv, scale, causal);
+  return cudaGetLastError();
+}
+
+// The block per head dim (WQ query warps, KS key warps), chosen on the
+// H100 by a sweep of WQ in 1, 2, 4, 8, KS in 1, 2, 4 and BK in 16, 32, 64
+// (32 best at both shapes) at train_lm's shape (D = 64) and the training
+// shape (D = 128) (PERF.md §6 row 5d).  D <= 64: 32 queries and a key
+// walk split over two warps (2 x 2 warps): at train_lm's S = 256 the walk to
+// the diagonal of one warp, not the card's rate, sets the time, and
+// halving it beats every unsplit shape.  D = 112 and 128: 128 queries, 8
+// warps, 32-key stages (203 KB of shared memory at D = 128, one block an
+// SM): each staged K/V tile serves the most rows.
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* o, float* lse, int BH, int BHkv, int S, int Tk,
+                     float scale, int causal, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<16, 2, 2>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 32: return launch<32, 2, 2>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 64: return launch<64, 2, 2>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 112: return launch<112, 8, 1>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return launch<128, 8, 1>(q, k, v, o, lse, BH, BHkv, S, Tk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace f32
+
 }  // namespace
 
 extern "C" {
@@ -1481,19 +1751,19 @@ int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || S <= 0 || Tk <= 0 ||
       BH > 65535)
     return (int)cudaErrorInvalidValue;
+  // both kernels copy 16-byte rows by cp.async: every operand must start
+  // 16-aligned
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
+      16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(D, q, k, v, o, static_cast<float*>(lse), BH,
-                                BHkv, S, Tk, scale, causal, s);
-  if (dtype == 1) {
-    // cp.async copies 16-byte rows: every operand must start 16-aligned
-    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
-        16)
-      return (int)cudaErrorInvalidValue;
+    return (int)f32::dispatch(D, q, k, v, o, static_cast<float*>(lse), BH,
+                              BHkv, S, Tk, scale, causal, s);
+  if (dtype == 1)
     return (int)tc::dispatch(D, q, k, v, o, static_cast<float*>(lse), BH,
                              BHkv, S, Tk, scale, causal, s);
-  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,8 @@
 Port of ``repro.kernels.flash_attention``: the Pallas TPU kernel
 ``flash_attention_fwd`` (flash_attention.py:75, body ``_kernel`` :31)
 becomes CUDA in ``csrc/flash_attention.cu`` (built by
-``kernels.cuda_build`` at first use).  One block per (head, tile of 64
-queries) loops over 64-key tiles, keeping the online-softmax state (f32
+``kernels.cuda_build`` at first use).  One block per (head, tile of
+queries) loops over key tiles, keeping the online-softmax state (f32
 ``m``, ``l``, ``acc``) in registers; under ``causal`` it stops at the
 diagonal; grouped-query attention reads kv head ``h // g`` without
 repeating K and V.  It is bound by operations, and the dtype picks the
@@ -17,8 +17,17 @@ kernel:
             product with V, and ``l`` sums the rounded weights
             (``flash_attention_bf16p_plain`` spells that out; the source
             states the error bound).
-  float32   ``flash_fwd_kernel``: f32 FMA on the CUDA cores, P kept in f32
-            (TF32 tensor cores would miss the f32 tolerance).
+  float32   ``flash_fwd_kernel``: in place of its first version's f32
+            FMA on the CUDA cores (67 TFLOP/s), both products on the
+            tensor cores in three TF32 terms (mma.sync m16n8k8, 495 / 3 =
+            165 TFLOP/s): each operand and P split into ``hi = rna(x)``
+            and ``lo = rna(x - hi)``, ``lo hi + hi lo + hi hi`` summed in
+            f32, each product within about 2^-21 of the f32 one; K/V
+            tiles double-buffered by cp.async.  That keeps f32 accuracy
+            (one TF32 term, some 1e-3 off, would miss the f32
+            tolerance); ``flash_attention_3xtf32_plain`` spells it out.
+            Elsewhere the port's f32 products (``torch.matmul``) keep
+            TF32 off.
 
 Layouts as the reference's: ``flash_attention_fwd`` takes q ``(BH, S, D)``
 and k, v ``(BHkv, T, D)``; ``flash_attention_bshd`` takes the model's
@@ -29,7 +38,8 @@ instantiated per D); any other raises on the card.
 
 ``flash_attention_plain`` (a full softmax in f32, P in f32 for the product
 with V) is the Pallas kernel's function and the yardstick both kernels are
-held to: the f32 kernel within 2e-4, the bf16 one within 2e-2.  The
+held to: the f32 kernel within 2e-4 (and within 5e-5 of
+``flash_attention_3xtf32_plain``), the bf16 one within 2e-2.  The
 reference's chunked JAX attention (``models/layers.py:219``) instead casts
 ``p`` to V's dtype.  On a CPU tensor the wrappers run the plain version; a
 CUDA tensor launches a kernel or raises; a meta tensor (the dry run's)
@@ -150,6 +160,75 @@ def flash_attention_bf16p_plain(q: torch.Tensor, k: torch.Tensor,
     return (acc / l).reshape(bh, s, d).to(q.dtype)
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero (adding half
+    of the 13 dropped bits to the magnitude in the int32 view), the 13 low
+    bits then cleared; an f32 tensor holding TF32 values."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's split of an operand: ``hi = rna(x)``, ``lo =
+    rna(x - hi)`` (``x - hi`` is exact in f32), so ``hi + lo`` is within
+    2^-22 |x| of ``x``."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def _tf32_product(eq: str, a, b, terms: int) -> torch.Tensor:
+    """``einsum(eq)`` of two split operands in f32: ``lo_a hi_b + hi_a
+    lo_b + hi_a hi_b`` (small terms first, as the kernel accumulates them;
+    a product of two TF32 values is exact in f32), or ``hi_a hi_b`` alone
+    with ``terms=1``."""
+    (ah, al), (bh, bl) = a, b
+    big = torch.einsum(eq, ah, bh)
+    if terms == 1:
+        return big
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + big
+
+
+def flash_attention_3xtf32_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, causal: bool = True,
+                                 block_k: int = 64,
+                                 terms: int = 3) -> torch.Tensor:
+    """The f32 kernel's arithmetic in plain PyTorch: q, k, v and each
+    tile's weights P split by ``tf32_split``, both products summed in
+    three TF32 terms (``_tf32_product``), the online softmax over
+    ``block_k``-key tiles in f32 (``l`` sums the unsplit weights); cast to
+    q's dtype.  ``terms=1`` keeps ``hi_a hi_b`` alone, one TF32 product,
+    which shows on the CPU why the kernel takes three.  Not a wrapper's
+    fallback: a second yardstick beside ``flash_attention_plain``."""
+    _check(q, k, v)
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    bh, s, d = q.shape
+    bhkv, t, _ = k.shape
+    qs = tf32_split(q.float().reshape(bhkv, bh // bhkv, s, d))
+    kh, kl = tf32_split(k)
+    vh, vl = tf32_split(v)
+    m = torch.full((bhkv, bh // bhkv, s, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(bhkv, bh // bhkv, s, d, device=q.device)
+    rows = torch.arange(s, device=q.device)[:, None]
+    for k0 in range(0, t, block_k):
+        tile = slice(k0, k0 + block_k)
+        x = _tf32_product("hgsd,htd->hgst", qs, (kh[:, tile], kl[:, tile]),
+                          terms) * d ** -0.5
+        if causal:
+            keys = torch.arange(k0, k0 + x.shape[-1], device=q.device)
+            x = torch.where(keys[None, :] <= rows, x, NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp(x - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _tf32_product("hgst,htd->hgsd", tf32_split(p),
+                                         (vh[:, tile], vl[:, tile]), terms)
+        m = m_new
+    return (acc / l).reshape(bh, s, d).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared (builds on
@@ -171,8 +250,8 @@ def library() -> ctypes.CDLL:
 
 def _check_card(name: str, *ts: torch.Tensor) -> None:
     """The kernels' operand contract on the card: one CUDA device, one
-    dtype of ``_DTYPE_CODE``, contiguous, a supported head dim, bf16 rows
-    on 16-byte boundaries."""
+    dtype of ``_DTYPE_CODE``, contiguous, a supported head dim, every
+    operand starting on a 16-byte boundary."""
     q = ts[0]
     if not (q.is_cuda and all(t.device == q.device for t in ts)):
         raise ValueError(f"{name}: operands must be on one CUDA device, got "
@@ -185,8 +264,8 @@ def _check_card(name: str, *ts: torch.Tensor) -> None:
     if q.shape[2] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {q.shape[2]} has no kernel "
                          f"instance; supported: {SUPPORTED_HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: bf16 operands must start on a 16-byte "
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: operands must start on a 16-byte "
                          f"boundary (the kernels copy 16-byte rows)")
 
 

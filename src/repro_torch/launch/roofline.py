@@ -17,9 +17,11 @@ Terms, on one H100 SXM (datasheet constants, dense, at the 700 W limit):
 
   compute     the FLOPs of each dtype over that dtype's peak, summed:
               bf16 989 TFLOP/s (tensor cores), f32 67 TFLOP/s (CUDA
-              cores: TF32 stays off in the port).  The reference's single
-              TPU peak would price the f32 products (the LM head, rwkv6's
-              time-mix) 15x too cheap here;
+              cores: ``torch.matmul`` keeps TF32 off in the port; the f32
+              flash kernel runs three TF32 terms on the tensor cores at
+              f32 accuracy, priced here as f32 all the same).  The
+              reference's single TPU peak would price the f32 products
+              (the LM head, rwkv6's time-mix) 15x too cheap here;
   memory      bytes over the HBM3 rate, 3.35 TB/s;
   collective  collective bytes over NVLink, 450 GB/s a direction: zero
               while the port drives one device.
