@@ -119,10 +119,16 @@ Phases, each of which raises (non-zero exit) on failure:
                (``flash_attention_bwd``) on ``FLASH_BWD_SHAPES`` (D = 112,
                a group of 8, a ragged S; causal and not), f32 and bf16,
                against ``flash_attention_bwd_plain`` within 2e-4 / 2e-2 of
-               max |g|, each run twice and bitwise equal; the forward's
+               max |g|, the f32 kernels also within ``XTF32_BWD_TOL`` of
+               ``flash_attention_bwd_3xtf32_plain``, each run twice and
+               bitwise equal; the forward's
                ``o`` with its log-sum-exp bitwise the ``o`` without it,
                and the log-sum-exp within ``LSE_TOL`` (1e-5 f32, 4e-3
-               bf16) of the plain version's.
+               bf16) of the plain version's.  Then each f32 backward
+               kernel's device time by name under ``torch.profiler``
+               (``flash_bwd_split``, the process's first profiler
+               session) at ``train_lm``'s and the training shape, for
+               phase 16's row.
   9. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
                heads, bf16, seeded random weights) on the card: the
                reference's cross-form oracle (prefill(255) + decode_step ==
@@ -492,6 +498,18 @@ def tensor_core_counts(lib_path) -> dict:
         name = part.split(None, 1)[0]
         counts[name] = (part.count("HGMMA"), part.count("HMMA"))
     return counts
+
+
+def check_f32_bwd_hmma(counts: dict) -> dict:
+    """The f32 flash backward's dQ and dK/dV kernels among ``counts``
+    (``tensor_core_counts``): one of each per head dim, every one issuing
+    HMMA (its products on the tensor cores); returns them."""
+    f32 = {n: c for n, c in counts.items()
+           if "flash_bwd_dq_kernel" in n or "flash_bwd_dkdv_kernel" in n}
+    if len(f32) != 10 or not all(c[1] for c in f32.values()):
+        raise AssertionError(f"the f32 flash backward kernels issue no "
+                             f"HMMA: {f32}")
+    return f32
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -1798,6 +1816,15 @@ LSE_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 # a row of P V at T = 4096, the largest of 10^7 outputs about five such
 # deviations out (csrc/flash_attention.cu's header derives it)
 XTF32_TOL = 5e-5
+# the f32 backward kernels (three TF32 terms) against
+# flash_attention_bwd_3xtf32_plain, of max |g|: the tensor cores add each
+# mma's exact products into f32 with truncation, up to 2^-23 of the running
+# sum toward zero, 2^-24 on average; at most 3 * 4096 / 8 / 2 = 768 such
+# adds reach a dQ element at T = 4096 (two warps split its keys), 192 a dK
+# or dV element's segment: 768 * 2^-24 = 4.6e-5 of max |g| were every running
+# sum as large, beside the emulation's own 1e-5 (tested on the CPU)
+# (csrc/flash_attention.cu's `namespace bwd` derives it)
+XTF32_BWD_TOL = 1e-4
 # the tensor cores' dense TF32 rate (H100 SXM datasheet); the f32 kernel's
 # three terms a product leave a third of it
 PEAK_FLOPS_TF32 = 495e12
@@ -1882,13 +1909,33 @@ def _hold_f32_flash(torch, q, k, v, causal, got, errs, what, key):
                              f"on {what}")
 
 
+def _hold_f32_bwd(torch, args, causal, got, errs, what, key):
+    """The f32 backward kernels' (dq, dk, dv) within ``XTF32_BWD_TOL`` of
+    max |g| of ``flash_attention_bwd_3xtf32_plain`` on ``args`` (q, k, v,
+    out, lse, dout); the worst ratio kept under ``(key, "float32")``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_3xtf32_plain)
+
+    want = flash_attention_bwd_3xtf32_plain(*args, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        if not rel <= XTF32_BWD_TOL:
+            raise AssertionError(f"flash_attention_bwd float32 d{name}: "
+                                 f"{rel} of max |g| from "
+                                 f"flash_attention_bwd_3xtf32_plain (tol "
+                                 f"{XTF32_BWD_TOL}) on {what}")
+        errs[(key, "float32")] = max(errs.get((key, "float32"), 0.0), rel)
+
+
 def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
     """The forward kernel with its log-sum-exp: ``o`` bitwise the ``o`` of
     the launch without it, the log-sum-exp within ``LSE_TOL`` of
     ``flash_attention_plain``'s (kept under ``("lse:" + key, dtype)``).
     Then the backward kernels on (q, k, v, dout) and that output and
     log-sum-exp, run twice: bitwise equal, and held to
-    ``flash_attention_bwd_plain`` (``_hold_grads``)."""
+    ``flash_attention_bwd_plain`` (``_hold_grads``) and, in f32, to
+    ``flash_attention_bwd_3xtf32_plain`` (``_hold_f32_bwd``, kept under
+    ``("xtf32:" + key, "float32")``)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd,
@@ -1915,6 +1962,9 @@ def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
                              f"from run to run on {what}")
     _hold_grads(torch, dtype, got, flash_attention_bwd_plain(
         q, k, v, out, lse, dout, causal=causal), errs, what, key)
+    if dtype == "float32":
+        _hold_f32_bwd(torch, (q, k, v, out, lse, dout), causal, got, errs,
+                      what, "xtf32:" + key)
 
 
 def conv1d_bwd_check(torch, x, w, dy, dtype, errs, what, key):
@@ -3560,7 +3610,8 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
     summed over each group, held to the plain version's at
     ``_hold_grads``'s tolerance), the bound (``meta.flash_bwd_flops`` at 989 TFLOP/s bf16
     against q, k, v, o, dO, lse read and dq, dk, dv written at 3.35 TB/s),
-    phase 13's launches, the backward kernels' HGMMA/HMMA counts, and the
+    phase 13's launches, the backward kernels' HGMMA/HMMA counts (bf16
+    and f32; every f32 dQ and dK/dV kernel must issue HMMA), and the
     errors ``flash_train_checks`` kept (the log-sum-exp's, and the
     gradients' at the other training paths' shapes).  ``bshd`` is (q, k,
     v, dout) in the model's layout, ``kernel`` (q, k, v) in the kernels',
@@ -3613,6 +3664,7 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
         nbytes / R.HBM_BW * 1e3
     tc = {n: c for n, c in tensor_core_counts(
         cuda_build.build("flash_attention.cu")[0]).items() if "flash_bwd" in n}
+    check_f32_bwd_hmma(tc)
     source, replaces = LM_KERNELS["flash_attention_bwd"]
     print(f"  flash_attention_bwd_train_path at q ({b * h}, {s}, {d}) bf16: "
           f"kernels {k_ms:.4f} ms, plain {p_ms:.3f} ms, SDPA's backward "
@@ -3833,7 +3885,7 @@ def roofline_phase(measured: dict, mesh_runs: Optional[dict] = None
     print(f"roofline phase {time.perf_counter() - t0:.1f} s")
 
 
-def examples_phase(torch, tmp: str) -> list:
+def examples_phase(torch, tmp: str, bwd_split: dict) -> list:
     """The two LM examples in-process on the card: ``serve_lm`` at its
     defaults, then ``train_lm --steps 20`` (checkpoints every 10) and the
     same run resumed from its step-10 checkpoint alone, whose 10 losses
@@ -3841,7 +3893,8 @@ def examples_phase(torch, tmp: str) -> list:
     models are reduced f32 configs, so flash runs its f32 kernel
     (``flash_fwd_kernel``), which each example must launch: with the
     launch counts set to 0 after ``serve_lm`` and read after the two
-    ``train_lm`` runs, returns the f32 rows (``flash_f32_rows``)."""
+    ``train_lm`` runs, returns the f32 rows (``flash_f32_rows``, with
+    phase 8's ``bwd_split``)."""
     from repro_torch.examples import serve_lm, train_lm
     from repro_torch.kernels.flash_attention import FlashAttention
 
@@ -3877,7 +3930,7 @@ def examples_phase(torch, tmp: str) -> list:
           f"times over both runs, at the f32 row's shape, its f32 backward "
           f"kernels {bwd_launches} times); "
           f"{time.perf_counter() - t0:.1f} s")
-    rows = flash_f32_rows(torch, launches, bwd_launches)
+    rows = flash_f32_rows(torch, launches, bwd_launches, bwd_split)
     conv_examples(torch, tmp)
     return rows
 
@@ -4152,7 +4205,72 @@ def _sdpa_backend(torch, q, k, v) -> str:
         return "not read"
 
 
-def flash_f32_rows(torch, launches: int, bwd_launches: int) -> list:
+def bwd_kernel_ms(torch, fn, calls: int = 3) -> dict:
+    """Device ms per call of each f32 backward kernel that ``fn`` launches
+    (``dq``: flash_bwd_dq_kernel, ``dkdv``: flash_bwd_dkdv_kernel,
+    ``sum``: flash_bwd_dkdv_sum_kernel, where the walk is split), read by
+    kernel name under ``torch.profiler`` over ``calls`` calls.  Empty
+    unless the profiler saw every launch of dq and dkdv (it drops records
+    in a process that ran profiler sessions before)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out, seen = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or "flash_bwd_d" not in e.key:
+            continue
+        part = ("sum" if "dkdv_sum" in e.key else
+                "dkdv" if "dkdv" in e.key else "dq")
+        out[part] = out.get(part, 0.0) + \
+            e.self_device_time_total / calls / 1e3
+        seen[part] = seen.get(part, 0) + e.count
+    if seen.get("dq") != calls or seen.get("dkdv") != calls \
+            or seen.get("sum", calls) != calls:
+        print(f"  the profiler saw {seen} launches of {calls} calls: the "
+              f"f32 backward's kernels not measured apart")
+        return {}
+    return out
+
+
+def flash_bwd_split(torch) -> dict:
+    """Each f32 backward kernel's device ms (``bwd_kernel_ms``) at
+    ``train_lm``'s and the training path's flash shapes, causal, by
+    label.  Run in phase 8, before any other profiler session of the
+    process."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    gen = torch.Generator().manual_seed(29)
+    split = {}
+    for label, (b, s, t, h, hkv, d) in (("train_lm", TRAIN_LM_FLASH),
+                                        ("training", TRAIN_FLASH)):
+        q, k, v, do = (torch.randn(dims, generator=gen).cuda()
+                       for dims in ((b * h, s, d), (b * hkv, t, d),
+                                    (b * hkv, t, d), (b * h, s, d)))
+        out, lse = flash_attention_fwd(q, k, v, causal=True,
+                                       return_lse=True)
+        split[label] = bwd_kernel_ms(torch, lambda: flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True))
+        print(f"flash_attention_bwd_f32 kernels at q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)} f32 causal ({label}; profiler, by kernel "
+              f"name): " + (", ".join(
+                  f"{n} {split[label][n]:.4f} ms"
+                  for n in ("dq", "dkdv", "sum") if n in split[label])
+                  or "not measured"))
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return split
+
+
+def flash_f32_rows(torch, launches: int, bwd_launches: int,
+                   bwd_split: dict) -> list:
     """The f32 flash kernels at ``train_lm``'s default shape
     (``TRAIN_LM_FLASH``: batch 8, seq 256, 4 heads of 64 over 2 kv heads)
     and at the training path's (``TRAIN_FLASH``: q (16, 4096, 128), k/v
@@ -4163,8 +4281,11 @@ def flash_f32_rows(torch, launches: int, bwd_launches: int) -> list:
     log-sum-exp; the plain version (CUDA events); SDPA in f32 (TF32 off;
     device time, its backend named); the bounds of ``_f32_bounds``.  The
     ``flash_attention_bwd_f32`` row: the f32 backward kernels
-    (``flash_attention_bwd``, device time) and their plain version on
-    that forward's output and log-sum-exp, SDPA's backward pinned to the
+    (``flash_attention_bwd``, device time; each kernel's own from phase 8,
+    ``bwd_split`` of ``flash_bwd_split``) held within 2e-4 of max |g| of their
+    plain version and ``XTF32_BWD_TOL`` of
+    ``flash_attention_bwd_3xtf32_plain`` on that forward's output and
+    log-sum-exp, the plain version's time, SDPA's backward pinned to the
     memory-efficient kernel (device time: its forward and
     ``torch.autograd.grad`` captured together less its forward), the
     bounds of ``meta.flash_bwd_flops``.  Each row has the ``train_lm``
@@ -4218,6 +4339,8 @@ def flash_f32_rows(torch, launches: int, bwd_launches: int) -> list:
         grads = flash_attention_bwd(q, kk, v, got, lse, do, causal=True)
         _hold_grads(torch, "float32", grads, flash_attention_bwd_plain(
             q, kk, v, got, lse, do, causal=True), errs, what, "bwd")
+        _hold_f32_bwd(torch, (q, kk, v, got, lse, do), True, grads, errs,
+                      what, "xtf32_bwd")
         b_ms = device_ms(torch, lambda: flash_attention_bwd(
             q, kk, v, got, lse, do, causal=True), iters=5 if big else 20)
         bp_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
@@ -4242,6 +4365,8 @@ def flash_f32_rows(torch, launches: int, bwd_launches: int) -> list:
                                  "its forward and backward less its "
                                  "forward",
                       "max_abs_err": errs[("bwd", "float32")],
+                      "xtf32_err": errs[("xtf32_bwd", "float32")],
+                      "kernel_ms": bwd_split.get(label, {}),
                       "shape": fwd[label]["shape"],
                       **_f32_bounds(flash_bwd_flops(b * h, s, t, d, True),
                                     nbytes)}
@@ -4257,7 +4382,9 @@ def flash_f32_rows(torch, launches: int, bwd_launches: int) -> list:
               f"(efficient) {lib_b_ms:.4f} ms, bound "
               f"{bwd[label]['bound_ms']:.4f} ms (f32 FMA "
               f"{bwd[label]['bound_f32_fma_ms']:.4f}); "
-              f"{bwd[label]['max_abs_err']:.3e} of max |g|")
+              f"{bwd[label]['max_abs_err']:.3e} (plain), "
+              f"{bwd[label]['xtf32_err']:.3e} (3xTF32 emulation) of max "
+              f"|g|")
         del q, kk, v, do, q4, k4, v4, got, lse, grads, leaves, dref
         torch.cuda.empty_cache()
     source, replaces = LM_KERNELS["flash_attention_fwd"]
@@ -6110,6 +6237,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
             if len(bwd) != 10 or not all(c[1] for c in bwd.values()):
                 raise AssertionError(f"the bf16 flash backward kernels "
                                      f"contain no HMMA: {bwd}")
+            check_f32_bwd_hmma(counts)
 
     errs = {}
     t0 = time.perf_counter()
@@ -6127,6 +6255,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     tuned_plans = tune_phase(torch, sched, chain, train_run)
 
     lm_errs = lm_kernel_phase(torch)
+    bwd_split = flash_bwd_split(torch)
     lm_counts, _ = lm_path(torch, np)
     dense = attn_lm_path(torch, np)
     ssm_lm(torch, np)
@@ -6138,7 +6267,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     rows += lm_train_rows(torch, lm_train, hybrid, lm_errs)
     analyze_phase(torch, list(sched.registry.plans().values())
                   + [p for _, _, p in train_run["walk"]] + tuned_plans)
-    rows += examples_phase(torch, tmp)
+    rows += examples_phase(torch, tmp, bwd_split)
     rows += shard_phase(torch, tmp, errs)
     measured = measured_steps(dense, lm_train)
     lm_train.clear()

@@ -58,17 +58,22 @@
 // kernel's base-2 m converted), which the backward reads.  o is computed
 // exactly as without it.
 //
-// The backward (flash_bwd_dq_kernel and flash_bwd_dkdv_kernel in f32,
-// their _bf16_ counterparts on the tensor cores, below) is not the port of
-// a TPU kernel: the reference has none, and its training differentiates the
-// chunked JAX attention (src/repro/models/layers.py:176) with XLA.  It is
-// the hand-written gradient of this file's forward.  What bounds it:
+// The backward (flash_bwd_dq_bf16_kernel and flash_bwd_dkdv_bf16_kernel in
+// bf16, `namespace tc`; flash_bwd_dq_kernel, flash_bwd_dkdv_kernel and
+// flash_bwd_dkdv_sum_kernel in f32, `namespace bwd`, last) is not the port
+// of a TPU kernel: the reference has none, and its training differentiates
+// the chunked JAX attention (src/repro/models/layers.py:176) with XLA.  It
+// is the hand-written gradient of this file's forward.  What bounds it:
 // operations, 10 BH S T D FLOPs (S, dP, dV, dK and dQ; halved under
 // causal) against q, k, v, o, dO, lse read once and dq, dk, dv written
 // once.  The dQ kernel recomputes S and dP (seven products in all), which
-// buys the absence of atomics: every gradient element is summed by one
-// block in a fixed order, so the gradients are bitwise the same from run
-// to run and a sequence's do not depend on its batch.
+// buys the absence of atomics: every gradient element is summed in a fixed
+// order (the f32 dK/dV walk in segments whose f32 sums a second pass adds
+// in order), so the gradients are bitwise the same from run to run and a
+// sequence's do not depend on its batch.  Both dtypes run every product on
+// the tensor cores: bf16 on mma.sync m16n8k16, f32 on mma.sync m16n8k8 tf32
+// in three terms as flash_fwd_kernel does (at the training shape its seven
+// products are 240.5 GFLOP, 1.46 ms at 165 TFLOP/s).
 //
 // flash_fwd_kernel (f32: train_lm, serve_lm and the f32 copies of the oracles
 // and rings; below `namespace tc`).  What bounds it: operations. At the
@@ -145,334 +150,9 @@
 
 namespace {
 
-// Tiles of the f32 backward (`namespace bwd`)
-constexpr int BQ = 64;       // queries per block
-constexpr int BK = 64;       // keys per staged tile
-constexpr int TX = 8;        // threads sharing one tile row
-constexpr int CPT = BK / TX; // score columns per thread
-constexpr int PS = BK + 1;   // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < TX; off <<= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// Backward, f32: FMA on the CUDA cores
-// ---------------------------------------------------------------------------
-// Both backward kernels take the forward's log-sum-exp (natural log of the
-// row's sum of exp(scale * q.k) over its unmasked keys), so P = exp(scale *
-// q.k - lse) is recomputed tile by tile and never stored; delta = rowsum(dO
-// o O).  The dQ kernel runs first and writes delta, which the dK/dV kernel
-// reads.  With dS = P o (dP - delta):
-//   dQ = scale * dS K        one block per (q head, 64 queries), walking
-//                            the key tiles up to the diagonal;
-//   dK = scale * dS^T Q,     one block per (kv head, 64 keys), walking its
-//   dV = P^T dO              group's q heads and, under `causal`, only the
-//                            query tiles from the diagonal on.
-// Every gradient element is summed by one block in a fixed order, with no
-// atomics and no sum across blocks: dq, dk and dv are bitwise the same from
-// run to run, and a sequence's gradients do not depend on the other
-// sequences of its batch.
-namespace bwd {
-
-constexpr int THREADS = 256;
-constexpr int RPT = 2;         // tile rows per thread (64 = THREADS / TX * RPT)
-static_assert(BQ == BK, "the causal walks start at the diagonal tile");
-
-// K, V, Q, dO tiles [64][D + 1], the P or dS tile [64][PS], lse and delta
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * (size_t)BQ * (D + 1) + (size_t)BQ * PS + 2 * BQ);
-}
-
-// Rows [r0, r0 + 64) of a [n_rows][D] operand into a [64][D + 1] tile,
-// rows past n_rows zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int n_rows) {
-  for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = r0 + r < n_rows ? src[(size_t)(r0 + r) * D + c] : 0.f;
-  }
-}
-
-// s[i][j] = a[row i] . b[row j] over D: thread (ty, tx) owns rows ty * RPT
-// + i of `a` and rows tx + TX * j of `b`.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx,
-                                         float (&s)[RPT][CPT]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[RPT], bv[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) av[i] = a[(ty * RPT + i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) bv[j] = b[(tx + TX * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c p[row ty * RPT + i][c] * b[c][tx + TX * j]
-template <int D>
-__device__ __forceinline__ void tile_acc(const float* p, const float* b,
-                                         int ty, int tx,
-                                         float (&acc)[RPT][D / TX]) {
-  constexpr int DP = D + 1;
-  for (int c = 0; c < BK; ++c) {
-    float pv[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) pv[i] = p[(ty * RPT + i) * PS + c];
-#pragma unroll
-    for (int j = 0; j < D / TX; ++j) {
-      const float bv = b[c * DP + tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], bv, acc[i][j]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    float* __restrict__ dq, int S, int Tk, int group,
-                    float scale, int causal) {
-  static_assert(D % TX == 0, "head dim must be a multiple of 8");
-  constexpr int DP = D + 1, DPT = D / TX;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;            // [BQ][DP]
-  float* dos = qs + BQ * DP;   // [BQ][DP]
-  float* ks = dos + BQ * DP;   // [BK][DP]
-  float* vs = ks + BK * DP;    // [BK][DP]
-  float* ps = vs + BK * DP;    // [BQ][PS]: dS
-  float* ls = ps + BQ * PS;    // [BQ]: lse
-  float* dl = ls + BQ;         // [BQ]: delta
-
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const size_t qoff = (size_t)bh * S * D;
-  const float* kb = k + (size_t)(bh / group) * Tk * D;
-  const float* vb = v + (size_t)(bh / group) * Tk * D;
-
-  load_rows<D>(qs, q + qoff, q0, S);
-  load_rows<D>(dos, dout + qoff, q0, S);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i, qpos = q0 + r;
-    float part = 0.f;
-    if (qpos < S) {
-#pragma unroll
-      for (int j = 0; j < DPT; ++j)
-        part = fmaf(dos[r * DP + tx + TX * j],
-                    o[qoff + (size_t)qpos * D + tx + TX * j], part);
-    }
-    part = row_sum(part);
-    if (tx == 0) {
-      ls[r] = qpos < S ? lse[(size_t)bh * S + qpos] : 0.f;
-      dl[r] = part;
-      if (qpos < S) delta[(size_t)bh * S + qpos] = part;
-    }
-  }
-
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // lse, delta published; every thread done with K, V, dS
-    load_rows<D>(ks, kb, k0, Tk);
-    load_rows<D>(vs, vb, k0, Tk);
-    __syncthreads();
-    float s[RPT][CPT], dp[RPT][CPT];
-    tile_dot<D>(qs, ks, ty, tx, s);    // S = Q K^T
-    tile_dot<D>(dos, vs, ty, tx, dp);  // dP = dO V^T
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty * RPT + i, qpos = q0 + r;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int key = k0 + tx + TX * j;
-        const bool ok = qpos < S && key < Tk && !(causal && key > qpos);
-        const float p = ok ? expf(fmaf(s[i][j], scale, -ls[r])) : 0.f;
-        ps[r * PS + tx + TX * j] = p * (dp[i][j] - dl[r]);
-      }
-    }
-    __syncthreads();  // the dS tile is complete
-    tile_acc<D>(ps, ks, ty, tx, acc);  // dQ += dS K
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qpos = q0 + ty * RPT + i;
-    if (qpos >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      dq[qoff + (size_t)qpos * D + tx + TX * j] = acc[i][j] * scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int S, int Tk, int group,
-                      float scale, int causal) {
-  static_assert(D % TX == 0, "head dim must be a multiple of 8");
-  constexpr int DP = D + 1, DPT = D / TX;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;            // [BK][DP]
-  float* vs = ks + BK * DP;    // [BK][DP]
-  float* qs = vs + BK * DP;    // [BQ][DP]
-  float* dos = qs + BQ * DP;   // [BQ][DP]
-  float* ps = dos + BQ * DP;   // [BK][PS]: P^T, then dS^T
-  float* ls = ps + BK * PS;    // [BQ]
-  float* dl = ls + BQ;         // [BQ]
-
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const size_t kvoff = (size_t)hk * Tk * D;
-  load_rows<D>(ks, k + kvoff, k0, Tk);
-  load_rows<D>(vs, v + kvoff, k0, Tk);
-
-  float dka[RPT][DPT], dva[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  // queries before k0 see none of these keys under `causal`
-  const int q_begin = causal ? k0 : 0;
-  for (int h = 0; h < group; ++h) {
-    const int bh = hk * group + h;
-    const size_t qoff = (size_t)bh * S * D;
-    for (int q0 = q_begin; q0 < S; q0 += BQ) {
-      __syncthreads();  // every thread is done with Q, dO and dS^T
-      load_rows<D>(qs, q + qoff, q0, S);
-      load_rows<D>(dos, dout + qoff, q0, S);
-      for (int r = tid; r < BQ; r += THREADS) {
-        const bool ok = q0 + r < S;
-        ls[r] = ok ? lse[(size_t)bh * S + q0 + r] : 0.f;
-        dl[r] = ok ? delta[(size_t)bh * S + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      float s[RPT][CPT], p[RPT][CPT];
-      tile_dot<D>(ks, qs, ty, tx, s);  // S^T = K Q^T
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int key = k0 + ty * RPT + i;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = tx + TX * j, qpos = q0 + c;
-          const bool ok = qpos < S && key < Tk && !(causal && key > qpos);
-          p[i][j] = ok ? expf(fmaf(s[i][j], scale, -ls[c])) : 0.f;
-          ps[(ty * RPT + i) * PS + c] = p[i][j];
-        }
-      }
-      __syncthreads();  // the P^T tile is complete
-      tile_acc<D>(ps, dos, ty, tx, dva);  // dV += P^T dO
-      tile_dot<D>(vs, dos, ty, tx, s);    // dP^T = V dO^T
-      __syncthreads();  // every thread is done reading P^T
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = tx + TX * j;
-          ps[(ty * RPT + i) * PS + c] = p[i][j] * (s[i][j] - dl[c]);
-        }
-      __syncthreads();  // the dS^T tile is complete
-      tile_acc<D>(ps, qs, ty, tx, dka);   // dK += dS^T Q
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int key = k0 + ty * RPT + i;
-    if (key >= Tk) continue;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const size_t at = kvoff + (size_t)key * D + tx + TX * j;
-      dk[at] = dka[i][j] * scale;
-      dv[at] = dva[i][j];
-    }
-  }
-}
-
-template <int D>
-cudaError_t bwd_launch(const void* q, const void* k, const void* v,
-                       const void* o, const float* lse, const void* dout,
-                       void* dq, void* dk, void* dv, float* delta, int BH,
-                       int BHkv, int S, int Tk, float scale, int causal,
-                       cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
-  flash_bwd_dq_kernel<D><<<dim3((S + BQ - 1) / BQ, BH), THREADS, smem,
-                           stream>>>(
-      qf, kf, vf, static_cast<const float*>(o), df, lse, delta,
-      static_cast<float*>(dq), S, Tk, BH / BHkv, scale, causal);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<D><<<dim3((Tk + BK - 1) / BK, BHkv), THREADS, smem,
-                             stream>>>(
-      qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, Tk, BH / BHkv, scale, causal);
-  return cudaGetLastError();
-}
-
-cudaError_t bwd_dispatch(int D, const void* q, const void* k, const void* v,
-                         const void* o, const float* lse, const void* dout,
-                         void* dq, void* dk, void* dv, float* delta, int BH,
-                         int BHkv, int S, int Tk, float scale, int causal,
-                         cudaStream_t stream) {
-  switch (D) {
-    case 16: return bwd_launch<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 32: return bwd_launch<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 64: return bwd_launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 112: return bwd_launch<112>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 128: return bwd_launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace bwd
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma m64nNk16), cp.async double buffering
@@ -1735,6 +1415,745 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace f32
 
+// ---------------------------------------------------------------------------
+// Backward, f32: tensor cores in three TF32 terms (mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+// Both backward kernels take the forward's log-sum-exp (natural log of the
+// row's sum of exp(scale * q.k) over its unmasked keys), so P = exp(scale *
+// q.k - lse) is recomputed tile by tile and never stored; delta = rowsum(dO
+// o O).  The dQ kernel runs first and writes delta, which the dK/dV kernel
+// reads.  With dS = P o (dP - delta):
+//   dQ = scale * dS K        one block per (q head, BQ rows), walking the
+//                            key stages up to the diagonal;
+//   dK = scale * dS^T Q,     one block per (kv head, BKV keys, segment),
+//   dV = P^T dO              walking a segment of its group's (q head,
+//                            query stage) pairs from the diagonal on.
+// Every product (S and dP in each kernel, dQ, dV, dK) is mma.sync m16n8k8
+// tf32 in three terms with the forward's split (f32::split, mma1688): lo_a
+// hi_b + hi_a lo_b + hi_a hi_b in f32 accumulators.  What bounds it:
+// operations, 240.5 GFLOP at the training shape (q (16, 4096, 128), k/v
+// (2, 4096, 128), causal; seven products), 1.46 ms at the 165 TFLOP/s
+// three TF32 terms leave of 495.  A block is W x CS warps: warp (w, c)
+// owns 16 rows (queries in the dQ kernel, keys in the dK/dV kernel) and
+// the c-th 1/CS of each stage's columns (keys, queries), so no product
+// needs another warp's result; at the end the CS warps of the same rows
+// add their sums in the order c = 1, 2, ... through shared memory
+// (`merge_columns`).  Two warps on the same rows is what lets a block of
+// 203 KB (D = 128, one an SM) run 8 warps: the stages and the split rows
+// leave no room for more rows.  The block's own rows (Q and dO, or K and
+// V) are staged once by cp.async and split once in shared memory (hi over
+// the values, lo beside them), then read as A fragments; the walked stages
+// (K and V, or Q and dO) are double-buffered by 16-byte cp.async with
+// zero-fill and split as a warp reads its B fragments.  Every tile has rows
+// of LD = D + 4 floats, so every fragment read falls on 32 distinct banks
+// (see flash_fwd_kernel).  P and dS are made in the accumulators and split
+// where they stand as the A operand of the next product, as the forward
+// feeds P: A wants columns t and t + 4 where the thread holds 2t and 2t +
+// 1, so B's rows are read in the order 2t, 2t + 1.  The dK/dV kernel
+// computes S^T = K Q^T (keys as rows), so P^T dO and dS^T Q take their A
+// operands from the accumulators too, with no transpose through shared
+// memory.  The dQ kernel runs its query tiles heaviest first (blockIdx.y
+// reversed).
+//
+// The dK/dV walk is split.  Under `causal` the key block at the start of a
+// sequence walks every query stage of its group's q heads and the one at
+// the end a single stage, so one block per key block leaves the card
+// waiting on the first ones (at the training shape the first walked twice
+// the mean).  The walk of key block j, its group's q heads times its query
+// stages (`walk`), is cut into segments of L stages (`seg_stages`: the
+// heaviest key block's walk in about SEG_TARGET segments, at least SEG_MIN
+// stages each) and each segment is a block; the blocks are enumerated key
+// block by key block, the heaviest first.  L and the segments depend only
+// on (S, T, D, group) and `causal`, never on BH or the batch, which
+// kernels/flash_attention.dkdv_split repeats for the wrapper's workspace.
+// A key block walked by one segment writes dk and dv itself; one walked by
+// several writes each segment's f32 sums into `part`, and
+// flash_bwd_dkdv_sum_kernel adds them in segment order (the pattern of the
+// segsum block of mg3m_conv.cu / causal_conv1d.cu, with a segment count
+// per key block).  Every gradient element is summed in a fixed order, with
+// no atomics: dq, dk and dv are bitwise the same from run to run, and a
+// sequence's gradients do not depend on the other sequences of its batch.
+//
+// Where it rounds, against flash_attention_bwd_3xtf32_plain (the same
+// split and exact products; the tests hold it within 1e-5 of max |g| of
+// flash_attention_bwd_plain).  The two differ in the order and the rounding
+// of their sums.  S and dP: about sqrt(3D) u (u = 2^-24) of their partial
+// sums, 1.2e-6 of a score at D = 128 (see flash_fwd_kernel), a relative
+// 1.2e-6 in P and dS, below the split's own 2^-22.  The gradients' long
+// sums dominate: the tensor cores add each mma's exact products into the
+// f32 accumulator with truncation rather than to nearest (as measured for
+// earlier NVIDIA tensor cores by Fasi, Higham, Mikaitis and Pranesh, 2021;
+// the readings at the training shape, some 30 times the f32 FMA
+// kernels', bear it out), so an add loses up to 2^-23 of the running sum
+// and 2^-24 on average, always toward zero, and the losses of m adds add
+// up rather than cancel.  A dQ
+// element takes m = 3 T / (8 CS) adds (768 at T = 4096, CS = 2), a dK or
+// dV element 3 L BQ / (8 CS) a segment (192 at the training shape), then
+// the merge's and the second pass's adds to nearest: 768 * 2^-24 = 4.6e-5
+// of max |g| had every running sum been as large as max |g|.  Most are far
+// smaller; the readings are 1e-6 to 2e-5.  chip_smoke.py holds the kernels
+// to the emulation within 1e-4 of max |g| (`XTF32_BWD_TOL`), beside the
+// f32 tolerance of 2e-4 against flash_attention_bwd_plain.
+namespace bwd {
+
+using f32::mma1688;
+using f32::split;
+using f32::stage;
+using tc::cp_async_commit;
+
+constexpr int BK = 32;          // keys a dQ stage holds
+constexpr int BQ = 32;          // queries a dK/dV stage holds
+constexpr int CS = 2;           // warps that share 16 rows, a stage each half
+constexpr int SEG_TARGET = 32;  // segments of the heaviest key block's walk
+constexpr int SEG_MIN = 4;      // the fewest query stages of a segment
+constexpr int SUM_THREADS = 256;
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The n8 tiles of a product whose B fragments are split and held at once:
+// the largest of 4, 2, 1 that divides NT (fewer registers than the
+// forward's group_of, beside the dK/dV kernel's two D-wide accumulators).
+__host__ __device__ constexpr int group4(int nt) {
+  return nt % 4 == 0 ? 4 : nt % 2 == 0 ? 2 : 1;
+}
+
+// The dK/dV walk's split (kernels/flash_attention.dkdv_split repeats it).
+// L, the query stages of a segment.
+__host__ __device__ inline int seg_stages(int S, int group) {
+  const int stages = (group * ((S + BQ - 1) / BQ) + SEG_TARGET - 1) /
+                     SEG_TARGET;
+  return stages > SEG_MIN ? stages : SEG_MIN;
+}
+// The (q head, query stage) pairs key block j (of bkv keys) walks.
+__host__ __device__ inline int walk(int j, int bkv, int S, int group,
+                                    int causal) {
+  const int q_begin = causal ? j * bkv : 0;
+  return q_begin < S ? group * ((S - q_begin + BQ - 1) / BQ) : 0;
+}
+// Its segments: at least one, which writes zeros where the walk is empty.
+__host__ __device__ inline int segments(int j, int bkv, int S, int group,
+                                        int causal, int L) {
+  const int n = (walk(j, bkv, S, group, causal) + L - 1) / L;
+  return n > 1 ? n : 1;
+}
+
+// A [ROWS][D + 4] tile of f32 values split in place: hi over the values,
+// lo `tile` floats later.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void split_tile(float* x, int tile) {
+  constexpr int LD = D + 4;
+  for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
+    const int at = e / D * LD + e % D;
+    uint32_t hi, lo;
+    split(x[at], hi, lo);
+    x[at] = __uint_as_float(hi);
+    x[tile + at] = __uint_as_float(lo);
+  }
+}
+
+// s[n] += X Y^T over k8 step kk of D, n < SN: X the warp's 16 rows of a
+// split tile (x at its first row, lo `tile` floats after hi), A fragments
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); Y's rows n * 8 + g raw at
+// y, split here as B fragments (columns t, t + 4).  Small terms first,
+// each over every n8 tile before the next term.
+template <int D, int SN>
+__device__ __forceinline__ void abt_step(const float* x, int tile,
+                                         const float* y, int kk,
+                                         float (&s)[SN][4]) {
+  constexpr int LD = D + 4;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const float* xr = x + g * LD + kk * 8 + t;
+  uint32_t ah[4], al[4];
+  ah[0] = __float_as_uint(xr[0]);
+  ah[1] = __float_as_uint(xr[8 * LD]);
+  ah[2] = __float_as_uint(xr[4]);
+  ah[3] = __float_as_uint(xr[8 * LD + 4]);
+  al[0] = __float_as_uint(xr[tile]);
+  al[1] = __float_as_uint(xr[tile + 8 * LD]);
+  al[2] = __float_as_uint(xr[tile + 4]);
+  al[3] = __float_as_uint(xr[tile + 8 * LD + 4]);
+  uint32_t bh[SN][2], bl[SN][2];
+#pragma unroll
+  for (int n = 0; n < SN; ++n) {
+    const float* yr = y + (n * 8 + g) * LD + kk * 8 + t;
+    split(yr[0], bh[n][0], bl[n][0]);
+    split(yr[4], bh[n][1], bl[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < SN; ++n) mma1688(s[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < SN; ++n) mma1688(s[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < SN; ++n) mma1688(s[n], ah, bh[n][0], bh[n][1]);
+}
+
+// s[n] += X Y^T over D (`abt_step`): the even k8 steps sum into s, the odd
+// ones into a second set added at the end, two independent chains of mma
+// a tile where one chain would wait on each product's latency.
+template <int D, int SN>
+__device__ __forceinline__ void abt(const float* x, int tile, const float* y,
+                                    float (&s)[SN][4]) {
+  static_assert(D % 16 == 0, "the k8 steps pair up");
+  float s1[SN][4];
+#pragma unroll
+  for (int n = 0; n < SN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s1[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; kk += 2) {
+    abt_step<D, SN>(x, tile, y, kk, s);
+    abt_step<D, SN>(x, tile, y, kk + 1, s1);
+  }
+#pragma unroll
+  for (int n = 0; n < SN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += s1[n][e];
+}
+
+// acc (16 x D) += X Y: X (16 x 8 SN) in the accumulators x, split here and
+// fed as A where it stands (k = t is column 2t, k = t + 4 column 2t + 1 of
+// each n8 tile); Y's rows 0 .. 8 SN - 1 raw at y, B read in that order
+// (rows 2t and 2t + 1 of each k8 step, column g).
+template <int D, int SN>
+__device__ __forceinline__ void xb(const float (&x)[SN][4], const float* y,
+                                   float (&acc)[D / 8][4]) {
+  constexpr int LD = D + 4, NT = D / 8, NG = group4(NT);
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < SN; ++j) {
+    uint32_t xh[4], xl[4];
+    split(x[j][0], xh[0], xl[0]);  // row g,     column 2t
+    split(x[j][2], xh[1], xl[1]);  // row g + 8, column 2t
+    split(x[j][1], xh[2], xl[2]);  // row g,     column 2t + 1
+    split(x[j][3], xh[3], xl[3]);  // row g + 8, column 2t + 1
+    const float* yr = y + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n0 = 0; n0 < NT; n0 += NG) {
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        split(yr[(n0 + n) * 8], bh[n][0], bl[n][0]);
+        split(yr[LD + (n0 + n) * 8], bh[n][1], bl[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n) mma1688(acc[n0 + n], xl, bh[n][0], bh[n][1]);
+#pragma unroll
+      for (int n = 0; n < NG; ++n) mma1688(acc[n0 + n], xh, bl[n][0], bl[n][1]);
+#pragma unroll
+      for (int n = 0; n < NG; ++n) mma1688(acc[n0 + n], xh, bh[n][0], bh[n][1]);
+    }
+  }
+}
+
+// The dQ kernel's block: WQ x CS warps over BQ = 16 WQ query rows; warp
+// (wm, wc) owns rows 16 wm .. 16 wm + 15 and, of each stage of BK keys,
+// the wc-th CK = BK / CS.
+template <int D, int WQ>
+struct DqCfg {
+  static_assert(D % 8 == 0, "tiles are cut into 8 x 8 blocks");
+  static constexpr int LD = D + 4;
+  static constexpr int BQ = 16 * WQ;
+  static constexpr int THREADS = 32 * WQ * CS;
+  static constexpr int CK = BK / CS;      // keys a warp takes of a stage
+  static_assert(CK % 8 == 0, "a warp takes whole n8 tiles of keys");
+  static constexpr int QTILE = BQ * LD;   // floats of Q's (or dO's) hi
+  static constexpr int KVTILE = BK * LD;  // floats of one K or V stage
+  // Q and dO, each split (hi, lo); then K and V, double-buffered
+  static constexpr size_t SMEM =
+      sizeof(float) * (4 * (size_t)QTILE + 4 * (size_t)KVTILE);
+  static_assert((CS - 1) * WQ * 16 * D <= 4 * (QTILE + KVTILE),
+                "the column split's partials reuse the tiles");
+};
+
+// The dK/dV kernel's block: WK x CS warps over BKV = 16 WK keys; warp
+// (wk, wc) owns keys 16 wk .. 16 wk + 15 and, of each stage of BQ
+// queries, the wc-th CQ = BQ / CS.
+template <int D, int WK>
+struct DkdvCfg {
+  static_assert(D % 8 == 0, "tiles are cut into 8 x 8 blocks");
+  static constexpr int LD = D + 4;
+  static constexpr int BKV = 16 * WK;
+  static constexpr int THREADS = 32 * WK * CS;
+  static constexpr int CQ = BQ / CS;      // queries a warp takes of a stage
+  static_assert(CQ % 8 == 0, "a warp takes whole n8 tiles of queries");
+  static_assert(BKV % BQ == 0, "a causal walk starts on a query stage");
+  static constexpr int KTILE = BKV * LD;  // floats of K's (or V's) hi
+  static constexpr int QTILE = BQ * LD;   // floats of one Q or dO stage
+  // K and V, each split (hi, lo); Q and dO stages double-buffered; each
+  // stage's lse and delta
+  static constexpr size_t SMEM =
+      sizeof(float) * (4 * (size_t)KTILE + 4 * (size_t)QTILE + 4 * BQ);
+  static_assert((CS - 1) * WK * 16 * D <= 4 * (KTILE + QTILE),
+                "the column split's partials reuse the tiles");
+};
+
+// The column split's merge: warps wc = 1, 2, ... leave their n accumulator
+// tiles (a warp's 16 rows by 8 n columns) in `buf`, and warp wc = 0 of the
+// same rows adds them in that order, so the sum is the same from run to
+// run.  Every warp of the block calls it; warps wc > 0 are done after it.
+template <int NTILES, int W>
+__device__ __forceinline__ void merge_columns(float (&acc)[NTILES][4],
+                                              float* buf, int wr, int wc) {
+  constexpr int F = NTILES * 8 * 16;  // floats a warp leaves
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  __syncthreads();  // every warp is done with the tiles `buf` overlays
+  if (wc > 0) {
+    float* p = buf + ((wc - 1) * W + wr) * F;
+#pragma unroll
+    for (int n = 0; n < NTILES; ++n) {
+      *reinterpret_cast<float2*>(p + g * NTILES * 8 + n * 8 + 2 * t) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(p + (g + 8) * NTILES * 8 + n * 8 + 2 * t) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+  if (wc > 0) return;
+  for (int w = 1; w < CS; ++w) {
+    const float* p = buf + ((w - 1) * W + wr) * F;
+#pragma unroll
+    for (int n = 0; n < NTILES; ++n) {
+      const float2 x =
+          *reinterpret_cast<const float2*>(p + g * NTILES * 8 + n * 8 + 2 * t);
+      const float2 y = *reinterpret_cast<const float2*>(
+          p + (g + 8) * NTILES * 8 + n * 8 + 2 * t);
+      acc[n][0] += x.x;
+      acc[n][1] += x.y;
+      acc[n][2] += y.x;
+      acc[n][3] += y.y;
+    }
+  }
+}
+
+template <int D, int WQ>
+__global__ void __launch_bounds__(DqCfg<D, WQ>::THREADS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    float* __restrict__ dq, int S, int Tk, int group,
+                    float scale, int causal) {
+  using C = DqCfg<D, WQ>;
+  constexpr int LD = C::LD, BQR = C::BQ, THREADS = C::THREADS, NT = D / 8;
+  constexpr int CK = C::CK, SN = CK / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // [BQR][LD]: Q; split: hi, then lo
+  float* ds = smem + 2 * C::QTILE;     // [BQR][LD]: dO; split likewise
+  float* kbuf = smem + 4 * C::QTILE;   // [2][BK][LD]
+  float* vbuf = kbuf + 2 * C::KVTILE;  // [2][BK][LD]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQR;  // heaviest tiles first
+  const size_t qoff = (size_t)bh * S * D;
+  const float* kb = k + (size_t)(bh / group) * Tk * D;
+  const float* vb = v + (size_t)(bh / group) * Tk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % WQ, wc = warp / WQ;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wm * 16;                        // the warp's rows in the tile
+  const int first = q0 + r0, last = first + 15;  // and their positions
+  const int row_lo = first + g, row_hi = row_lo + 8;
+  const int k_end = causal ? min(Tk, q0 + BQR) : Tk;
+  const int n_stages = (k_end + BK - 1) / BK;
+
+  stage<D, BQR, THREADS>(qs, q + qoff, q0, S);
+  stage<D, BQR, THREADS>(ds, dout + qoff, q0, S);
+  stage<D, BK, THREADS>(kbuf, kb, 0, Tk);
+  stage<D, BK, THREADS>(vbuf, vb, 0, Tk);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) of the thread's two rows (columns 8c + 2t, +1,
+  // then the quad's sum), written once for the dK/dV kernel
+  float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = c * 8 + 2 * t;
+    if (row_lo < S) {
+      const size_t at = qoff + (size_t)row_lo * D + col;
+      const float2 a = *reinterpret_cast<const float2*>(dout + at);
+      const float2 b = *reinterpret_cast<const float2*>(o + at);
+      d_lo = fmaf(a.x, b.x, fmaf(a.y, b.y, d_lo));
+    }
+    if (row_hi < S) {
+      const size_t at = qoff + (size_t)row_hi * D + col;
+      const float2 a = *reinterpret_cast<const float2*>(dout + at);
+      const float2 b = *reinterpret_cast<const float2*>(o + at);
+      d_hi = fmaf(a.x, b.x, fmaf(a.y, b.y, d_hi));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    d_lo += __shfl_xor_sync(0xffffffffu, d_lo, off);
+    d_hi += __shfl_xor_sync(0xffffffffu, d_hi, off);
+  }
+  if (t == 0 && wc == 0) {
+    if (row_lo < S) delta[(size_t)bh * S + row_lo] = d_lo;
+    if (row_hi < S) delta[(size_t)bh * S + row_hi] = d_hi;
+  }
+  const float l_lo = row_lo < S ? lse[(size_t)bh * S + row_lo] : 0.f;
+  const float l_hi = row_hi < S ? lse[(size_t)bh * S + row_hi] : 0.f;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_stages; ++it) {
+    cp_async_wait();
+    __syncthreads();  // stage `it` landed; every warp is done with it - 1
+    if (it + 1 < n_stages) {
+      const int nb = (it + 1) & 1;
+      stage<D, BK, THREADS>(kbuf + nb * C::KVTILE, kb, (it + 1) * BK, Tk);
+      stage<D, BK, THREADS>(vbuf + nb * C::KVTILE, vb, (it + 1) * BK, Tk);
+    }
+    cp_async_commit();
+    if (it == 0) {
+      split_tile<D, BQR, THREADS>(qs, C::QTILE);
+      split_tile<D, BQR, THREADS>(ds, C::QTILE);
+      __syncthreads();
+    }
+    const int k0 = it * BK + wc * CK;  // the warp's first key this stage
+    if (first >= S || k0 >= k_end || (causal && k0 > last)) continue;
+    const float* kt = kbuf + (it & 1) * C::KVTILE + wc * CK * LD;
+    const float* vt = vbuf + (it & 1) * C::KVTILE + wc * CK * LD;
+
+    float s[SN][4], dp[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    abt<D, SN>(qs + r0 * LD, C::QTILE, kt, s);   // S = Q K^T
+    abt<D, SN>(ds + r0 * LD, C::QTILE, vt, dp);  // dP = dO V^T
+    // dS = P o (dP - delta); mask only the keys that reach past T or the
+    // warp's diagonal
+    const bool edge = k0 + CK > Tk || (causal && k0 + CK - 1 > first);
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? row_lo : row_hi;
+        float p = expf(fmaf(s[n][e], scale, -(e < 2 ? l_lo : l_hi)));
+        if (edge && (key >= Tk || (causal && key > row))) p = 0.f;
+        s[n][e] = p * (dp[n][e] - (e < 2 ? d_lo : d_hi));
+      }
+    xb<D, SN>(s, kt, acc);  // dQ += dS K
+  }
+  cp_async_wait();
+  merge_columns<NT, WQ>(acc, smem, wm, wc);
+  if (wc > 0) return;
+
+  float* qb = dq + qoff;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row_lo < S)
+      *reinterpret_cast<float2*>(qb + (size_t)row_lo * D + col) =
+          make_float2(acc[n][0] * scale, acc[n][1] * scale);
+    if (row_hi < S)
+      *reinterpret_cast<float2*>(qb + (size_t)row_hi * D + col) =
+          make_float2(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+template <int D, int WK>
+__global__ void __launch_bounds__(DkdvCfg<D, WK>::THREADS)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, float* __restrict__ part, int S,
+                      int Tk, int group, float scale, int causal, int L) {
+  using C = DkdvCfg<D, WK>;
+  constexpr int LD = C::LD, BKV = C::BKV, THREADS = C::THREADS, NT = D / 8;
+  constexpr int CQ = C::CQ, SN = CQ / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // [BKV][LD]: K; split: hi, then lo
+  float* vs = smem + 2 * C::KTILE;    // [BKV][LD]: V; split likewise
+  float* qbuf = smem + 4 * C::KTILE;  // [2][BQ][LD]
+  float* dbuf = qbuf + 2 * C::QTILE;  // [2][BQ][LD]
+  float* ls = dbuf + 2 * C::QTILE;    // [2][BQ]: lse
+  float* dl = ls + 2 * BQ;            // [2][BQ]: delta
+
+  // blockIdx.x enumerates the segments of key blocks 0, 1, ... in order
+  const int hk = blockIdx.y;
+  int j = 0, seg = blockIdx.x, n_seg;
+  while (seg >= (n_seg = segments(j, BKV, S, group, causal, L))) {
+    seg -= n_seg;
+    ++j;
+  }
+  const int k0 = j * BKV;
+  const int q_begin = causal ? k0 : 0;
+  const int n_q = walk(j, BKV, S, group, causal) / group;
+  const int it0 = seg * L;
+  const int it1 = min(group * n_q, it0 + L);
+  const size_t kvoff = (size_t)hk * Tk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wk = warp % WK, wc = warp / WK;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wk * 16;                  // the warp's keys in the block
+  const int first = k0 + r0, last = first + 15;
+  const int key_lo = first + g, key_hi = key_lo + 8;
+
+  // step `it` of the walk: q head it / n_q of the group, query stage
+  // it % n_q from q_begin
+  auto stage_q = [&](int it, int buf) {
+    const int bh = hk * group + it / n_q;
+    const int q0 = q_begin + it % n_q * BQ;
+    stage<D, BQ, THREADS>(qbuf + buf * C::QTILE, q + (size_t)bh * S * D, q0,
+                          S);
+    stage<D, BQ, THREADS>(dbuf + buf * C::QTILE, dout + (size_t)bh * S * D,
+                          q0, S);
+    for (int r = threadIdx.x; r < BQ; r += THREADS) {
+      const bool ok = q0 + r < S;
+      ls[buf * BQ + r] = ok ? lse[(size_t)bh * S + q0 + r] : 0.f;
+      dl[buf * BQ + r] = ok ? delta[(size_t)bh * S + q0 + r] : 0.f;
+    }
+  };
+
+  stage<D, BKV, THREADS>(ks, k + kvoff, k0, Tk);
+  stage<D, BKV, THREADS>(vs, v + kvoff, k0, Tk);
+  if (it0 < it1) stage_q(it0, 0);
+  cp_async_commit();
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = it0; it < it1; ++it) {
+    cp_async_wait();
+    __syncthreads();  // step `it` landed; every warp is done with it - 1
+    const int buf = (it - it0) & 1;
+    if (it + 1 < it1) stage_q(it + 1, buf ^ 1);
+    cp_async_commit();
+    if (it == it0) {
+      split_tile<D, BKV, THREADS>(ks, C::KTILE);
+      split_tile<D, BKV, THREADS>(vs, C::KTILE);
+      __syncthreads();
+    }
+    const int q0 = q_begin + it % n_q * BQ + wc * CQ;  // the warp's queries
+    // under `causal` a warp whose keys all follow its queries sees none
+    if (first >= Tk || q0 >= S || (causal && first > q0 + CQ - 1)) continue;
+    const float* qt = qbuf + buf * C::QTILE + wc * CQ * LD;
+    const float* dt = dbuf + buf * C::QTILE + wc * CQ * LD;
+    const float* lt = ls + buf * BQ + wc * CQ;
+    const float* et = dl + buf * BQ + wc * CQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows the warp's keys, columns its
+    // queries, two independent products side by side
+    float p[SN][4], ds[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.f;
+    abt<D, SN>(ks + r0 * LD, C::KTILE, qt, p);
+    abt<D, SN>(vs + r0 * LD, C::KTILE, dt, ds);
+    // P^T = exp(scale S^T - lse), dS^T = P^T o (dP^T - delta); mask only
+    // where the queries reach past S or the keys cross the diagonal
+    const bool edge = q0 + CQ > S || (causal && last > q0);
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);
+        const int key = e < 2 ? key_lo : key_hi;
+        float x = expf(fmaf(p[n][e], scale, -lt[c]));
+        if (edge && (q0 + c >= S || (causal && key > q0 + c))) x = 0.f;
+        p[n][e] = x;
+        ds[n][e] = x * (ds[n][e] - et[c]);
+      }
+    xb<D, SN>(p, dt, dva);  // dV += P^T dO
+    xb<D, SN>(ds, qt, dka);  // dK += dS^T Q
+  }
+  cp_async_wait();
+  merge_columns<NT, WK>(dka, smem, wk, wc);
+  merge_columns<NT, WK>(dva, smem, wk, wc);
+  if (wc > 0) return;
+
+  if (n_seg == 1) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (key_lo < Tk) {
+        const size_t at = kvoff + (size_t)key_lo * D + col;
+        *reinterpret_cast<float2*>(dk + at) =
+            make_float2(dka[n][0] * scale, dka[n][1] * scale);
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(dva[n][0], dva[n][1]);
+      }
+      if (key_hi < Tk) {
+        const size_t at = kvoff + (size_t)key_hi * D + col;
+        *reinterpret_cast<float2*>(dk + at) =
+            make_float2(dka[n][2] * scale, dka[n][3] * scale);
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(dva[n][2], dva[n][3]);
+      }
+    }
+    return;
+  }
+  // the segment's sums, unscaled, into its slot: [dK | dV] of [BKV][D]
+  float* pk = part + ((size_t)hk * gridDim.x + blockIdx.x) * 2 * BKV * D;
+  float* pv = pk + BKV * D;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int lo = (r0 + g) * D + n * 8 + 2 * t, hi = lo + 8 * D;
+    *reinterpret_cast<float2*>(pk + lo) = make_float2(dka[n][0], dka[n][1]);
+    *reinterpret_cast<float2*>(pk + hi) = make_float2(dka[n][2], dka[n][3]);
+    *reinterpret_cast<float2*>(pv + lo) = make_float2(dva[n][0], dva[n][1]);
+    *reinterpret_cast<float2*>(pv + hi) = make_float2(dva[n][2], dva[n][3]);
+  }
+}
+
+// The second pass: for each key block walked by several segments, dk =
+// scale * (part_0 + part_1 + ...) and dv = part_0 + part_1 + ..., one f32
+// add each in segment order; a thread owns 4 neighbouring floats and loads
+// 4 segments ahead before it adds them.  Blocks of key blocks that one
+// segment walked return at once.  Bound by bytes: every partial read once.
+template <int D, int BKV>
+__global__ void __launch_bounds__(SUM_THREADS)
+flash_bwd_dkdv_sum_kernel(const float* __restrict__ part,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int S, int Tk, int group, float scale, int causal,
+                          int L, int slots) {
+  constexpr int N4 = 2 * BKV * D / 4, U = 4;
+  const int j = blockIdx.x, hk = blockIdx.y;
+  int seg0 = 0;
+  for (int i = 0; i < j; ++i) seg0 += segments(i, BKV, S, group, causal, L);
+  const int n_seg = segments(j, BKV, S, group, causal, L);
+  if (n_seg == 1) return;
+  const float4* p = reinterpret_cast<const float4*>(part) +
+                    ((size_t)hk * slots + seg0) * N4;
+  for (int e = threadIdx.x; e < N4; e += SUM_THREADS) {
+    float4 acc = p[e];
+    for (int s = 1; s < n_seg; s += U) {
+      float4 b[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (s + u < n_seg) b[u] = p[(size_t)(s + u) * N4 + e];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (s + u < n_seg) {
+          acc.x += b[u].x;
+          acc.y += b[u].y;
+          acc.z += b[u].z;
+          acc.w += b[u].w;
+        }
+    }
+    const int at = e * 4, half = at / (BKV * D);
+    const int key = j * BKV + at % (BKV * D) / D;
+    if (key >= Tk) continue;
+    const float m = half ? 1.f : scale;
+    *reinterpret_cast<float4*>((half ? dv : dk) + ((size_t)hk * Tk + key) * D +
+                               at % D) =
+        make_float4(acc.x * m, acc.y * m, acc.z * m, acc.w * m);
+  }
+}
+
+// The split walk's layout for bkv keys a block: its blocks per kv head
+// (every key block's segments) and whether any key block has more than one.
+inline long long split_slots(int bkv, int S, int Tk, int group, int causal,
+                             bool* split) {
+  const int L = seg_stages(S, group);
+  long long slots = 0;
+  *split = false;
+  for (int j = 0; j < (Tk + bkv - 1) / bkv; ++j) {
+    const int n = segments(j, bkv, S, group, causal, L);
+    slots += n;
+    *split = *split || n > 1;
+  }
+  return slots;
+}
+
+// `part`: f32 scratch of part_floats = BHkv * (the segments of every key
+// block) * 2 * BKV * D where some key block has more than one segment,
+// else 0 (kernels/flash_attention.dkdv_partials); any other size refuses.
+template <int D, int W>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const float* lse, const void* dout, void* dq, void* dk,
+                   void* dv, float* delta, float* part, long long part_floats,
+                   int BH, int BHkv, int S, int Tk, float scale, int causal,
+                   cudaStream_t stream) {
+  using CQ = DqCfg<D, W>;
+  using CK = DkdvCfg<D, W>;
+  const int group = BH / BHkv;
+  const int n_tiles = (S + CQ::BQ - 1) / CQ::BQ;
+  const int L = seg_stages(S, group);
+  const int n_kb = (Tk + CK::BKV - 1) / CK::BKV;
+  bool split;
+  const long long slots = split_slots(CK::BKV, S, Tk, group, causal, &split);
+  const long long need = split ? BHkv * slots * 2 * CK::BKV * D : 0;
+  if (n_tiles > 65535 || BHkv > 65535 || slots > 0x7fffffff ||
+      part_floats != need || (need > 0 && part == nullptr))
+    return cudaErrorInvalidValue;
+  if (CQ::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<D, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CQ::SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  if (CK::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<D, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CK::SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  flash_bwd_dq_kernel<D, W><<<dim3(BH, n_tiles), CQ::THREADS, CQ::SMEM,
+                              stream>>>(
+      qf, kf, vf, static_cast<const float*>(o), df, lse, delta,
+      static_cast<float*>(dq), S, Tk, group, scale, causal);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_kernel<D, W><<<dim3((unsigned)slots, BHkv), CK::THREADS,
+                                CK::SMEM, stream>>>(
+      qf, kf, vf, df, lse, delta, dkf, dvf, part, S, Tk, group, scale, causal,
+      L);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !split) return e;
+  flash_bwd_dkdv_sum_kernel<D, CK::BKV><<<dim3(n_kb, BHkv), SUM_THREADS, 0,
+                                          stream>>>(
+      part, dkf, dvf, S, Tk, group, scale, causal, L, (int)slots);
+  return cudaGetLastError();
+}
+
+// The block per head dim: launch<D, W>, W x CS warps in each kernel over
+// 16 W query rows (dQ) or keys (dK/dV) (kernels/flash_attention.
+// BWD_F32_BLOCK repeats 16 W), chosen on the H100 by a sweep of W in 2, 4
+// and CS in 1, 2, 4 for each kernel at train_lm's shape (D = 64) and the
+// training shape (D = 128) (PERF.md §6 row 5i).  D <= 64: W = 2, so
+// train_lm's shape (q (32, 256, 64), 8 query tiles a head) gives the dQ
+// kernel 256 blocks and the dK/dV kernel 320, three blocks an SM.  D = 112
+// and 128: W = 4 (203 KB of shared memory at D = 128, one block of 8 warps
+// an SM): each staged tile serves 64 rows.
+cudaError_t bwd_dispatch(int D, const void* q, const void* k, const void* v,
+                         const void* o, const float* lse, const void* dout,
+                         void* dq, void* dk, void* dv, float* delta,
+                         float* part, long long part_floats, int BH, int BHkv,
+                         int S, int Tk, float scale, int causal,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<16, 2>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, stream);
+    case 32: return launch<32, 2>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, stream);
+    case 64: return launch<64, 2>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, stream);
+    case 112: return launch<112, 4>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, stream);
+    case 128: return launch<128, 4>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 extern "C" {
@@ -1770,34 +2189,39 @@ int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
 // The backward: dq [BH, S, D] and dk, dv [BHkv, Tk, D] of the forward's o
 // for the cotangent dout [BH, S, D], from q, k, v, o and the forward's lse
 // (f32 [BH, S]); delta is f32 [BH, S] scratch.  dtype 0 float32
-// (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel), 1 bfloat16 (their _bf16_
-// counterparts); two launches on `stream`, the dQ kernel first.  Returns
-// the first failed launch's cudaError_t, else 0.
+// (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel and, where the dK/dV walk is
+// split, flash_bwd_dkdv_sum_kernel over `part`, f32 scratch of part_floats
+// floats: kernels/flash_attention.dkdv_partials, any other size refuses),
+// 1 bfloat16 (flash_bwd_dq_bf16_kernel, flash_bwd_dkdv_bf16_kernel; `part`
+// unused, part_floats 0); launches on `stream`, the dQ kernel first.
+// Returns the first failed launch's cudaError_t, else 0.
 int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
-                               void* delta, int BH, int BHkv, int S, int Tk,
-                               int D, float scale, int causal, void* stream) {
+                               void* delta, void* part, long long part_floats,
+                               int BH, int BHkv, int S, int Tk, int D,
+                               float scale, int causal, void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || S <= 0 || Tk <= 0 ||
       BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  // cp.async, the float2 / float4 and bf16x2 accesses take 16-byte rows
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+       reinterpret_cast<uintptr_t>(part)) %
+      16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0)
-    return (int)bwd::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl, BH,
+    return (int)bwd::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl,
+                                  static_cast<float*>(part), part_floats, BH,
                                   BHkv, S, Tk, scale, causal, s);
-  if (dtype == 1) {
-    // cp.async and the bf16x2 stores take 16- and 4-byte rows
-    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
-         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
-         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) %
-        16)
-      return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && part_floats == 0)
     return (int)tc::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl, BH,
                                  BHkv, S, Tk, scale, causal, s);
-  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -52,12 +52,19 @@ forward kernel with ``return_lse=True`` (each row's log-sum-exp, f32
 ``(BH, S)``, natural log) and saves the kernel-layout q, k, v, the output
 and the log-sum-exp; its backward is ``flash_attention_bwd``:
 
-  on the card  two hand-written kernels in ``csrc/flash_attention.cu``
-               (bf16 products on the tensor cores by ``mma.sync``, f32 FMA
-               for f32): a dQ kernel that also writes ``delta = rowsum(dO o
-               O)``, then a dK/dV kernel per (kv head, 64 keys) that walks
-               its group's q heads.  No atomics: the gradients are bitwise
+  on the card  hand-written kernels in ``csrc/flash_attention.cu``, every
+               product on the tensor cores (``mma.sync``; bf16 in one term,
+               f32 in three TF32 terms as the f32 forward): a dQ kernel
+               that also writes ``delta = rowsum(dO o O)``, then a dK/dV
+               kernel per (kv head, block of keys) that walks its group's
+               q heads.  In f32 that walk is cut into segments
+               (``dkdv_split``, a function of S, T, D, the group and
+               ``causal`` alone), whose f32 partial sums a second pass adds
+               in segment order.  No atomics: the gradients are bitwise
                from run to run and independent of the rest of the batch.
+               ``flash_attention_bwd_3xtf32_plain`` spells out the f32
+               kernels' arithmetic; on the card they are held within 2e-4
+               of max |g| of the plain version and 1e-4 of it.
   on the CPU   ``flash_attention_bwd_plain``, the kernels' function in f32.
 
 The reference has no backward kernel: its training differentiates the
@@ -240,8 +247,8 @@ def library() -> ctypes.CDLL:
         ctypes.c_float, i32, ptr]
     lib.flash_attention_fwd_launch.restype = i32
     lib.flash_attention_bwd_launch.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-        i32, i32, i32, ctypes.c_float, i32, ptr]
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_longlong, i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.flash_attention_bwd_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -385,6 +392,97 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.reshape(bh, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_3xtf32_plain(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, out: torch.Tensor,
+                                     lse: torch.Tensor, dout: torch.Tensor,
+                                     *, causal: bool = True, terms: int = 3
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The f32 backward kernels' arithmetic in plain PyTorch: q, k, v and
+    dout split by ``tf32_split``, the scores and dP summed in three TF32
+    terms (``_tf32_product``), ``P = exp(scores - lse)`` (masked scores
+    give 0), ``delta = rowsum(dO o O)`` in f32, ``dS = P o (dP -
+    delta)``, then P and dS split in turn and ``dV = P^T dO``, ``dQ =
+    scale dS K``, ``dK = scale dS^T Q`` in three terms, dK and dV summed
+    over each kv head's group; f32 ``(dq, dk, dv)``.  ``terms=1`` keeps
+    ``hi_a hi_b`` alone.  Not a wrapper's fallback: a second yardstick
+    beside ``flash_attention_bwd_plain``."""
+    _check_bwd(q, k, v, out, lse, dout)
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    bh, s, d = q.shape
+    bhkv, t, _ = k.shape
+    g = bh // bhkv
+    scale = d ** -0.5
+    qs = tf32_split(q.float().reshape(bhkv, g, s, d))
+    dos = tf32_split(dout.float().reshape(bhkv, g, s, d))
+    ks, vs = tf32_split(k), tf32_split(v)
+    x = _tf32_product("hgsd,htd->hgst", qs, ks, terms) * scale
+    if causal:
+        x = torch.where(torch.ones(s, t, dtype=torch.bool,
+                                   device=q.device).tril(), x, NEG_INF)
+    p = torch.exp(x - lse.float().reshape(bhkv, g, s, 1))
+    del x
+    delta = (dout.float() * out.float()).sum(-1).reshape(bhkv, g, s, 1)
+    ds = p * (_tf32_product("hgsd,htd->hgst", dos, vs, terms) - delta)
+    dv = _tf32_product("hgst,hgsd->htd", tf32_split(p), dos, terms)
+    del p
+    dss = tf32_split(ds)
+    del ds
+    dq = _tf32_product("hgst,htd->hgsd", dss, ks, terms) * scale
+    dk = _tf32_product("hgst,hgsd->htd", dss, qs, terms) * scale
+    return dq.reshape(bh, s, d), dk, dv
+
+
+# The f32 backward kernels' blocks (``csrc/flash_attention.cu``, ``namespace
+# bwd``; a test parses both): per head dim, the query rows of a dQ block and
+# the keys of a dK/dV block (16 for each pair of warps), and the dK/dV
+# kernel's query stage.  The dK/dV walk of a key block (its group's q heads
+# times its query stages) is cut into segments of L stages: the heaviest key
+# block's walk into about ``DKDV_SEG_TARGET`` segments, at least
+# ``DKDV_SEG_MIN`` stages each.
+BWD_F32_BLOCK = {16: 32, 32: 32, 64: 32, 112: 64, 128: 64}
+BWD_F32_BQ = 32
+DKDV_SEG_TARGET = 32
+DKDV_SEG_MIN = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dkdv_split(s: int, t: int, d: int, group: int,
+               causal: bool) -> Tuple[int, Tuple[int, ...]]:
+    """The f32 dK/dV kernel's split for q ``(BH, s, d)``, k/v ``(BHkv, t,
+    d)``, ``group = BH / BHkv``: ``(L, counts)``, L the query stages of a
+    segment and ``counts[j]`` the segments of key block j (at least one).
+    Segment i of key block j walks steps ``[i L, (i + 1) L)`` of its
+    walk, step ``it`` being q head ``it // n_q`` of the group at query
+    stage ``it % n_q`` from the diagonal (under ``causal``) on.  A
+    function of the shapes of one sequence alone: the batch never changes
+    how a sequence's gradients are summed."""
+    keys = BWD_F32_BLOCK[d]
+    n_q0 = _cdiv(s, BWD_F32_BQ)
+    stages = max(DKDV_SEG_MIN, _cdiv(group * n_q0, DKDV_SEG_TARGET))
+    counts = []
+    for j in range(_cdiv(t, keys)):
+        q_begin = j * keys if causal else 0
+        n_q = _cdiv(s - q_begin, BWD_F32_BQ) if q_begin < s else 0
+        counts.append(max(1, _cdiv(group * n_q, stages)))
+    return stages, tuple(counts)
+
+
+def dkdv_partials(s: int, t: int, d: int, group: int, causal: bool) -> int:
+    """f32 floats of the dK/dV kernel's partial sums for one kv head: a
+    slot of ``2 * keys * d`` (dK's and dV's) per segment of every key
+    block, or 0 where no key block has more than one segment (the kernel
+    then writes dk and dv itself)."""
+    _, counts = dkdv_split(s, t, d, group, causal)
+    if max(counts) == 1:
+        return 0
+    return sum(counts) * 2 * BWD_F32_BLOCK[d] * d
+
+
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
     _check_card("flash_attention_bwd", q, k, v, out, dout)
     if not (lse.device == q.device and lse.dtype == torch.float32
@@ -395,16 +493,36 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
     bhkv, t, _ = k.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    n_part = bhkv * dkdv_partials(s, t, d, bh // bhkv, causal) \
+        if q.dtype == torch.float32 else 0
+    part = torch.empty(n_part, dtype=torch.float32, device=q.device) \
+        if n_part else None
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bh, bhkv, s, t,
-            d, d ** -0.5, int(causal), stream)
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), n_part, bh, bhkv, s,
+            t, d, d ** -0.5, int(causal), stream)
     _raise_on(rc, lib, "flash_attention_bwd", q, k)
     return dq, dk, dv
+
+
+def _partial_slots(q: torch.Tensor, k: torch.Tensor,
+                   causal: bool) -> Tuple[int, int, int]:
+    """(slots, blocks, keys) of the f32 dK/dV kernel's partial sums that
+    the second pass reads, over every kv head: the segments of the key
+    blocks walked by more than one, those key blocks, and the keys of a
+    block; zeros for bf16 or where nothing is split."""
+    bh, s, d = q.shape
+    bhkv, t, _ = k.shape
+    if q.dtype != torch.float32 or d not in BWD_F32_BLOCK:
+        return 0, 0, 0
+    _, counts = dkdv_split(s, t, d, bh // bhkv, causal)
+    split = [c for c in counts if c > 1]
+    return bhkv * sum(split), bhkv * len(split), BWD_F32_BLOCK[d]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -423,7 +541,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          causal=causal)
     if q.device.type == "meta":
         grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        meta.record_flash_bwd((q, k, v, out, lse, dout), grads, causal)
+        meta.record_flash_bwd((q, k, v, out, lse, dout), grads, causal,
+                              _partial_slots(q, k, causal))
         return grads
     grads = _launch_bwd(q, k, v, out, lse, dout, causal)
     flash_attention_bwd.launches += 1

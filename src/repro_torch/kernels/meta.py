@@ -14,7 +14,12 @@ numbers ``chip_smoke.py``'s kernel rows take their bounds from:
   its backward     ``10 * BH * S * T * D`` FLOPs (the five products S, dP,
                    dV, dK, dQ, whatever a design recomputes), halved under
                    ``causal``; bytes q, k, v, o, dO and the log-sum-exp
-                   read once, dq, dk and dv written once.
+                   read once, dq, dk and dv written once.  Listed apart as
+                   ``flash_attention_bwd_partials`` (f32 only, where the
+                   dK/dV walk is split): the segments' f32 sums of dK and
+                   dV that the second pass reads, written and read once,
+                   and its ``segments - 1`` adds per element of each split
+                   key block.
   causal_conv1d    ``2 * K * B * L * D`` FLOPs; bytes x and w read once,
                    y written once.
   its backward     ``4 * K * B * L * D`` FLOPs (dx's and dw's products);
@@ -35,7 +40,7 @@ all it returns).
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,13 +87,21 @@ def record_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def record_flash_bwd(inputs: Sequence[torch.Tensor],
-                     grads: Sequence[torch.Tensor], causal: bool) -> None:
-    """``inputs`` (q, k, v, out, lse, dout), ``grads`` (dq, dk, dv)."""
+                     grads: Sequence[torch.Tensor], causal: bool,
+                     partials: Tuple[int, int, int] = (0, 0, 0)) -> None:
+    """``inputs`` (q, k, v, out, lse, dout), ``grads`` (dq, dk, dv);
+    ``partials`` (slots, key blocks, keys a block) of the split dK/dV
+    walk's f32 sums (``flash_attention._partial_slots``)."""
     q, k = inputs[0], inputs[1]
     bh, s, d = q.shape
     record("flash_attention_bwd",
            flash_bwd_flops(bh, s, k.shape[1], d, causal), q.dtype,
            _nbytes(*inputs, *grads))
+    slots, blocks, keys = partials
+    if slots:
+        n = 2 * keys * d               # dK's and dV's floats of one slot
+        record("flash_attention_bwd_partials", (slots - blocks) * n,
+               torch.float32, 2 * 4 * slots * n)
 
 
 def record_causal_conv1d(x: torch.Tensor, w: torch.Tensor,
