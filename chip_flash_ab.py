@@ -17,15 +17,20 @@ the digests as JSON; ``--against`` compares them with such a file and
 exits 1 on any difference, except in the outputs named by ``--changed``:
 a dtype (``float32``, ``bfloat16``: all its outputs) or a dtype and a
 direction (``float32/fwd``: its ``o``; ``float32/bwd``: its ``dq``,
-``dk``, ``dv``), which it lists.  ``--time`` also times the tree's f32
-forward and f32 backward (device time, CUDA-graph replay) at
-``train_lm``'s shape and the training path's (``chip_smoke.
-TRAIN_LM_FLASH``, ``TRAIN_FLASH``, causal), SDPA in f32 beside them (its
-backward on the memory-efficient kernel: its forward and backward less
-its forward), into ``--out``'s ``"times"``.  Two trees (a commit and its
-parent unpacked with ``git archive``) run in one call on one card,
-parent, commit, commit, parent, show whether the kernels' outputs changed
-by a single bit and what the change did to the f32 kernels' times.
+``dk``, ``dv``), which it lists.  ``--time`` also times the tree's bf16
+backward at the training path's shape and zamba2-7b's (``chip_smoke.
+TRAIN_FLASH``; q (32, 4096, 112), one query head a kv head; causal):
+device time by CUDA-graph replay, each kernel's own under the profiler
+(``chip_smoke.bwd_kernel_ms``) and SDPA's backward beside it (whichever
+backend SDPA picks, cuDNN on the H100; its forward and backward less its
+forward); then the tree's f32 forward and f32 backward at ``train_lm``'s
+shape and the training path's (``chip_smoke.TRAIN_LM_FLASH``,
+``TRAIN_FLASH``, causal), SDPA in f32 beside them (its backward on the
+memory-efficient kernel), all into ``--out``'s ``"times"``.  Two trees
+(a commit and its parent unpacked with ``git archive``) run in one call
+on one card, parent, commit, commit, parent, show whether the kernels'
+outputs changed by a single bit and what the change did to the kernels'
+times.
 """
 from __future__ import annotations
 
@@ -53,8 +58,9 @@ def main() -> int:
                     help="dtypes (or dtype/direction) whose outputs may "
                          "differ from --against's")
     ap.add_argument("--time", action="store_true",
-                    help="time the f32 forward and backward at train_lm's "
-                         "and the training path's shapes")
+                    help="time the bf16 backward at the training path's "
+                         "and zamba2-7b's shapes, and the f32 forward and "
+                         "backward at train_lm's and the training path's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -117,7 +123,8 @@ def main() -> int:
     print(f"{len(digests)} outputs digested; o with the log-sum-exp "
           f"{'checked bitwise' if with_lse else 'not offered by this tree'}"
           f"; the backward {'digested' if with_bwd else 'not offered'}")
-    times = f32_times(torch, chip_smoke, FA) if args.time else {}
+    times = {"bf16": bf16_times(torch, chip_smoke, FA),
+             **f32_times(torch, chip_smoke, FA)} if args.time else {}
     if args.out:
         Path(args.out).write_text(json.dumps(
             {"digests": digests, "times": times}, indent=1))
@@ -145,6 +152,70 @@ def main() -> int:
         print(f"every output not named by --changed is bitwise equal to "
               f"{args.against}'s")
     return 0
+
+
+def bf16_times(torch, chip_smoke, FA) -> dict:
+    """Device ms of the tree's bf16 backward (CUDA-graph replay, and each
+    kernel's own under the profiler, the process's first session) and of
+    SDPA's backward (K and V repeated to the query heads; its forward and
+    backward less its forward) at the training path's and zamba2-7b's
+    flash shapes, causal, on operands from a fixed seed."""
+    from repro_torch.configs.registry import get_config
+
+    F = torch.nn.functional
+    z = get_config(chip_smoke.HYBRID_TRAIN_ARCH)
+    gen = torch.Generator().manual_seed(30)
+    cases = {}
+    for label, (b, s, t, h, hkv, d) in (
+            ("training", chip_smoke.TRAIN_FLASH),
+            (z.name, (1, chip_smoke.LM_TRAIN_SEQ, chip_smoke.LM_TRAIN_SEQ,
+                      z.n_heads, z.n_kv_heads, z.d_head))):
+        q, k, v, do = (torch.randn(dims, generator=gen).to("cuda",
+                                                            torch.bfloat16)
+                       for dims in ((b * h, s, d), (b * hkv, t, d),
+                                    (b * hkv, t, d), (b * h, s, d)))
+        out, lse = FA.flash_attention_fwd(q, k, v, causal=True,
+                                          return_lse=True)
+        cases[label] = (q, k, v, do, out, lse, (b, s, t, h, hkv, d))
+    split = chip_smoke.bwd_kernel_ms(torch, {
+        label: (lambda c=c: FA.flash_attention_bwd(*c[:3], c[4], c[5], c[3],
+                                                   causal=True),
+                "bfloat16", c[6][5]) for label, c in cases.items()})
+    times = {}
+    for label, (q, k, v, do, out, lse, shape) in cases.items():
+        b, s, t, h, hkv, d = shape
+        q4, k4, v4 = (x.view(b, -1, x.shape[1], d) for x in (q, k, v))
+        k4, v4 = (x.repeat_interleave(h // hkv, 1) for x in (k4, v4))
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+        dref = do.view(b, h, s, d)
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                return torch.autograd.grad(o, leaves, dref)
+
+        times[label] = {
+            "bwd_kernel_ms": chip_smoke.device_ms(
+                torch, lambda: FA.flash_attention_bwd(q, k, v, out, lse, do,
+                                                      causal=True), 5),
+            "kernel_ms": split.get(label, {}),
+            "sdpa_bwd_ms": chip_smoke.device_ms(torch, sdpa_fwd_bwd, 5)
+            - chip_smoke.device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), 5),
+            "sdpa_backend": chip_smoke._sdpa_backend(torch, q4, k4, v4)}
+        tm = times[label]
+        print(f"time bf16 {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"causal: backward {tm['bwd_kernel_ms']:.4f} ms ("
+              + (", ".join(f"{n} {tm['kernel_ms'][n]:.4f}"
+                           for n in ("dq", "dkdv", "sum")
+                           if n in tm["kernel_ms"]) or "split not measured")
+              + f"), SDPA's backward ({tm['sdpa_backend']}) "
+              f"{tm['sdpa_bwd_ms']:.4f} ms")
+        del q4, k4, v4, leaves, dref
+    del cases
+    torch.cuda.empty_cache()
+    return times
 
 
 def f32_times(torch, chip_smoke, FA) -> dict:

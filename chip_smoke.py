@@ -11,7 +11,10 @@ Phases, each of which raises (non-zero exit) on failure:
                each, all started together), with each ptxas summary and
                each library's count of tensor-core instructions (HGMMA,
                HMMA) from ``cuobjdump -sass``; the bf16 flash kernel must
-               have some.
+               have some, every bf16 flash backward dQ and dK/dV kernel
+               HGMMA and every f32 one HMMA; the bf16 backward kernels'
+               registers and spills, and any ptxas line saying their
+               wgmma is serialized.
   3. kernels   every MG3M grain (TB11, TB18, TB88) forced on the
                reference's kernel-test scenes and on the dgrad
                (lhs-dilated) and wgrad (rhs-dilated) plans of two strided
@@ -120,15 +123,19 @@ Phases, each of which raises (non-zero exit) on failure:
                a group of 8, a ragged S; causal and not), f32 and bf16,
                against ``flash_attention_bwd_plain`` within 2e-4 / 2e-2 of
                max |g|, the f32 kernels also within ``XTF32_BWD_TOL`` of
-               ``flash_attention_bwd_3xtf32_plain``, each run twice and
-               bitwise equal; the forward's
+               ``flash_attention_bwd_3xtf32_plain``, the bf16 ones within
+               ``XBF16_BWD_TOL`` of ``flash_attention_bwd_bf16_plain``,
+               each run twice and bitwise equal, and a sequence's
+               gradients bitwise alone and in a batch of 3 (both dtypes,
+               ``flash_bwd_batch_check``); the forward's
                ``o`` with its log-sum-exp bitwise the ``o`` without it,
                and the log-sum-exp within ``LSE_TOL`` (1e-5 f32, 4e-3
-               bf16) of the plain version's.  Then each f32 backward
+               bf16) of the plain version's.  Then each backward
                kernel's device time by name under ``torch.profiler``
                (``flash_bwd_split``, the process's first profiler
-               session) at ``train_lm``'s and the training shape, for
-               phase 16's row.
+               session): f32 at ``train_lm``'s and the training shape,
+               for phase 16's row; bf16 at the training shape and
+               zamba2-7b's, for phase 14's.
   9. LM path   full-width zamba2-7b (81 layers, d_model 3584, 32x112
                heads, bf16, seeded random weights) on the card: the
                reference's cross-form oracle (prefill(255) + decode_step ==
@@ -197,7 +204,9 @@ Phases, each of which raises (non-zero exit) on failure:
                bf16), the kernel against its plain version,
                ``flash_attention_bwd`` (the backward kernels) against
                ``flash_attention_bwd_plain`` within 2e-4 (f32) / 2e-2
-               (bf16) of max |g| and bitwise from run to run, and
+               (bf16) of max |g| (bf16 also within ``XBF16_BWD_TOL`` of
+               ``flash_attention_bwd_bf16_plain``) and bitwise from run
+               to run, and
                ``FlashAttention``'s backward against autograd of the plain
                version; the backward kernels held the same way (the
                log-sum-exp too) at zamba2-7b's training shape (q (32,
@@ -236,7 +245,8 @@ Phases, each of which raises (non-zero exit) on failure:
                library, by graph replay and held to the plain version,
                ``flash_attention_vjp``'s recomputation as
                ``recompute_ms``, phase 13's launches, the backward
-               kernels' HGMMA/HMMA counts), causal_conv1d at zamba2-7b's
+               kernels' HGMMA/HMMA counts, phase 8's per-kernel split:
+               dQ, dK/dV and the second pass), causal_conv1d at zamba2-7b's
                training shape (x [1, 4096, 7296] bf16; launches from
                phase 13's zamba2-7b steps), and its backward kernels' row
                ``causal_conv1d_bwd_train_path``: held as in phase 8 at
@@ -423,6 +433,7 @@ card's name and power limit, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -510,6 +521,37 @@ def check_f32_bwd_hmma(counts: dict) -> dict:
         raise AssertionError(f"the f32 flash backward kernels issue no "
                              f"HMMA: {f32}")
     return f32
+
+
+def check_bf16_bwd_hgmma(counts: dict) -> dict:
+    """The bf16 flash backward's dQ and dK/dV kernels among ``counts``
+    (``tensor_core_counts``): one of each per head dim, every one issuing
+    HGMMA (its products on wgmma); returns them."""
+    bf16 = {n: c for n, c in counts.items()
+            if "flash_bwd_dq_bf16_kernel" in n
+            or "flash_bwd_dkdv_bf16_kernel" in n}
+    if len(bf16) != 10 or not all(c[0] for c in bf16.values()):
+        raise AssertionError(f"the bf16 flash backward kernels issue no "
+                             f"HGMMA: {bf16}")
+    return bf16
+
+
+def ptxas_kernels(log: str, part: str) -> dict:
+    """``{function: (registers, spill store bytes)}`` of the compiled
+    kernels whose name holds ``part``, from the ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        elif name and part in name:
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            r, sp = out.get(name, (0, 0))
+            out[name] = (int(regs.group(1)) if regs else r,
+                         int(spill.group(1)) if spill else sp)
+    return out
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -1825,6 +1867,19 @@ XTF32_TOL = 5e-5
 # sum as large, beside the emulation's own 1e-5 (tested on the CPU)
 # (csrc/flash_attention.cu's `namespace bwd` derives it)
 XTF32_BWD_TOL = 1e-4
+# the bf16 backward kernels against flash_attention_bwd_bf16_plain, of max
+# |g|: both round P and dS to bf16 at the same places and each output once,
+# so their f32 sums differ only by the order of the adds (the tensor cores
+# truncate each add, up to 2^-23 of the running sum, over at most T / 16 =
+# 256 adds at T = 4096), exp2 against exp (2^-22 of P) and the rare P or dS
+# whose bf16 rounding those flip (one bf16 step, 2^-7 of that term; some
+# 1e-3 of them at the training shape's scores, summed with random signs,
+# near 2^-7 sqrt(30 / 32768) = 2.4e-4 of |g| over a dK element's 32768
+# terms): below 2^-9 of max |g| before rounding.  Two nearly equal f32
+# sums round to bf16 values at most one step apart, and a step is at most
+# 2^-7 of max |g|: one bf16 step plus 2^-9 (csrc/flash_attention.cu's
+# bf16 backward states where it rounds)
+XBF16_BWD_TOL = 2 ** -7 + 2 ** -9
 # the tensor cores' dense TF32 rate (H100 SXM datasheet); the f32 kernel's
 # three terms a product leave a third of it
 PEAK_FLOPS_TF32 = 495e12
@@ -1927,6 +1982,59 @@ def _hold_f32_bwd(torch, args, causal, got, errs, what, key):
         errs[(key, "float32")] = max(errs.get((key, "float32"), 0.0), rel)
 
 
+def _hold_bf16_bwd(torch, args, causal, got, errs, what, key):
+    """The bf16 backward kernels' (dq, dk, dv) within ``XBF16_BWD_TOL`` of
+    max |g| of ``flash_attention_bwd_bf16_plain`` on ``args`` (q, k, v,
+    out, lse, dout); the worst ratio kept under ``(key, "bfloat16")``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_bf16_plain)
+
+    want = flash_attention_bwd_bf16_plain(*args, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max()).item()
+        if not rel <= XBF16_BWD_TOL:
+            raise AssertionError(f"flash_attention_bwd bfloat16 d{name}: "
+                                 f"{rel} of max |g| from "
+                                 f"flash_attention_bwd_bf16_plain (tol "
+                                 f"{XBF16_BWD_TOL}) on {what}")
+        errs[(key, "bfloat16")] = max(errs.get((key, "bfloat16"), 0.0), rel)
+
+
+def flash_bwd_batch_check(torch, dtype, shape=(3, 1152, 1152, 8, 2, 128)):
+    """The backward kernels on a batch of 3 sequences (b, s, t, hq, hkv, d;
+    causal, a group of 4 whose dK/dV walk is split in both dtypes) and on
+    each sequence alone: every sequence's (dq, dk, dv) bitwise equal (the
+    DP ring's bitwise check rests on it)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    b, s, t, hq, hkv, d = shape
+    gen = torch.Generator().manual_seed(30)
+    tdt = getattr(torch, dtype)
+    q, do = (torch.randn(b, hq, s, d, generator=gen).to("cuda", tdt)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, d, generator=gen).to("cuda", tdt)
+            for _ in range(2))
+
+    def grads(sl):
+        qs, ks, vs, dos = (x[sl].reshape(-1, x.shape[2], d).contiguous()
+                           for x in (q, k, v, do))
+        out, lse = flash_attention_fwd(qs, ks, vs, causal=True,
+                                       return_lse=True)
+        return [g.view(-1, g.shape[0] // (sl.stop - sl.start), *g.shape[1:])
+                for g in flash_attention_bwd(qs, ks, vs, out, lse, dos,
+                                             causal=True)]
+
+    batch = grads(slice(0, b))
+    for i in range(b):
+        alone = grads(slice(i, i + 1))
+        if not all(torch.equal(a[0], g[i]) for a, g in zip(alone, batch)):
+            raise AssertionError(f"flash_attention_bwd {dtype}: sequence {i} "
+                                 f"alone differs bitwise from itself in a "
+                                 f"batch of {b} at q ({hq}, {s}, {d})")
+
+
 def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
     """The forward kernel with its log-sum-exp: ``o`` bitwise the ``o`` of
     the launch without it, the log-sum-exp within ``LSE_TOL`` of
@@ -1935,7 +2043,9 @@ def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
     log-sum-exp, run twice: bitwise equal, and held to
     ``flash_attention_bwd_plain`` (``_hold_grads``) and, in f32, to
     ``flash_attention_bwd_3xtf32_plain`` (``_hold_f32_bwd``, kept under
-    ``("xtf32:" + key, "float32")``)."""
+    ``("xtf32:" + key, "float32")``), in bf16 to
+    ``flash_attention_bwd_bf16_plain`` (``_hold_bf16_bwd``, kept under
+    ``("xbf16:" + key, "bfloat16")``)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd,
@@ -1965,6 +2075,9 @@ def flash_bwd_check(torch, q, k, v, dout, causal, dtype, errs, what, key):
     if dtype == "float32":
         _hold_f32_bwd(torch, (q, k, v, out, lse, dout), causal, got, errs,
                       what, "xtf32:" + key)
+    else:
+        _hold_bf16_bwd(torch, (q, k, v, out, lse, dout), causal, got, errs,
+                       what, "xbf16:" + key)
 
 
 def conv1d_bwd_check(torch, x, w, dy, dtype, errs, what, key):
@@ -2074,6 +2187,8 @@ def lm_kernel_phase(torch):
                                 f"q {tuple(q.shape)} k {tuple(k.shape)} "
                                 f"causal={causal}", "flash_attention_bwd")
                 checks += 2
+        flash_bwd_batch_check(torch, dtype)
+        checks += 8
     torch.cuda.synchronize()
     print(f"LM kernels: {checks} launches held against their plain "
           f"versions in {time.perf_counter() - t0:.1f} s; max abs err "
@@ -3407,11 +3522,12 @@ def lm_grad_oracle(torch) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def lm_train_rows(torch, train, hybrid, errs):
+def lm_train_rows(torch, train, hybrid, errs, bwd_split):
     """The training path's kernel rows: flash at the training shape (q
     (16, 4096, 128) bf16, causal), its launches those of the qwen2.5-3b
     train phase, beside SDPA (a yardstick); the backward kernels' row at
-    the same shape (``flash_bwd_row``); and causal_conv1d at the hybrid's
+    the same shape (``flash_bwd_row``, with phase 8's per-kernel
+    ``bwd_split``); and causal_conv1d at the hybrid's
     training shape (zamba2-7b, x [1, 4096, 7296] bf16), its launches those
     of ``hybrid_train_step``'s two steps, and its backward kernels' row
     (``conv1d_bwd_row``)."""
@@ -3442,7 +3558,7 @@ def lm_train_rows(torch, train, hybrid, errs):
     lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True))
     bwd = flash_bwd_row(torch, train, errs, (q4, k4, v4, do4),
-                        (q, kk, v), (qs, ks, vs))
+                        (q, kk, v), (qs, ks, vs), bwd_split)
     flops = flash_flops(b * h, s, s, d, True)
     nbytes = (q.numel() + kk.numel() + v.numel() + got.numel()) * 2
     ops_ms, bytes_ms = flops / R.PEAK_FLOPS_BF16 * 1e3, \
@@ -3598,7 +3714,7 @@ def conv1d_bwd_row(torch, hybrid, errs):
         "partials_mbytes": 2 * 4 * segs * kw * c / 1e6}
 
 
-def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
+def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa, bwd_split):
     """The ``flash_attention_bwd_train_path`` row at the training shape
     (q (16, 4096, 128), k/v (2, 4096, 128) bf16, causal): the backward
     kernels' device time (CUDA-graph replay), ``flash_attention_bwd_plain``'s
@@ -3611,11 +3727,14 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
     ``_hold_grads``'s tolerance), the bound (``meta.flash_bwd_flops`` at 989 TFLOP/s bf16
     against q, k, v, o, dO, lse read and dq, dk, dv written at 3.35 TB/s),
     phase 13's launches, the backward kernels' HGMMA/HMMA counts (bf16
-    and f32; every f32 dQ and dK/dV kernel must issue HMMA), and the
-    errors ``flash_train_checks`` kept (the log-sum-exp's, and the
-    gradients' at the other training paths' shapes).  ``bshd`` is (q, k,
-    v, dout) in the model's layout, ``kernel`` (q, k, v) in the kernels',
-    ``sdpa`` (q, k, v) with K and V repeated to the query heads."""
+    and f32; every bf16 dQ and dK/dV kernel must issue HGMMA, every f32 one
+    HMMA), each bf16 kernel's device ms from phase 8 (``bwd_split``: dQ,
+    dK/dV and the second pass), and the errors ``flash_train_checks`` kept
+    (the log-sum-exp's, against ``flash_attention_bwd_bf16_plain``, and
+    the gradients' at the other training paths' shapes).  ``bshd`` is (q,
+    k, v, dout) in the model's layout, ``kernel`` (q, k, v) in the
+    kernels', ``sdpa`` (q, k, v) with K and V repeated to the query
+    heads."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
@@ -3665,6 +3784,8 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
     tc = {n: c for n, c in tensor_core_counts(
         cuda_build.build("flash_attention.cu")[0]).items() if "flash_bwd" in n}
     check_f32_bwd_hmma(tc)
+    check_bf16_bwd_hgmma(tc)
+    split = bwd_split.get("training_bf16", {})
     source, replaces = LM_KERNELS["flash_attention_bwd"]
     print(f"  flash_attention_bwd_train_path at q ({b * h}, {s}, {d}) bf16: "
           f"kernels {k_ms:.4f} ms, plain {p_ms:.3f} ms, SDPA's backward "
@@ -3672,7 +3793,10 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
           f"(flash_attention_vjp) {re_ms:.3f} ms, bound "
           f"{max(ops_ms, bytes_ms):.4f} ms "
           f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
-          f"{train['counts']['flash_attention_bwd']} launches in phase 13")
+          f"{train['counts']['flash_attention_bwd']} launches in phase 13; "
+          f"by kernel (phase 8's profiler): " + (", ".join(
+              f"{n} {split[n]:.4f} ms" for n in ("dq", "dkdv", "sum")
+              if n in split) or "not measured"))
     return {
         "name": "flash_attention_bwd_train_path", "route": "cuda",
         "source": source, "replaces": replaces,
@@ -3683,7 +3807,9 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
         "launches": train["counts"]["flash_attention_bwd"],
         "max_abs_err": errs[("flash_train_bwd_kernels", "float32")],
         "max_abs_err_bf16": errs[("flash_train_bwd_kernels", "bfloat16")],
+        "xbf16_err": errs[("xbf16:flash_train_bwd_kernels", "bfloat16")],
         "err_of": "max |g|",
+        "kernel_ms": split,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": lib_ms,
@@ -3697,6 +3823,9 @@ def flash_bwd_row(torch, train, errs, bshd, kernel, sdpa):
         "max_abs_err_paths": {f"{n.split(':', 1)[1]}/{dt}": e
                               for (n, dt), e in sorted(errs.items())
                               if n.startswith("flash_bwd:")},
+        "xbf16_err_paths": {n.split(':', 1)[1]: e
+                            for (n, dt), e in sorted(errs.items())
+                            if n.startswith("xbf16:flash_bwd:")},
         "tensor_core_counts": {n: {"HGMMA": c[0], "HMMA": c[1]}
                                for n, c in tc.items()},
         "shape": f"q ({b * h}, {s}, {d}), k/v ({b * hkv}, {t}, {d}) bf16 "
@@ -4205,67 +4334,90 @@ def _sdpa_backend(torch, q, k, v) -> str:
         return "not read"
 
 
-def bwd_kernel_ms(torch, fn, calls: int = 3) -> dict:
-    """Device ms per call of each f32 backward kernel that ``fn`` launches
-    (``dq``: flash_bwd_dq_kernel, ``dkdv``: flash_bwd_dkdv_kernel,
-    ``sum``: flash_bwd_dkdv_sum_kernel, where the walk is split), read by
-    kernel name under ``torch.profiler`` over ``calls`` calls.  Empty
-    unless the profiler saw every launch of dq and dkdv (it drops records
-    in a process that ran profiler sessions before)."""
+def bwd_kernel_ms(torch, runs: dict, calls: int = 3) -> dict:
+    """Device ms per call of each backward kernel that each of ``runs``
+    (label -> (fn, dtype, D), no two alike in dtype and D) launches: ``dq``
+    (flash_bwd_dq*), ``dkdv`` (flash_bwd_dkdv*) and, where the walk is
+    split, ``sum`` (the second pass), read by kernel name (its dtype and
+    head dim telling the runs apart) under one ``torch.profiler`` session
+    over ``calls`` calls of each.  A label's entry is empty unless the
+    profiler saw every launch of its dq and dkdv (it drops records in a
+    process that ran profiler sessions before)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    by_kernel = {(dtype, d): label for label, (_, dtype, d) in runs.items()}
+    assert len(by_kernel) == len(runs), "two runs launch the same kernels"
+    for fn, _, _ in runs.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        for fn, _, _ in runs.values():
+            for _ in range(calls):
+                fn()
         torch.cuda.synchronize()
-    out, seen = {}, {}
+    out = {label: {} for label in runs}
+    seen = {label: {} for label in runs}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or "flash_bwd_d" not in e.key:
             continue
+        d = re.search(r"flash_bwd_\w+?(?:<|ILi)(\d+)", e.key)
+        label = by_kernel.get(("bfloat16" if "bf16" in e.key else "float32",
+                               int(d.group(1)) if d else 0))
+        if label is None:
+            continue
         part = ("sum" if "dkdv_sum" in e.key else
                 "dkdv" if "dkdv" in e.key else "dq")
-        out[part] = out.get(part, 0.0) + \
+        out[label][part] = out[label].get(part, 0.0) + \
             e.self_device_time_total / calls / 1e3
-        seen[part] = seen.get(part, 0) + e.count
-    if seen.get("dq") != calls or seen.get("dkdv") != calls \
-            or seen.get("sum", calls) != calls:
-        print(f"  the profiler saw {seen} launches of {calls} calls: the "
-              f"f32 backward's kernels not measured apart")
-        return {}
+        seen[label][part] = seen[label].get(part, 0) + e.count
+    for label, parts in seen.items():
+        if parts.get("dq") != calls or parts.get("dkdv") != calls \
+                or parts.get("sum", calls) != calls:
+            print(f"  the profiler saw {parts} launches of {calls} calls: "
+                  f"{label}'s backward kernels not measured apart")
+            out[label] = {}
     return out
 
 
 def flash_bwd_split(torch) -> dict:
-    """Each f32 backward kernel's device ms (``bwd_kernel_ms``) at
-    ``train_lm``'s and the training path's flash shapes, causal, by
-    label.  Run in phase 8, before any other profiler session of the
-    process."""
+    """Each backward kernel's device ms (``bwd_kernel_ms``) at the causal
+    training shapes, by label: f32 at ``train_lm``'s and the training
+    path's flash shapes (``train_lm``, ``training``), bf16 at the training
+    path's and zamba2-7b's (``training_bf16``, ``zamba2-7b_bf16``).  Run in
+    phase 8, before any other profiler session of the process."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
 
+    z = get_config(HYBRID_TRAIN_ARCH)
     gen = torch.Generator().manual_seed(29)
-    split = {}
-    for label, (b, s, t, h, hkv, d) in (("train_lm", TRAIN_LM_FLASH),
-                                        ("training", TRAIN_FLASH)):
-        q, k, v, do = (torch.randn(dims, generator=gen).cuda()
-                       for dims in ((b * h, s, d), (b * hkv, t, d),
-                                    (b * hkv, t, d), (b * h, s, d)))
+    runs, shapes = {}, {}
+    for label, (b, s, t, h, hkv, d), dtype in (
+            ("train_lm", TRAIN_LM_FLASH, "float32"),
+            ("training", TRAIN_FLASH, "float32"),
+            ("training_bf16", TRAIN_FLASH, "bfloat16"),
+            (f"{z.name}_bf16", (1, LM_TRAIN_SEQ, LM_TRAIN_SEQ, z.n_heads,
+                                z.n_kv_heads, z.d_head), "bfloat16")):
+        q, k, v, do = (torch.randn(dims, generator=gen).to(
+            "cuda", getattr(torch, dtype))
+            for dims in ((b * h, s, d), (b * hkv, t, d), (b * hkv, t, d),
+                         (b * h, s, d)))
         out, lse = flash_attention_fwd(q, k, v, causal=True,
                                        return_lse=True)
-        split[label] = bwd_kernel_ms(torch, lambda: flash_attention_bwd(
-            q, k, v, out, lse, do, causal=True))
-        print(f"flash_attention_bwd_f32 kernels at q {tuple(q.shape)}, k/v "
-              f"{tuple(k.shape)} f32 causal ({label}; profiler, by kernel "
-              f"name): " + (", ".join(
-                  f"{n} {split[label][n]:.4f} ms"
-                  for n in ("dq", "dkdv", "sum") if n in split[label])
-                  or "not measured"))
-        del q, k, v, do, out, lse
-        torch.cuda.empty_cache()
+        runs[label] = (functools.partial(flash_attention_bwd, q, k, v, out,
+                                         lse, do, causal=True), dtype, d)
+        shapes[label] = (f"q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+                         f"{dtype} causal")
+    split = bwd_kernel_ms(torch, runs)
+    for label, parts in split.items():
+        print(f"flash_attention_bwd kernels at {shapes[label]} ({label}; "
+              f"profiler, by kernel name): " + (", ".join(
+                  f"{n} {parts[n]:.4f} ms" for n in ("dq", "dkdv", "sum")
+                  if n in parts) or "not measured"))
+    del runs
+    torch.cuda.empty_cache()
     return split
 
 
@@ -6232,12 +6384,16 @@ def phases(torch, np, tmp: str, card: str) -> int:
             if not f32 or not all(c[1] for c in f32.values()):
                 raise AssertionError(f"the f32 flash kernel issues no "
                                      f"tensor-core instruction: {f32}")
-            bwd = {n: c for n, c in counts.items()
-                   if "flash_bwd" in n and "bf16" in n}
-            if len(bwd) != 10 or not all(c[1] for c in bwd.values()):
-                raise AssertionError(f"the bf16 flash backward kernels "
-                                     f"contain no HMMA: {bwd}")
+            check_bf16_bwd_hgmma(counts)
             check_f32_bwd_hmma(counts)
+            log = cuda_build.build_logs.get(src, "")
+            regs = ptxas_kernels(log, "bf16_kernel")
+            print(f"ptxas: the bf16 flash backward's kernels (registers, "
+                  f"spill store bytes): "
+                  f"{ {n: r for n, r in sorted(regs.items()) if 'bwd' in n} }")
+            for line in log.splitlines():
+                if "wgmma" in line and "serialized" in line:
+                    print(f"ptxas: {line.strip()}")
 
     errs = {}
     t0 = time.perf_counter()
@@ -6264,7 +6420,7 @@ def phases(torch, np, tmp: str, card: str) -> int:
     lm_train = lm_train_phase(torch, np)
     lm_errs.update(lm_train["errs"])
     lm_grad_oracle(torch)
-    rows += lm_train_rows(torch, lm_train, hybrid, lm_errs)
+    rows += lm_train_rows(torch, lm_train, hybrid, lm_errs, bwd_split)
     analyze_phase(torch, list(sched.registry.plans().values())
                   + [p for _, _, p in train_run["walk"]] + tuned_plans)
     rows += examples_phase(torch, tmp, bwd_split)

@@ -58,8 +58,9 @@
 // kernel's base-2 m converted), which the backward reads.  o is computed
 // exactly as without it.
 //
-// The backward (flash_bwd_dq_bf16_kernel and flash_bwd_dkdv_bf16_kernel in
-// bf16, `namespace tc`; flash_bwd_dq_kernel, flash_bwd_dkdv_kernel and
+// The backward (flash_bwd_dq_bf16_kernel, flash_bwd_dkdv_bf16_kernel and
+// flash_bwd_dkdv_sum_bf16_kernel in bf16, `namespace tc`;
+// flash_bwd_dq_kernel, flash_bwd_dkdv_kernel and
 // flash_bwd_dkdv_sum_kernel in f32, `namespace bwd`, last) is not the port
 // of a TPU kernel: the reference has none, and its training differentiates
 // the chunked JAX attention (src/repro/models/layers.py:176) with XLA.  It
@@ -68,12 +69,13 @@
 // causal) against q, k, v, o, dO, lse read once and dq, dk, dv written
 // once.  The dQ kernel recomputes S and dP (seven products in all), which
 // buys the absence of atomics: every gradient element is summed in a fixed
-// order (the f32 dK/dV walk in segments whose f32 sums a second pass adds
-// in order), so the gradients are bitwise the same from run to run and a
+// order (the dK/dV walk in segments whose f32 sums a second pass adds in
+// order), so the gradients are bitwise the same from run to run and a
 // sequence's do not depend on its batch.  Both dtypes run every product on
-// the tensor cores: bf16 on mma.sync m16n8k16, f32 on mma.sync m16n8k8 tf32
-// in three terms as flash_fwd_kernel does (at the training shape its seven
-// products are 240.5 GFLOP, 1.46 ms at 165 TFLOP/s).
+// the tensor cores: bf16 on wgmma m64nNk16 as flash_fwd_bf16_kernel does
+// (at the training shape its seven products are 240.5 GFLOP, 0.243 ms at
+// 989 TFLOP/s), f32 on mma.sync m16n8k8 tf32 in three terms as
+// flash_fwd_kernel does (1.46 ms at 165 TFLOP/s).
 //
 // flash_fwd_kernel (f32: train_lm, serve_lm and the f32 copies of the oracles
 // and rings; below `namespace tc`).  What bounds it: operations. At the
@@ -359,6 +361,28 @@ __device__ __forceinline__ void wgmma(float (&d)[16][4],
         "r"(1));
 }
 
+// d = A (64 x 16) * B (16 x 64) + (accumulate ? d : 0), A and B both read
+// K-major from shared memory by descriptor (the backward's S and dP, whose
+// A operand is a staged tile); d as in `wgmma`.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a_desc,
+                                         uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
 // 2^x on the special-function unit (relative error about 2^-22).
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -608,57 +632,99 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------------
-// Backward, bf16: tensor cores (mma.sync m16n8k16), cp.async double buffering
+// Backward, bf16: tensor cores (wgmma m64nNk16), cp.async double buffering
 // ---------------------------------------------------------------------------
-// The same two kernels as the f32 backward (see `namespace bwd`), each one
-// warpgroup: a warp owns 16 rows of its block's 64 (keys in the dK/dV
-// kernel, queries in the dQ kernel) against all 64 columns of the other
-// operand's tile, so no product needs another warp's result and a step has
-// one barrier.  Every product is mma.sync m16n8k16 (bf16 in, f32
-// accumulators); operands come from shared memory by ldmatrix, row-major
-// tiles with rows of D + 8 elements (conflict-free, as Q's in the forward),
-// transposed on load (ldmatrix .trans) where the product reads a tile by
-// columns (dV = P^T dO, dK = dS^T Q, dQ = dS K).  P and dS come from the
-// accumulators in registers and feed the next product as its A fragments.
-// The tiles the block walks (Q and dO, or K and V) are double-buffered by
-// stage_q's 16-byte cp.async with zero-fill.
+// The same two kernels as the f32 backward (see `namespace bwd`), built on
+// the forward's wgmma.  What bounds them: operations, 240.5 GFLOP of
+// seven products at the training shape (q (16, 4096, 128), k/v (2, 4096,
+// 128), causal), 0.243 ms at 989 TFLOP/s; against q, k, v, o, dO, lse
+// read once and dq, dk, dv written once (60 MB) the work is some 4000 FLOP
+// a byte, far above the ridge (295).  So every product runs as wgmma, and
+// the design is about keeping the tensor cores fed:
+//   dQ = scale dS K          one block per (q head, 64 NQ queries), NQ
+//                            warpgroups of 64 queries each, walking the
+//                            key tiles up to the diagonal;
+//   dK = scale dS^T Q,       one block per (kv head, 64 NK keys, segment),
+//   dV = P^T dO              NK warpgroups of 64 keys each, walking a
+//                            segment of its group's (q head, query stage)
+//                            pairs from the diagonal on.
+// The warpgroups of a block share the walked tiles (K and V, or Q and dO),
+// so a tile read from L2 feeds 64 NQ (or NK) rows.  A warpgroup never needs
+// another's result: it owns its rows' accumulators (dQ; or dK and dV) in
+// wgmma's accumulator layout, and one barrier a stage guards the
+// double-buffered tiles.
+//
+// Layout.  Every tile is 64 rows in the forward's 128-byte swizzled layout
+// (stage_tile, as stage_kv): the block's own rows (Q and dO, or K and V)
+// staged once, the walked ones double-buffered by 16-byte cp.async with
+// zero-fill past S or T.  Each product reads its operands where they lie:
+//   S = Q K^T, dP = dO V^T (dQ kernel): wgmma m64n64k16, K and V read
+//   K-major by descriptor; Q and dO as register A fragments at D = 112
+//   and 128 (load_a once, as the forward holds Q: half the shared-memory
+//   reads of the products that read both operands there), both operands
+//   from shared memory below that (wgmma_ss);
+//   S^T = K Q^T, dP^T = V dO^T (dK/dV kernel): wgmma_ss, A and B both
+//   K-major from shared memory: K in registers too would add 32 to the
+//   two D-wide accumulators and S^T, dP^T (242 registers a thread at D =
+//   128), and spilled;
+//   dQ += dS K, dV += P^T dO, dK += dS^T Q: wgmma m64nDk16 with A the
+//   rounded dS, P^T or dS^T in registers where the accumulators left them
+//   (to_a_frags: two n8 tiles of the 64 columns make a k16 step), and B
+//   the walked (or staged) tile read N-major, as the forward's P V reads
+//   V.
+// Each batch of products (S and dP; then dQ, or dV and dK) is committed and
+// waited for before its result is used, the next stage's copies issued in
+// between; the two warpgroups of a block, and the blocks an SM holds,
+// interleave.  A batch is issued on a straight path: a wgmma under a branch
+// (a warpgroup skipping a stage) made ptxas serialize every wgmma of the
+// kernel, and the warpgroup index is broadcast from lane 0 (`warpgroup`) so
+// that the skip is seen as uniform.  The dQ kernel runs its query tiles
+// heaviest first (blockIdx.y reversed); under `causal` a warpgroup skips a
+// tile wholly above its rows.
+//
+// The dK/dV walk is split as the f32 backward's is (`namespace bwd`): key
+// block j's walk (its group's q heads times its query stages of BQ = 64,
+// `bwd_walk`) is cut into segments of L stages (`bwd_seg_stages`: at least
+// BWD_SEG_MIN = 64 stages, and the heaviest key block's walk in at most
+// about BWD_SEG_TARGET segments), each segment a block, enumerated key
+// block by key block, the heaviest first.  So only walks of more than 4096
+// query rows are cut: at qwen2.5-3b's training shape (a group of 8) key
+// block j's 8 (64 - 2 j) stages go into up to 8 segments, and at zamba2-7b's
+// (a group of 1) no walk is cut, where cutting cost more in partials than
+// it won (PERF.md §6, row 5h).  L and the segments depend only on (S, T, D,
+// group) and `causal`, never on BH or the batch
+// (kernels/flash_attention.dkdv_split_bf16 repeats the rule).  A key block
+// walked by one segment writes dk and dv itself; one walked by several
+// writes each segment's f32 sums into `part`, and
+// flash_bwd_dkdv_sum_bf16_kernel adds them in segment order and rounds
+// once to bf16.  No atomics: dq, dk and dv are bitwise the same from run
+// to run, and a sequence's gradients do not depend on its batch.
 //
 // Where this backward rounds: P and dS are rounded once to bf16 (unit
 // roundoff u = 2^-8) before the products that take them; S, dP, delta and
-// every sum stay in f32.  A rounded weight p~ = p (1 + e), |e| <= u, so
-// each gradient element is the exact sum of its terms each perturbed by at
-// most u: |dV~ - dV| <= u sum_q p |dO| and |dK~ - dK| <= u scale sum_q |dS|
-// |Q|, at most u = 0.0039 of the sums of |terms| and, with independent
-// roundings, about u / sqrt(n) of them over n terms.  The outputs' own bf16
-// rounding adds u |g|.  For the unit-normal operands of the checks that is
-// well inside 2e-2 of max |g| against `flash_attention_bwd_plain` (f32
-// throughout).  The log-sum-exp is f32 from the forward, in natural-log
-// units; the kernels use it as lse * log2(e) with exp2.
+// every sum stay in f32 (the partials too), and each output is rounded
+// once.  A rounded weight p~ = p (1 + e), |e| <= u, so each gradient
+// element is the exact sum of its terms each perturbed by at most u:
+// |dV~ - dV| <= u sum_q p |dO| and |dK~ - dK| <= u scale sum_q |dS| |Q|, at
+// most u = 0.0039 of the sums of |terms| and, with independent roundings,
+// about u / sqrt(n) of them over n terms.  The outputs' own bf16 rounding
+// adds u |g|.  For the unit-normal operands of the checks that is well
+// inside 2e-2 of max |g| against `flash_attention_bwd_plain` (f32
+// throughout); `flash_attention_bwd_bf16_plain` rounds where the kernels
+// do, and chip_smoke.py derives its tolerance against it
+// (`XBF16_BWD_TOL`).  The log-sum-exp is f32 from the forward, in
+// natural-log units; the kernels use it as lse * log2(e) with exp2.
 
-// ldmatrix of four 8 x 8 b16 matrices, each transposed on load.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int BWD_SEG_TARGET = 16;  // segments of the heaviest key block's walk
+constexpr int BWD_SEG_MIN = 64;     // the fewest query stages of a segment
+constexpr int BWD_SUM_THREADS = 256;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The accumulators of a warp's 16 x 64 product (8 n8 tiles), rounded to
+// The accumulators of a 64 x 64 product (8 n8 tiles a warp), rounded to
 // bf16 as the A fragments of a product over those 64 columns (4 k16 steps).
 __device__ __forceinline__ void to_a_frags(const float (&x)[8][4],
                                            uint32_t (&a)[4][4]) {
@@ -671,63 +737,154 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[8][4],
   }
 }
 
-// acc (16 x 64) = a (the warp's 16 rows, row-major, stride LD) times b^T
-// (b: 64 rows, row-major, stride LD), over D: acc[r][c] = a[r] . b[c].
-template <int D>
-__device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
-                                         float (&acc)[8][4]) {
-  constexpr int LD = Cfg<D>::LD;
-  const int lane = threadIdx.x % 32;
+// wgmma_commit_wait in two halves: close the group of the products issued
+// so far, and (after other work) wait for it.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&d)[NT][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(smem_u32(a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8), af);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(smem_u32(b + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                       kk * 16 + ((lane >> 3) & 1) * 8),
-              bf);
-      mma16816(acc[2 * np], af, bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
+    for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
+}
+
+// The dK/dV walk's split (kernels/flash_attention.dkdv_split_bf16 repeats
+// it).  L, the query stages of a segment.
+__host__ __device__ inline int bwd_seg_stages(int S, int group) {
+  const int stages = (group * ((S + BQ - 1) / BQ) + BWD_SEG_TARGET - 1) /
+                     BWD_SEG_TARGET;
+  return stages > BWD_SEG_MIN ? stages : BWD_SEG_MIN;
+}
+// The (q head, query stage) pairs key block j (of bkv keys) walks.
+__host__ __device__ inline int bwd_walk(int j, int bkv, int S, int group,
+                                        int causal) {
+  const int q_begin = causal ? j * bkv : 0;
+  return q_begin < S ? group * ((S - q_begin + BQ - 1) / BQ) : 0;
+}
+// Its segments: at least one, which writes zeros where the walk is empty.
+__host__ __device__ inline int bwd_segments(int j, int bkv, int S, int group,
+                                            int causal, int L) {
+  const int n = (bwd_walk(j, bkv, S, group, causal) + L - 1) / L;
+  return n > 1 ? n : 1;
+}
+
+// 4-byte async copy (lse, delta); src-size 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Rows [r0, r0 + 64) of a [n_rows, D] operand into one swizzled tile by NTH
+// threads (stage_kv's layout), rows past n_rows zero-filled.
+template <int D, int NTH>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int r0,
+                                           int n_rows) {
+  constexpr int CH = Cfg<D>::CH, ATOM = Cfg<D>::ATOM;
+  for (int e = threadIdx.x; e < BK * CH; e += NTH) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = r0 + r < n_rows;
+    const bf16* g = src + (size_t)(ok ? r0 + r : 0) * D + c * 8;
+    cp_async16(smem_u32(dst + c / 8 * ATOM + r * 64 + ((c % 8) ^ (r & 7)) * 8),
+               g, ok);
   }
 }
 
-// acc (16 x D) += x (16 x 64, A fragments) times b (64 rows, row-major,
-// stride LD): acc[r][d] += sum_c x[r][c] b[c][d].
+// A swizzled 64-row tile's descriptors: k16 step kk of its columns read
+// K-major (32-byte offset kk % 4 of atom kk / 4, 8-row groups 1024 bytes
+// apart), and rows 16 kk .. 16 kk + 15 read N-major (atoms of 64 columns
+// ATOM * 2 bytes apart), as the forward reads K and V.
 template <int D>
-__device__ __forceinline__ void warp_xb(const uint32_t (&x)[4][4],
-                                        const bf16* b, float (&acc)[D / 8][4]) {
-  constexpr int LD = Cfg<D>::LD;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4_t(smem_u32(b + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                 LD +
-                         np * 16 + (lane >> 4) * 8),
-                bf);
-      mma16816(acc[2 * np], x[kk], bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], x[kk], bf[2], bf[3]);
-    }
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
+  return gmma_desc(tile + kk / 4 * Cfg<D>::ATOM + kk % 4 * 16, 1, 64);
+}
+template <int D>
+__device__ __forceinline__ uint64_t desc_n(const bf16* tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 64, Cfg<D>::ATOM / 8, 64);
 }
 
+// s = X Y^T (64 x 64) over D: X and Y swizzled 64-row tiles, both K-major
+// (the first k16 step overwrites s).
 template <int D>
+__device__ __forceinline__ void issue_abt(float (&s)[8][4], const bf16* x,
+                                          const bf16* y) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_k<D>(x, kk), desc_k<D>(y, kk), kk > 0);
+}
+
+// The A fragments of k16 step kk for the warp's 16 rows of a swizzled
+// 64-row tile, by ldmatrix as the forward loads Q (lane l gives the address
+// of row l % 16, 16-byte chunk 2 kk + l / 16, where the swizzle put it).
+// The "memory" clobber keeps the read after the barrier that publishes the
+// tile.
+template <int D>
+__device__ __forceinline__ void load_a(const bf16* tile, int kk,
+                                       uint32_t (&a)[4]) {
+  const int lane = threadIdx.x % 32;
+  const int r = threadIdx.x / 32 % 4 * 16 + (lane & 15), c = 2 * kk + lane / 16;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(tile + c / 8 * Cfg<D>::ATOM + r * 64 +
+                     ((c % 8) ^ (r & 7)) * 8))
+      : "memory");
+}
+
+// This thread's warpgroup, broadcast from lane 0 so that the compiler sees
+// it uniform across the warp: a branch on it around wgmma is not divergent.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x / THREADS), 0);
+}
+
+// s = X Y^T (64 x 64) over D: X in A fragments (k16 step kk at x[kk]), Y a
+// swizzled 64-row tile read K-major; s zeroed by the caller.
+template <int D>
+__device__ __forceinline__ void issue_rbt(float (&s)[8][4],
+                                          const uint32_t (&x)[D / 16][4],
+                                          const bf16* y) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma<0>(s, x[kk], desc_k<D>(y, kk), int_<64>());
+}
+
+// acc (64 x D) += X Y: X (64 x 64) in A fragments, Y a swizzled 64-row tile
+// read N-major.
+template <int D>
+__device__ __forceinline__ void issue_xb(float (&acc)[D / 8][4],
+                                         const uint32_t (&x)[4][4],
+                                         const bf16* y) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma<1>(acc, x[kk], desc_n<D>(y, kk), int_<D>());
+}
+
+__device__ __forceinline__ bf16* align_1024(unsigned char* p) {
+  return reinterpret_cast<bf16*>(p + (1024 - smem_u32(p) % 1024) % 1024);
+}
+
+// A backward block: NW warpgroups over ROWS = 64 NW rows of its own
+// (queries in the dQ kernel, keys in the dK/dV kernel), NW tiles of each of
+// its two own operands and two buffers of each walked one; 1024 bytes
+// align the base, and the dK/dV kernel adds each stage's lse and delta.
+template <int D, int NW>
 struct BwdCfg {
-  static constexpr int TILE = BQ * Cfg<D>::LD;  // elements of a 64-row tile
-  static constexpr size_t SMEM_DQ = sizeof(bf16) * 6 * (size_t)TILE;
-  static constexpr size_t SMEM_DKDV = SMEM_DQ + sizeof(float) * 4 * BQ;
+  static constexpr int TILE = Cfg<D>::TILE;
+  static constexpr int NTH = THREADS * NW;  // THREADS: a warpgroup's
+  static constexpr int ROWS = BQ * NW;
+  static constexpr size_t TILES = sizeof(bf16) * (2 * NW + 4) * (size_t)TILE;
+  static constexpr size_t SMEM_DQ = TILES + 1024;
+  static constexpr size_t SMEM_DKDV = TILES + sizeof(float) * 4 * BQ + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int NW>
+__global__ void __launch_bounds__(BwdCfg<D, NW>::NTH)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ o,
                          const bf16* __restrict__ dout,
@@ -735,28 +892,39 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ delta, bf16* __restrict__ dq,
                          int S, int Tk, int group, float scale,
                          float scale_log2, int causal) {
-  constexpr int LD = Cfg<D>::LD, NT = D / 8, TILE = BwdCfg<D>::TILE;
+  using C = BwdCfg<D, NW>;
+  constexpr int NT = D / 8, TILE = C::TILE, NTH = C::NTH, ROWS = C::ROWS;
+  // S and dP with Q and dO in registers (as the forward holds Q) at the LM
+  // head dims; both operands from shared memory below them (the register
+  // form read wrong scores at D = 64 on the H100, PERF.md §6 row 5h)
+  constexpr bool QREG = D >= 112;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [TILE]
-  bf16* dos = qs + TILE;                          // [TILE]
-  bf16* ks = dos + TILE;                          // [2][TILE]
-  bf16* vs = ks + 2 * TILE;                       // [2][TILE]
+  bf16* qs = align_1024(smem_raw);  // [NW][TILE]
+  bf16* dos = qs + NW * TILE;        // [NW][TILE]
+  bf16* ks = dos + NW * TILE;        // [2][TILE]
+  bf16* vs = ks + 2 * TILE;          // [2][TILE]
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // heaviest tiles first
   const size_t qoff = (size_t)bh * S * D;
   const bf16* kb = k + (size_t)(bh / group) * Tk * D;
   const bf16* vb = v + (size_t)(bh / group) * Tk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warpgroup();
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int wq0 = q0 + wg * BQ;  // the warpgroup's first query
+  const int row_lo = wq0 + warp * 16 + g, row_hi = row_lo + 8;
+  const int k_end = causal ? min(Tk, q0 + ROWS) : Tk;
   const int n_tiles = (k_end + BK - 1) / BK;
 
-  stage_q<D>(qs, q + qoff, q0, S);
-  stage_q<D>(dos, dout + qoff, q0, S);
-  stage_q<D>(ks, kb, 0, Tk);
-  stage_q<D>(vs, vb, 0, Tk);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    stage_tile<D, NTH>(qs + w * TILE, q + qoff, q0 + w * BQ, S);
+    stage_tile<D, NTH>(dos + w * TILE, dout + qoff, q0 + w * BQ, S);
+  }
+  cp_async_commit();
+  stage_tile<D, NTH>(ks, kb, 0, Tk);
+  stage_tile<D, NTH>(vs, vb, 0, Tk);
   cp_async_commit();
 
   // delta = rowsum(dO o O) of the thread's two rows (columns 8c + 2t, +1,
@@ -794,42 +962,81 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float l_lo = row_lo < S ? lse[(size_t)bh * S + row_lo] * LOG2E : 0.f;
   const float l_hi = row_hi < S ? lse[(size_t)bh * S + row_hi] * LOG2E : 0.f;
 
+  // Q's and dO's A fragments (QREG), once their copies (the first group)
+  // landed
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  if constexpr (QREG) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      load_a<D>(qs + wg * TILE, kk, qf[kk]);
+      load_a<D>(dos + wg * TILE, kk, df[kk]);
+    }
+  }
   float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  zero(acc);
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait_all();
-    __syncthreads();  // tile `it` landed; every warp is done with it - 1
-    if (it + 1 < n_tiles) {
-      const int nb = (it + 1) & 1;
-      stage_q<D>(ks + nb * TILE, kb, (it + 1) * BK, Tk);
-      stage_q<D>(vs + nb * TILE, vb, (it + 1) * BK, Tk);
-    }
-    cp_async_commit();
+    __syncthreads();  // tile `it` landed; every warpgroup is done with it - 1
+    const int k0 = it * BK;
     const bf16* kt = ks + (it & 1) * TILE;
     const bf16* vt = vs + (it & 1) * TILE;
-    const int k0 = it * BK;
-
-    float p[8][4], dp[8][4];
-    warp_abt<D>(qs + warp * 16 * LD, kt, p);    // S = Q K^T
-    warp_abt<D>(dos + warp * 16 * LD, vt, dp);  // dP = dO V^T
+    // a warpgroup whose queries all precede the tile's keys sees none
+    const bool skip = wq0 >= S || (causal && k0 > wq0 + BQ - 1);
+    auto stage_next = [&]() {
+      if (it + 1 < n_tiles) {
+        const int nb = (it + 1) & 1;
+        stage_tile<D, NTH>(ks + nb * TILE, kb, (it + 1) * BK, Tk);
+        stage_tile<D, NTH>(vs + nb * TILE, vb, (it + 1) * BK, Tk);
+      }
+      cp_async_commit();
+    };
+    if (skip) {  // before the products: their path has no branch
+      stage_next();
+      continue;
+    }
+    float s[8][4], dp[8][4];
+    if constexpr (QREG) {
+      zero(s);
+      zero(dp);
+      fence_regs(s);
+      fence_regs(dp);
+    }
+    wgmma_fence();
+    if constexpr (QREG) {
+      issue_rbt<D>(s, qf, kt);   // S = Q K^T
+      issue_rbt<D>(dp, df, vt);  // dP = dO V^T
+    } else {
+      issue_abt<D>(s, qs + wg * TILE, kt);
+      issue_abt<D>(dp, dos + wg * TILE, vt);
+    }
+    wgmma_commit();
+    stage_next();  // the next tile's copies go out while the products run
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    // dS = P o (dP - delta), P = exp(scale S - lse); mask only the tiles
+    // that reach past T or the warpgroup's diagonal
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > wq0);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + n * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? row_lo : row_hi;
-        const bool ok = row < S && key < Tk && !(causal && key > row);
-        const float pe =
-            ok ? ex2(fmaf(p[n][e], scale_log2, -(e < 2 ? l_lo : l_hi))) : 0.f;
-        dp[n][e] = pe * (dp[n][e] - (e < 2 ? d_lo : d_hi));  // dS
+        float p = ex2(fmaf(s[n][e], scale_log2, -(e < 2 ? l_lo : l_hi)));
+        if (edge && (key >= Tk || (causal && key > row))) p = 0.f;
+        dp[n][e] = p * (dp[n][e] - (e < 2 ? d_lo : d_hi));
       }
     uint32_t xf[4][4];
     to_a_frags(dp, xf);
-    warp_xb<D>(xf, kt, acc);  // dQ += dS K
+    fence_regs(acc);
+    wgmma_fence();
+    issue_xb<D>(acc, xf, kt);  // dQ += dS K
+    wgmma_commit_wait();
+    fence_regs(acc);
   }
   cp_async_wait_all();
 
@@ -846,168 +1053,305 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int NW>
+__global__ void __launch_bounds__(BwdCfg<D, NW>::NTH)
 flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
                            const bf16* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                           int Tk, int group, float scale, float scale_log2,
-                           int causal) {
-  constexpr int LD = Cfg<D>::LD, NT = D / 8, TILE = BwdCfg<D>::TILE;
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           float* __restrict__ part, int S, int Tk, int group,
+                           float scale, float scale_log2, int causal, int L) {
+  using C = BwdCfg<D, NW>;
+  constexpr int NT = D / 8, TILE = C::TILE, NTH = C::NTH, BKV = C::ROWS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [TILE]
-  bf16* vs = ks + TILE;                           // [TILE]
-  bf16* qs = vs + TILE;                           // [2][TILE]
-  bf16* dos = qs + 2 * TILE;                      // [2][TILE]
-  float* ls = reinterpret_cast<float*>(dos + 2 * TILE);  // [2][BQ]: lse log2 e
+  bf16* ks = align_1024(smem_raw);  // [NW][TILE]
+  bf16* vs = ks + NW * TILE;         // [NW][TILE]
+  bf16* qs = vs + NW * TILE;         // [2][TILE]
+  bf16* dos = qs + 2 * TILE;         // [2][TILE]
+  float* ls = reinterpret_cast<float*>(dos + 2 * TILE);  // [2][BQ]: lse
   float* dl = ls + 2 * BQ;                               // [2][BQ]: delta
 
-  const int hk = blockIdx.x;
-  const int k0 = blockIdx.y * BK;  // under causal the first tiles are heaviest
-  const size_t kvoff = (size_t)hk * Tk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  // queries before k0 see none of these keys under `causal`; the block walks
-  // its group's q heads, each over query tiles q_begin, q_begin + 64, ...
+  // blockIdx.x enumerates the segments of key blocks 0, 1, ... in order
+  const int hk = blockIdx.y;
+  int j = 0, seg = blockIdx.x, n_seg;
+  while (seg >= (n_seg = bwd_segments(j, BKV, S, group, causal, L))) {
+    seg -= n_seg;
+    ++j;
+  }
+  const int k0 = j * BKV;
   const int q_begin = causal ? k0 : 0;
-  const int n_q = q_begin < S ? (S - q_begin + BQ - 1) / BQ : 0;
-  const int total = group * n_q;
+  const int n_q = bwd_walk(j, BKV, S, group, causal) / group;
+  const int it0 = seg * L;
+  const int it1 = min(group * n_q, it0 + L);
+  const size_t kvoff = (size_t)hk * Tk * D;
+  const int wg = warpgroup();
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + wg * BK;  // the warpgroup's first key
+  const int key_lo = wk0 + warp * 16 + g, key_hi = key_lo + 8;
 
+  // step `it` of the walk: q head it / n_q of the group, query stage
+  // it % n_q from q_begin
   auto stage = [&](int it, int buf) {
     const int bh = hk * group + it / n_q;
     const int q0 = q_begin + it % n_q * BQ;
-    stage_q<D>(qs + buf * TILE, q + (size_t)bh * S * D, q0, S);
-    stage_q<D>(dos + buf * TILE, dout + (size_t)bh * S * D, q0, S);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
+    stage_tile<D, NTH>(qs + buf * TILE, q + (size_t)bh * S * D, q0, S);
+    stage_tile<D, NTH>(dos + buf * TILE, dout + (size_t)bh * S * D, q0, S);
+    for (int r = threadIdx.x; r < BQ; r += NTH) {
       const bool ok = q0 + r < S;
-      ls[buf * BQ + r] = ok ? lse[(size_t)bh * S + q0 + r] * LOG2E : 0.f;
-      dl[buf * BQ + r] = ok ? delta[(size_t)bh * S + q0 + r] : 0.f;
+      const size_t at = (size_t)bh * S + (ok ? q0 + r : 0);
+      cp_async4(smem_u32(ls + buf * BQ + r), lse + at, ok);
+      cp_async4(smem_u32(dl + buf * BQ + r), delta + at, ok);
     }
   };
 
-  stage_q<D>(ks, k + kvoff, k0, Tk);
-  stage_q<D>(vs, v + kvoff, k0, Tk);
-  if (total > 0) stage(0, 0);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    stage_tile<D, NTH>(ks + w * TILE, k + kvoff, k0 + w * BK, Tk);
+    stage_tile<D, NTH>(vs + w * TILE, v + kvoff, k0 + w * BK, Tk);
+  }
+  if (it0 < it1) stage(it0, 0);
   cp_async_commit();
 
+  const bf16* kw = ks + wg * TILE;
+  const bf16* vw = vs + wg * TILE;
   float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  zero(dka);
+  zero(dva);
 
-  for (int it = 0; it < total; ++it) {
+  for (int it = it0; it < it1; ++it) {
     cp_async_wait_all();
-    __syncthreads();  // step `it` landed; every warp is done with it - 1
-    if (it + 1 < total) stage(it + 1, (it + 1) & 1);
-    cp_async_commit();
-    const int buf = it & 1;
+    __syncthreads();  // step `it` landed; every warpgroup is done with it - 1
+    const int buf = (it - it0) & 1;
     const int q0 = q_begin + it % n_q * BQ;
     const bf16* qt = qs + buf * TILE;
     const bf16* dot = dos + buf * TILE;
     const float* lt = ls + buf * BQ;
     const float* dt = dl + buf * BQ;
-
-    float p[8][4];
-    warp_abt<D>(ks + warp * 16 * LD, qt, p);  // S^T = K Q^T
+    // under `causal` a warpgroup whose keys all follow the stage's queries
+    // sees none of them
+    const bool skip = wk0 >= Tk || (causal && wk0 > q0 + BQ - 1);
+    auto stage_next = [&]() {
+      if (it + 1 < it1) stage(it + 1, buf ^ 1);
+      cp_async_commit();
+    };
+    if (skip) {  // before the products: their path has no branch
+      stage_next();
+      continue;
+    }
+    // S^T = K Q^T and dP^T = V dO^T: rows the warpgroup's keys, columns
+    // the stage's queries
+    float p[8][4], ds[8][4];
+    wgmma_fence();
+    issue_abt<D>(p, kw, qt);
+    issue_abt<D>(ds, vw, dot);
+    wgmma_commit();
+    stage_next();  // the next step's copies go out while the products run
+    wgmma_wait();
+    fence_regs(p);
+    fence_regs(ds);
+    // P^T = exp(scale S^T - lse), dS^T = P^T o (dP^T - delta); mask only
+    // where the queries reach past S or the keys cross the diagonal
+    const bool edge = q0 + BQ > S || (causal && wk0 + BK - 1 > q0);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), qpos = q0 + c;
+        const int c = n * 8 + 2 * t + (e & 1);
         const int key = e < 2 ? key_lo : key_hi;
-        const bool ok = qpos < S && key < Tk && !(causal && key > qpos);
-        p[n][e] = ok ? ex2(fmaf(p[n][e], scale_log2, -lt[c])) : 0.f;
+        float x = ex2(fmaf(p[n][e], scale_log2, -(lt[c] * LOG2E)));
+        if (edge && (q0 + c >= S || (causal && key > q0 + c))) x = 0.f;
+        p[n][e] = x;
+        ds[n][e] = x * (ds[n][e] - dt[c]);
       }
-    uint32_t xf[4][4];
-    to_a_frags(p, xf);
-    warp_xb<D>(xf, dot, dva);  // dV += P^T dO
-    float ds[8][4];
-    warp_abt<D>(vs + warp * 16 * LD, dot, ds);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = p[n][e] * (ds[n][e] - dt[n * 8 + 2 * t + (e & 1)]);
-    to_a_frags(ds, xf);
-    warp_xb<D>(xf, qt, dka);  // dK += dS^T Q
+    uint32_t pf[4][4], sf[4][4];
+    to_a_frags(p, pf);
+    to_a_frags(ds, sf);
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+    issue_xb<D>(dva, pf, dot);  // dV += P^T dO
+    issue_xb<D>(dka, sf, qt);   // dK += dS^T Q
+    wgmma_commit_wait();
+    fence_regs(dva);
+    fence_regs(dka);
   }
   cp_async_wait_all();
 
+  if (n_seg == 1) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (key_lo < Tk) {
+        const size_t at = kvoff + (size_t)key_lo * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+      }
+      if (key_hi < Tk) {
+        const size_t at = kvoff + (size_t)key_hi * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+      }
+    }
+    return;
+  }
+  // the segment's f32 sums, unscaled, into its slot: [dK | dV] of [BKV][D]
+  float* pk = part + ((size_t)hk * gridDim.x + blockIdx.x) * 2 * BKV * D;
+  float* pv = pk + BKV * D;
+  const int r = wg * BK + warp * 16 + g;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (key_lo < Tk) {
-      const size_t at = kvoff + (size_t)key_lo * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-    }
-    if (key_hi < Tk) {
-      const size_t at = kvoff + (size_t)key_hi * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
-    }
+    const int lo = r * D + n * 8 + 2 * t, hi = lo + 8 * D;
+    *reinterpret_cast<float2*>(pk + lo) = make_float2(dka[n][0], dka[n][1]);
+    *reinterpret_cast<float2*>(pk + hi) = make_float2(dka[n][2], dka[n][3]);
+    *reinterpret_cast<float2*>(pv + lo) = make_float2(dva[n][0], dva[n][1]);
+    *reinterpret_cast<float2*>(pv + hi) = make_float2(dva[n][2], dva[n][3]);
   }
 }
 
-template <int D>
+// The second pass: for each key block walked by several segments, dk =
+// bf16(scale * (part_0 + part_1 + ...)) and dv = bf16(part_0 + part_1 +
+// ...), one f32 add each in segment order and one rounding.  A block takes
+// BWD_SUM_THREADS float4s of one key block's slot (so a training shape's
+// few key blocks still fill the card), a thread one float4, loading 4
+// segments ahead before it adds them.  Blocks of key blocks that one
+// segment walked return at once.  Bound by bytes: every partial read once.
+template <int D, int BKV>
+__global__ void __launch_bounds__(BWD_SUM_THREADS)
+flash_bwd_dkdv_sum_bf16_kernel(const float* __restrict__ part,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int S, int Tk, int group, float scale,
+                               int causal, int L, int slots) {
+  constexpr int N4 = 2 * BKV * D / 4, U = 4;
+  constexpr int PIECES = (N4 + BWD_SUM_THREADS - 1) / BWD_SUM_THREADS;
+  const int j = blockIdx.x / PIECES, hk = blockIdx.y;
+  int seg0 = 0;
+  for (int i = 0; i < j; ++i) seg0 += bwd_segments(i, BKV, S, group, causal, L);
+  const int n_seg = bwd_segments(j, BKV, S, group, causal, L);
+  if (n_seg == 1) return;
+  const float4* p = reinterpret_cast<const float4*>(part) +
+                    ((size_t)hk * slots + seg0) * N4;
+  const int e = blockIdx.x % PIECES * BWD_SUM_THREADS + threadIdx.x;
+  const int at = e * 4, half = at / (BKV * D);
+  const int key = j * BKV + at % (BKV * D) / D;
+  if (e >= N4 || key >= Tk) return;
+  float4 acc = p[e];
+  for (int s = 1; s < n_seg; s += U) {
+    float4 b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s + u < n_seg) b[u] = p[(size_t)(s + u) * N4 + e];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s + u < n_seg) {
+        acc.x += b[u].x;
+        acc.y += b[u].y;
+        acc.z += b[u].z;
+        acc.w += b[u].w;
+      }
+  }
+  const float m = half ? 1.f : scale;
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+      (half ? dv : dk) + ((size_t)hk * Tk + key) * D + at % D);
+  out[0] = __floats2bfloat162_rn(acc.x * m, acc.y * m);
+  out[1] = __floats2bfloat162_rn(acc.z * m, acc.w * m);
+}
+
+// The split walk's layout for bkv keys a block and segments of L stages:
+// its blocks per kv head (every key block's segments) and whether any key
+// block has more than one.
+inline long long bwd_split_slots(int bkv, int S, int Tk, int group,
+                                 int causal, int L, bool* split) {
+  long long slots = 0;
+  *split = false;
+  for (int j = 0; j < (Tk + bkv - 1) / bkv; ++j) {
+    const int n = bwd_segments(j, bkv, S, group, causal, L);
+    slots += n;
+    *split = *split || n > 1;
+  }
+  return slots;
+}
+
+// `part`: f32 scratch of part_floats = BHkv * (the segments of every key
+// block) * 2 * 64 NK * D where some key block has more than one segment,
+// else 0 (kernels/flash_attention.dkdv_partials_bf16); any other size
+// refuses.  NQ, NK: the warpgroups of a dQ and a dK/dV block; L: the query
+// stages of a segment (bwd_dispatch passes bwd_seg_stages').
+template <int D, int NQ, int NK>
 cudaError_t bwd_launch(const void* q, const void* k, const void* v,
                        const void* o, const float* lse, const void* dout,
-                       void* dq, void* dk, void* dv, float* delta, int BH,
-                       int BHkv, int S, int Tk, float scale, int causal,
-                       cudaStream_t stream) {
-  constexpr size_t smem_dq = BwdCfg<D>::SMEM_DQ;
-  constexpr size_t smem_dkdv = BwdCfg<D>::SMEM_DKDV;
-  if (smem_dq > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_bf16_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
-    if (e != cudaSuccess) return e;
-  }
-  if (smem_dkdv > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkdv_bf16_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
-    if (e != cudaSuccess) return e;
-  }
+                       void* dq, void* dk, void* dv, float* delta, float* part,
+                       long long part_floats, int BH, int BHkv, int S, int Tk,
+                       float scale, int causal, int L, cudaStream_t stream) {
+  using CQ = BwdCfg<D, NQ>;
+  using CK = BwdCfg<D, NK>;
+  const int group = BH / BHkv;
+  const int n_tiles = (S + CQ::ROWS - 1) / CQ::ROWS;
+  const int n_kb = (Tk + CK::ROWS - 1) / CK::ROWS;
+  bool split;
+  const long long slots =
+      bwd_split_slots(CK::ROWS, S, Tk, group, causal, L, &split);
+  const long long need = split ? BHkv * slots * 2 * CK::ROWS * D : 0;
+  if (n_tiles > 65535 || BHkv > 65535 || slots > 0x7fffffff ||
+      part_floats != need || (need > 0 && part == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16_kernel<D, NQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CQ::SMEM_DQ);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D, NK>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)CK::SMEM_DKDV);
+  if (e != cudaSuccess) return e;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   const bf16* db = static_cast<const bf16*>(dout);
+  bf16* dkb = static_cast<bf16*>(dk);
+  bf16* dvb = static_cast<bf16*>(dv);
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dq_bf16_kernel<D><<<dim3(BH, (S + BQ - 1) / BQ), THREADS,
-                                smem_dq, stream>>>(
+  flash_bwd_dq_bf16_kernel<D, NQ><<<dim3(BH, n_tiles), CQ::NTH,
+                                    CQ::SMEM_DQ, stream>>>(
       qb, kb, vb, static_cast<const bf16*>(o), db, lse, delta,
-      static_cast<bf16*>(dq), S, Tk, BH / BHkv, scale, scale_log2, causal);
-  const cudaError_t e = cudaGetLastError();
+      static_cast<bf16*>(dq), S, Tk, group, scale, scale_log2, causal);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_bf16_kernel<D><<<dim3(BHkv, (Tk + BK - 1) / BK), THREADS,
-                                  smem_dkdv, stream>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, Tk, BH / BHkv, scale, scale_log2, causal);
+  flash_bwd_dkdv_bf16_kernel<D, NK><<<dim3((unsigned)slots, BHkv),
+                                      CK::NTH, CK::SMEM_DKDV, stream>>>(
+      qb, kb, vb, db, lse, delta, dkb, dvb, part, S, Tk, group, scale,
+      scale_log2, causal, L);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !split) return e;
+  constexpr int pieces =
+      (2 * CK::ROWS * D / 4 + BWD_SUM_THREADS - 1) / BWD_SUM_THREADS;
+  flash_bwd_dkdv_sum_bf16_kernel<D, CK::ROWS><<<dim3(n_kb * pieces, BHkv),
+                                                BWD_SUM_THREADS, 0, stream>>>(
+      part, dkb, dvb, S, Tk, group, scale, causal, L, (int)slots);
   return cudaGetLastError();
 }
 
+// The blocks per head dim: bwd_launch<D, NQ, NK> (kernels/flash_attention.
+// BWD_BF16_BLOCK repeats 64 NK, a test parses both).
 cudaError_t bwd_dispatch(int D, const void* q, const void* k, const void* v,
                          const void* o, const float* lse, const void* dout,
-                         void* dq, void* dk, void* dv, float* delta, int BH,
-                         int BHkv, int S, int Tk, float scale, int causal,
+                         void* dq, void* dk, void* dv, float* delta,
+                         float* part, long long part_floats, int BH, int BHkv,
+                         int S, int Tk, float scale, int causal,
                          cudaStream_t stream) {
+  const int L = bwd_seg_stages(S, BH / BHkv);
   switch (D) {
-    case 16: return bwd_launch<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 32: return bwd_launch<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 64: return bwd_launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 112: return bwd_launch<112>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
-    case 128: return bwd_launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, BHkv, S, Tk, scale, causal, stream);
+    case 16: return bwd_launch<16, 1, 1>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, L, stream);
+    case 32: return bwd_launch<32, 1, 1>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, L, stream);
+    case 64: return bwd_launch<64, 1, 1>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, L, stream);
+    case 112: return bwd_launch<112, 2, 2>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, L, stream);
+    case 128: return bwd_launch<128, 2, 2>(q, k, v, o, lse, dout, dq, dk, dv, delta, part, part_floats, BH, BHkv, S, Tk, scale, causal, L, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2192,9 +2536,11 @@ int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
 // (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel and, where the dK/dV walk is
 // split, flash_bwd_dkdv_sum_kernel over `part`, f32 scratch of part_floats
 // floats: kernels/flash_attention.dkdv_partials, any other size refuses),
-// 1 bfloat16 (flash_bwd_dq_bf16_kernel, flash_bwd_dkdv_bf16_kernel; `part`
-// unused, part_floats 0); launches on `stream`, the dQ kernel first.
-// Returns the first failed launch's cudaError_t, else 0.
+// 1 bfloat16 (flash_bwd_dq_bf16_kernel, flash_bwd_dkdv_bf16_kernel and,
+// where split, flash_bwd_dkdv_sum_bf16_kernel over `part`:
+// kernels/flash_attention.dkdv_partials_bf16, any other size refuses);
+// launches on `stream`, the dQ kernel first.  Returns the first failed
+// launch's cudaError_t, else 0.
 int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
@@ -2219,8 +2565,9 @@ int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
     return (int)bwd::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl,
                                   static_cast<float*>(part), part_floats, BH,
                                   BHkv, S, Tk, scale, causal, s);
-  if (dtype == 1 && part_floats == 0)
-    return (int)tc::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl, BH,
+  if (dtype == 1)
+    return (int)tc::bwd_dispatch(D, q, k, v, o, ls, dout, dq, dk, dv, dl,
+                                 static_cast<float*>(part), part_floats, BH,
                                  BHkv, S, Tk, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -53,18 +53,21 @@ forward kernel with ``return_lse=True`` (each row's log-sum-exp, f32
 and the log-sum-exp; its backward is ``flash_attention_bwd``:
 
   on the card  hand-written kernels in ``csrc/flash_attention.cu``, every
-               product on the tensor cores (``mma.sync``; bf16 in one term,
-               f32 in three TF32 terms as the f32 forward): a dQ kernel
-               that also writes ``delta = rowsum(dO o O)``, then a dK/dV
-               kernel per (kv head, block of keys) that walks its group's
-               q heads.  In f32 that walk is cut into segments
-               (``dkdv_split``, a function of S, T, D, the group and
-               ``causal`` alone), whose f32 partial sums a second pass adds
-               in segment order.  No atomics: the gradients are bitwise
-               from run to run and independent of the rest of the batch.
-               ``flash_attention_bwd_3xtf32_plain`` spells out the f32
-               kernels' arithmetic; on the card they are held within 2e-4
-               of max |g| of the plain version and 1e-4 of it.
+               product on the tensor cores (bf16 on ``wgmma`` as the bf16
+               forward, f32 on ``mma.sync`` in three TF32 terms as the f32
+               forward): a dQ kernel that also writes ``delta = rowsum(dO
+               o O)``, then a dK/dV kernel per (kv head, block of keys,
+               segment) whose segment walks part of its group's q heads
+               and query stages.  The walk is cut into segments by a
+               function of S, T, D, the group and ``causal`` alone
+               (``dkdv_split``, ``dkdv_split_bf16``), whose f32 partial
+               sums a second pass adds in segment order (and, in bf16,
+               rounds once).  No atomics: the gradients are bitwise from
+               run to run and independent of the rest of the batch.
+               ``flash_attention_bwd_bf16_plain`` and
+               ``flash_attention_bwd_3xtf32_plain`` spell out the bf16 and
+               f32 kernels' arithmetic; on the card the kernels are held
+               to them and to the plain version (2e-2 / 2e-4 of max |g|).
   on the CPU   ``flash_attention_bwd_plain``, the kernels' function in f32.
 
 The reference has no backward kernel: its training differentiates the
@@ -392,6 +395,40 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.reshape(bh, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_bf16_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   lse: torch.Tensor, dout: torch.Tensor, *,
+                                   causal: bool = True
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The bf16 backward kernels' rounding in plain PyTorch: the scores,
+    ``P = exp(scores - lse)`` (masked scores give 0), ``dP = dO V^T``,
+    ``delta = rowsum(dO o O)`` and ``dS = P o (dP - delta)`` in f32; P and
+    dS each rounded once to bf16 before the products that take them
+    (``dV = bf16(P)^T dO``, ``dQ = scale bf16(dS) K``, ``dK = scale
+    bf16(dS)^T Q``), whose sums stay in f32; dK and dV summed over each kv
+    head's group; each output rounded once to the operands' dtype.  Not a
+    wrapper's fallback: a second yardstick beside
+    ``flash_attention_bwd_plain``."""
+    _check_bwd(q, k, v, out, lse, dout)
+    bh, s, d = q.shape
+    bhkv = k.shape[0]
+    g = bh // bhkv
+    scale = d ** -0.5
+    p = torch.exp(_scores(q, k, causal)
+                  - lse.float().reshape(bhkv, g, s, 1))
+    do = dout.float().reshape(bhkv, g, s, d)
+    delta = (do * out.float().reshape(bhkv, g, s, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("hgst,hgsd->htd", p.bfloat16().float(), do)
+    ds = (p * (torch.einsum("hgsd,htd->hgst", do, v.float()) - delta)
+          ).bfloat16().float()
+    del p
+    dq = torch.einsum("hgst,htd->hgsd", ds, k.float()) * scale
+    dk = torch.einsum("hgst,hgsd->htd", ds,
+                      q.float().reshape(bhkv, g, s, d)) * scale
+    return dq.reshape(bh, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_3xtf32_plain(q: torch.Tensor, k: torch.Tensor,
                                      v: torch.Tensor, out: torch.Tensor,
                                      lse: torch.Tensor, dout: torch.Tensor,
@@ -434,21 +471,43 @@ def flash_attention_bwd_3xtf32_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.reshape(bh, s, d), dk, dv
 
 
-# The f32 backward kernels' blocks (``csrc/flash_attention.cu``, ``namespace
-# bwd``; a test parses both): per head dim, the query rows of a dQ block and
-# the keys of a dK/dV block (16 for each pair of warps), and the dK/dV
-# kernel's query stage.  The dK/dV walk of a key block (its group's q heads
-# times its query stages) is cut into segments of L stages: the heaviest key
-# block's walk into about ``DKDV_SEG_TARGET`` segments, at least
-# ``DKDV_SEG_MIN`` stages each.
+# The backward kernels' blocks (``csrc/flash_attention.cu``; a test parses
+# both).  f32 (``namespace bwd``): per head dim, the query rows of a dQ block
+# and the keys of a dK/dV block (16 for each pair of warps), and the dK/dV
+# kernel's query stage.  bf16 (``namespace tc``): the keys of a dK/dV block
+# (64 for each warpgroup) and its query stage.  The dK/dV walk of a key
+# block (its group's q heads times its query stages) is cut into segments
+# of L stages: the heaviest key block's walk into about ``*SEG_TARGET``
+# segments, at least ``*SEG_MIN`` stages each.
 BWD_F32_BLOCK = {16: 32, 32: 32, 64: 32, 112: 64, 128: 64}
 BWD_F32_BQ = 32
 DKDV_SEG_TARGET = 32
 DKDV_SEG_MIN = 4
+BWD_BF16_BLOCK = {16: 64, 32: 64, 64: 64, 112: 128, 128: 128}
+BWD_BF16_BQ = 64
+DKDV_BF16_SEG_TARGET = 16
+DKDV_BF16_SEG_MIN = 64
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _walk_split(s: int, t: int, keys: int, stage: int, target: int,
+                minimum: int, group: int,
+                causal: bool) -> Tuple[int, Tuple[int, ...]]:
+    """``(L, counts)`` of a dK/dV walk over blocks of ``keys`` keys and
+    query stages of ``stage`` queries: L the stages of a segment, the
+    heaviest key block's walk in about ``target`` segments of at least
+    ``minimum`` stages; ``counts[j]`` the segments of key block j (at least
+    one)."""
+    stages = max(minimum, _cdiv(group * _cdiv(s, stage), target))
+    counts = []
+    for j in range(_cdiv(t, keys)):
+        q_begin = j * keys if causal else 0
+        n_q = _cdiv(s - q_begin, stage) if q_begin < s else 0
+        counts.append(max(1, _cdiv(group * n_q, stages)))
+    return stages, tuple(counts)
 
 
 def dkdv_split(s: int, t: int, d: int, group: int,
@@ -461,26 +520,46 @@ def dkdv_split(s: int, t: int, d: int, group: int,
     stage ``it % n_q`` from the diagonal (under ``causal``) on.  A
     function of the shapes of one sequence alone: the batch never changes
     how a sequence's gradients are summed."""
-    keys = BWD_F32_BLOCK[d]
-    n_q0 = _cdiv(s, BWD_F32_BQ)
-    stages = max(DKDV_SEG_MIN, _cdiv(group * n_q0, DKDV_SEG_TARGET))
-    counts = []
-    for j in range(_cdiv(t, keys)):
-        q_begin = j * keys if causal else 0
-        n_q = _cdiv(s - q_begin, BWD_F32_BQ) if q_begin < s else 0
-        counts.append(max(1, _cdiv(group * n_q, stages)))
-    return stages, tuple(counts)
+    return _walk_split(s, t, BWD_F32_BLOCK[d], BWD_F32_BQ, DKDV_SEG_TARGET,
+                       DKDV_SEG_MIN, group, causal)
+
+
+def dkdv_split_bf16(s: int, t: int, d: int, group: int,
+                    causal: bool) -> Tuple[int, Tuple[int, ...]]:
+    """``dkdv_split`` for the bf16 dK/dV kernel: its blocks of
+    ``BWD_BF16_BLOCK[d]`` keys, query stages of ``BWD_BF16_BQ`` and
+    ``DKDV_BF16_SEG_*``; the same walk and the same independence of the
+    batch."""
+    return _walk_split(s, t, BWD_BF16_BLOCK[d], BWD_BF16_BQ,
+                       DKDV_BF16_SEG_TARGET, DKDV_BF16_SEG_MIN, group, causal)
+
+
+def _partials(counts: Tuple[int, ...], keys: int, d: int) -> int:
+    """f32 floats of the partial sums for one kv head: a slot of ``2 *
+    keys * d`` (dK's and dV's) per segment of every key block, or 0 where
+    no key block has more than one segment (the kernel then writes dk and
+    dv itself)."""
+    return 0 if max(counts) == 1 else sum(counts) * 2 * keys * d
 
 
 def dkdv_partials(s: int, t: int, d: int, group: int, causal: bool) -> int:
-    """f32 floats of the dK/dV kernel's partial sums for one kv head: a
-    slot of ``2 * keys * d`` (dK's and dV's) per segment of every key
-    block, or 0 where no key block has more than one segment (the kernel
-    then writes dk and dv itself)."""
+    """f32 floats of the f32 dK/dV kernel's partial sums for one kv head
+    (``_partials`` of ``dkdv_split``)."""
     _, counts = dkdv_split(s, t, d, group, causal)
-    if max(counts) == 1:
-        return 0
-    return sum(counts) * 2 * BWD_F32_BLOCK[d] * d
+    return _partials(counts, BWD_F32_BLOCK[d], d)
+
+
+def dkdv_partials_bf16(s: int, t: int, d: int, group: int,
+                       causal: bool) -> int:
+    """f32 floats of the bf16 dK/dV kernel's partial sums for one kv head
+    (``_partials`` of ``dkdv_split_bf16``)."""
+    _, counts = dkdv_split_bf16(s, t, d, group, causal)
+    return _partials(counts, BWD_BF16_BLOCK[d], d)
+
+
+_SPLITS = {torch.float32: (dkdv_split, dkdv_partials, BWD_F32_BLOCK),
+           torch.bfloat16: (dkdv_split_bf16, dkdv_partials_bf16,
+                            BWD_BF16_BLOCK)}
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
@@ -493,8 +572,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
     bhkv, t, _ = k.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    n_part = bhkv * dkdv_partials(s, t, d, bh // bhkv, causal) \
-        if q.dtype == torch.float32 else 0
+    n_part = bhkv * _SPLITS[q.dtype][1](s, t, d, bh // bhkv, causal)
     part = torch.empty(n_part, dtype=torch.float32, device=q.device) \
         if n_part else None
     lib = library()
@@ -512,17 +590,18 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
 
 def _partial_slots(q: torch.Tensor, k: torch.Tensor,
                    causal: bool) -> Tuple[int, int, int]:
-    """(slots, blocks, keys) of the f32 dK/dV kernel's partial sums that
-    the second pass reads, over every kv head: the segments of the key
-    blocks walked by more than one, those key blocks, and the keys of a
-    block; zeros for bf16 or where nothing is split."""
+    """(slots, blocks, keys) of the dK/dV kernel's partial sums that the
+    second pass reads, over every kv head: the segments of the key blocks
+    walked by more than one, those key blocks, and the keys of a block;
+    zeros where nothing is split or no kernel takes the operands."""
     bh, s, d = q.shape
     bhkv, t, _ = k.shape
-    if q.dtype != torch.float32 or d not in BWD_F32_BLOCK:
+    if q.dtype not in _SPLITS or d not in SUPPORTED_HEAD_DIMS:
         return 0, 0, 0
-    _, counts = dkdv_split(s, t, d, bh // bhkv, causal)
+    split_rule, _, block = _SPLITS[q.dtype]
+    _, counts = split_rule(s, t, d, bh // bhkv, causal)
     split = [c for c in counts if c > 1]
-    return bhkv * sum(split), bhkv * len(split), BWD_F32_BLOCK[d]
+    return bhkv * sum(split), bhkv * len(split), block[d]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

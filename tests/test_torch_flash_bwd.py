@@ -247,13 +247,18 @@ def test_bad_operands_raise():
 
 def test_backward_dispatch_switches_equal_supported_head_dims():
     """One ``bwd_dispatch`` switch per dtype, each over
-    ``SUPPORTED_HEAD_DIMS``: any other head dim raises on the card."""
+    ``SUPPORTED_HEAD_DIMS``: any other head dim raises on the card.  The
+    bf16 backward's products run on wgmma (S and dP with both operands
+    read from shared memory), none on the mma.sync m16n8k16 of its first
+    version."""
     bodies = re.findall(r"cudaError_t bwd_dispatch\(int D,.*?default:", SRC,
                         flags=re.S)
     assert len(bodies) == 2
     for body in bodies:
         assert tuple(int(n) for n in re.findall(r"case (\d+):", body)) == \
             SUPPORTED_HEAD_DIMS
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SRC
+    assert "mma.sync.aligned.m16n8k16" not in SRC
+    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n64k16\.f32\.bf16"
+                     r"\.bf16 \{[^}]*\}, %32, %33,", SRC)
     # deterministic by construction: no atomic adds anywhere
     assert not re.search(r"atomicAdd|\bred\.|\batom\.", SRC)

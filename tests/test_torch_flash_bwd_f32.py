@@ -299,10 +299,10 @@ class _Recorder:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_meta_lists_the_partials_apart(dtype):
-    """On ``meta`` the f32 backward reports its split's partials as
+    """On ``meta`` the backward reports its split's partials as
     ``flash_attention_bwd_partials``: the slots of the key blocks walked
-    by more than one segment, written and read once, and their adds;
-    bf16 splits nothing."""
+    by more than one segment, written and read once, and their adds; f32
+    by ``dkdv_split``, bf16 by ``dkdv_split_bf16``."""
     bh, bhkv, s, d = 16, 2, 4096, 128
     q, out, dout = (torch.empty(bh, s, d, dtype=dtype, device="meta")
                     for _ in range(3))
@@ -313,13 +313,12 @@ def test_meta_lists_the_partials_apart(dtype):
     with meta.recording(rec):
         flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
     names = [c[0] for c in rec.calls]
-    assert names[0] == "flash_attention_bwd"
-    if dtype == torch.bfloat16:
-        assert names == ["flash_attention_bwd"]
-        return
-    _, counts = dkdv_split(s, s, d, bh // bhkv, True)
+    assert names == ["flash_attention_bwd", "flash_attention_bwd_partials"]
+    rule, block = ((dkdv_split, BWD_F32_BLOCK) if dtype == torch.float32
+                   else (FA.dkdv_split_bf16, FA.BWD_BF16_BLOCK))
+    _, counts = rule(s, s, d, bh // bhkv, True)
     split = [c for c in counts if c > 1]
-    n = 2 * BWD_F32_BLOCK[d] * d
+    n = 2 * block[d] * d
     assert rec.calls[1] == ("flash_attention_bwd_partials",
                             bhkv * (sum(split) - len(split)) * n,
                             torch.float32, 2 * 4 * bhkv * sum(split) * n)

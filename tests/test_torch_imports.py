@@ -16,7 +16,8 @@ PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_trunk_ab.py",
                              "chip_tile_sweep.py", "chip_phase_ab.py",
-                             "chip_flash_ab.py", "chip_mma_rate.py")]
+                             "chip_flash_ab.py", "chip_mma_rate.py",
+                             "chip_bwd_sweep.py")]
 _BANNED_ROOTS = {"jax", "jaxlib", "repro"}
 _LOADERS = {("ctypes", "CDLL"), ("ctypes", "cdll"), ("cuda_build", "load"),
             ("cpp_extension", "load")}
